@@ -1,0 +1,100 @@
+"""Cost and capacity models (paper §III-A, §V-A) — numpy, host side.
+
+Processing cost c_i(t) per datapoint, link cost c_ij(t) per offloaded
+datapoint, error-cost weight f_i(t), node capacity C_i(t), link capacity
+C_ij(t). A copy of :mod:`repro.core.costs` with the same rng stepping,
+so the same seed gives bitwise-equal traces:
+
+* ``synthetic``     — c_i, c_ij ~ U(0,1) i.i.d. (paper's synthetic setting)
+* ``testbed_like``  — correlated traces emulating the paper's Raspberry-Pi
+  measurements: a latent "device quality" factor shared by compute and
+  link speed, plus AR(1) temporal noise, scaled to [0, 1].
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class CostTraces:
+    """Time-indexed network characteristics. All arrays are float64.
+
+    c_node (T, n)      per-datapoint processing cost c_i(t)
+    c_link (T, n, n)   per-datapoint offload cost c_ij(t)
+    f_err  (T, n)      error cost weight f_i(t)
+    cap_node (T, n)    node capacity C_i(t) (datapoints per interval)
+    cap_link (T, n, n) link capacity C_ij(t)
+    """
+
+    c_node: np.ndarray
+    c_link: np.ndarray
+    f_err: np.ndarray
+    cap_node: np.ndarray
+    cap_link: np.ndarray
+
+    @property
+    def T(self) -> int:
+        return self.c_node.shape[0]
+
+    @property
+    def n(self) -> int:
+        return self.c_node.shape[1]
+
+
+def _ar1(rng, T, shape, phi=0.9, sigma=0.1):
+    x = np.empty((T, *shape))
+    x[0] = rng.random(shape)
+    for t in range(1, T):
+        x[t] = phi * x[t - 1] + (1 - phi) * rng.random(shape) \
+            + sigma * rng.standard_normal(shape)
+    return x
+
+
+def _minmax(x):
+    lo, hi = x.min(), x.max()
+    return (x - lo) / (hi - lo + 1e-12)
+
+
+def synthetic_costs(n: int, T: int, rng: np.random.Generator, *,
+                    f_err: float = 0.7, cap: float = np.inf) -> CostTraces:
+    """c_i(t), c_ij(t) ~ U(0,1) (paper §V-A 'synthetic costs')."""
+    return CostTraces(
+        c_node=rng.random((T, n)),
+        c_link=rng.random((T, n, n)),
+        f_err=np.full((T, n), f_err),
+        cap_node=np.full((T, n), cap),
+        cap_link=np.full((T, n, n), cap),
+    )
+
+
+def testbed_like_costs(n: int, T: int, rng: np.random.Generator, *,
+                       f_err: float = 0.7, cap: float = np.inf,
+                       medium: str = "wifi") -> CostTraces:
+    """Correlated compute/link costs emulating the paper's Pi testbed.
+
+    ``medium``: "wifi" links are slower and noisier than "lte".
+    """
+    quality = rng.random(n)  # latent device quality: 0 = fast, 1 = slow
+    c_node = _minmax(0.7 * quality[None, :] + 0.3 * _ar1(rng, T, (n,)))
+    link_base = 0.5 * (quality[None, :, None] + quality[None, None, :])
+    scale, noise = (1.0, 0.25) if medium == "wifi" else (0.6, 0.12)
+    c_link = _minmax(link_base + noise * _ar1(rng, T, (n, n))) * scale
+    return CostTraces(
+        c_node=c_node,
+        c_link=c_link,
+        f_err=np.full((T, n), f_err),
+        cap_node=np.full((T, n), cap),
+        cap_link=np.full((T, n, n), cap),
+    )
+
+
+def with_capacity(traces: CostTraces, cap_node: float,
+                  cap_link: float | None = None) -> CostTraces:
+    return dataclasses.replace(
+        traces,
+        cap_node=np.full_like(traces.cap_node, cap_node),
+        cap_link=np.full_like(traces.cap_link,
+                              cap_link if cap_link is not None else cap_node),
+    )
