@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; it
-imports no JAX. It builds every CUDA kernel of the fog main path from
-``src/repro_torch/kernels/csrc``, then runs four phases and fails (exit
-1, no result line) if any of them fails:
+imports no JAX. It builds every CUDA kernel of the fog paths from
+``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all started
+together), then runs eight phases and fails (exit 1, no result line) if
+any of them fails:
 
 (a) each kernel against its plain PyTorch version on the card, at a
     sweep of shapes plus tie and isolated-row cases: equality is exact
@@ -22,9 +23,27 @@ imports no JAX. It builds every CUDA kernel of the fog main path from
     ρ=0.1, 60,000 samples), with every kernel launch counter set to 0
     just before and read just after: each kernel must have launched,
     and the plan must equal the one the plain version gives on the card;
-(d) each kernel timed on the inputs the fog-scale path gave it (CUDA
-    events, warmed, the L2 cache flushed before each launch), beside its
-    plain version and its least time on this card.
+(d) the Theorem-3 kernel timed on the inputs the fog-scale path gave it
+    (CUDA events, warmed, the L2 cache flushed before each launch),
+    beside its plain version and its least time on this card;
+(e) the segment-reduce kernel against its references on the card:
+    random, mostly empty, out-of-range, empty, single-segment, ragged
+    and non-finite cases; its sum bitwise equal to a sequential
+    ascending-order float32 sum (small shapes) and within γ_k·Σ|x| of a
+    float64 sum (large shapes), bitwise equal from run to run; its max
+    exactly equal to the plain version; and each group's row of
+    ``aggregate_tier`` bitwise equal to ``aggregate_edges`` over the
+    group's members;
+(f) the tiered fog-scale path (the fog-scale flags plus ``--tiers
+    32@5,4@10,1@20``), with every launch counter set to 0 just before
+    and read just after: both kernels must have launched, the history
+    must be finite and the tier levels [1, 2, 1, 3];
+(g) the tiered defaults (cnn, n=10, T=20, ``--tiers 5@10,1@20``) once on
+    the card and once on the CPU, held to each other as in (b), plus
+    ``tier_agg_round`` and ``tier_agg_level`` exactly;
+(h) the segment sum timed on the tier-1 ``w1`` leaf that (f) gave it,
+    beside its plain version, the library call (``index_add_``), the
+    layout build on its own, and its least time on this card.
 
 The line before the last is the JSON list of kernels; the one before it
 the card's name and power limit; the last line is the result.
@@ -51,6 +70,8 @@ SHORT_ARGV = ["--mode", "fog", "--T", "20", "--n-train", "4000",
 FOG_ARGV = ["--mode", "fog", "--model", "mlp", "--n", "1000", "--T", "20",
             "--tau", "5", "--topology", "random", "--rho", "0.1",
             "--n-train", "60000", "--n-test", "10000"]
+TIERED_FOG_ARGV = FOG_ARGV + ["--tiers", "32@5,4@10,1@20"]
+TIERED_SHORT_ARGV = SHORT_ARGV + ["--tiers", "5@10,1@20"]
 
 
 def log(*a):
@@ -178,9 +199,8 @@ def phase_c_fog(torch, np, card, counters, cuda):
         f"{tim['train_s']:.3f} s, {T / tim['train_s']:.4f} rounds/s, "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} B, "
         f"final_acc {out['final_acc']}, kernel launches {launches} [{card}]")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"main path launched no {missing} kernel")
+    if launches["offload_greedy"] == 0:
+        raise AssertionError("main path launched no offload_greedy kernel")
     hist = out["history"]
     if not (np.isfinite(np.stack(hist["device_loss"])).all()
             and np.isfinite(hist["test_loss"]).all()):
@@ -246,6 +266,257 @@ def phase_d_timing(torch, og, ins, launches):
             "shape": {"T": T, "n": n, "live_links": live}}
 
 
+def _seq_sum(np, data, ids, S):
+    """Sequential ascending-order float32 sums, on the CPU: np.cumsum
+    adds one element at a time; adding the last partial sum to 0 gives
+    the kernel's start value of +0."""
+    out = np.zeros(S, np.float32)
+    valid = (ids >= 0) & (ids < S)
+    order = np.argsort(np.where(valid, ids, S), kind="stable")
+    order = order[:int(valid.sum())]
+    bounds = np.searchsorted(ids[order], np.arange(S + 1))
+    for s_ in np.nonzero(np.diff(bounds))[0]:
+        vals = data[order[bounds[s_]:bounds[s_ + 1]]]
+        out[s_] = np.float32(0) + np.cumsum(vals, dtype=np.float32)[-1]
+    return out
+
+
+def _same_bits(np, a, b):
+    """Bitwise equal, NaN matching NaN whatever its payload."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    na, nb = np.isnan(a), np.isnan(b)
+    return bool((na == nb).all() and np.array_equal(
+        a[~na].view(np.int32), b[~nb].view(np.int32)))
+
+
+def _segment_cases(np):
+    """(name, data f32, ids int32, S): the edge cases of phase (e)."""
+    rng = np.random.default_rng(12)
+
+    def normal(E):
+        return rng.standard_normal(E).astype(np.float32)
+
+    cases = [("random unsorted", normal(200_000),
+              rng.integers(0, 3_001, 200_000), 3_001),
+             ("mostly empty", normal(5_000),
+              rng.choice(np.arange(0, 100_000, 97), 5_000), 100_000),
+             ("out of range", normal(100_000),
+              rng.integers(-500, 20_500, 100_000), 20_000),
+             ("no elements", normal(0), np.zeros(0, np.int64), 17),
+             ("one huge segment", normal(1 << 20), np.full(1 << 20, 3), 5),
+             ("ragged S", normal(123_457),
+              rng.integers(0, 7_919, 123_457), 7_919)]
+    data = normal(1_000)
+    ids = rng.integers(0, 50, 1_000)
+    data[ids == 7] = 1.0
+    hit = np.nonzero(ids == 7)[0]
+    data[hit[0]], data[hit[-1]] = np.nan, np.inf
+    data[np.nonzero(ids == 9)[0][0]] = -np.inf
+    cases.append(("NaN and inf in one segment", data, ids, 50))
+    return [(name, d, i.astype(np.int32), S) for name, d, i, S in cases]
+
+
+def phase_e_segment(torch, np, sr, eng, card, cuda):
+    """Segment-reduce kernel against its references on the card."""
+    for name, data, ids, S in _segment_cases(np):
+        d = torch.from_numpy(data).to(cuda)
+        i = torch.from_numpy(ids).to(cuda)
+        got = sr.segment_sum(d, i, S).cpu().numpy()
+        again = sr.segment_sum(d, i, S).cpu().numpy()
+        want = _seq_sum(np, data, ids, S)
+        mx = sr.segment_max(d, i, S).cpu().numpy()
+        mx_cpu = sr.segment_max_plain(torch.from_numpy(data),
+                                      torch.from_numpy(ids), S).numpy()
+        ok = {"sum == sequential sum": _same_bits(np, got, want),
+              "sum repeats": _same_bits(np, got, again),
+              "max == plain on CPU": _same_bits(np, mx, mx_cpu)}
+        if np.isfinite(data).all():      # CUDA amax on NaN is no yardstick
+            mx_card = sr.segment_max_plain(d, i, S).cpu().numpy()
+            ok["max == plain on card"] = _same_bits(np, mx, mx_card)
+        log(f"(e) segment_reduce {name} (E={len(data)}, S={S}): {ok}")
+        if not all(ok.values()):
+            raise AssertionError(f"segment kernel wrong on {name}: {ok}")
+    # large shapes: within gamma_k * sum|x| of a float64 sum, and bitwise
+    # repeatable
+    E, S = 50_000_000, 1_000_003
+    g = torch.Generator(device=cuda).manual_seed(5)
+    d = torch.randn(E, generator=g, device=cuda)
+    i = torch.randint(-1_000, S + 1_000, (E,), generator=g, device=cuda,
+                      dtype=torch.int32)
+    layout = sr.segment_layout(i, S)
+    got = sr.segment_sum(d, i, S, layout=layout)
+    for _ in range(2):
+        again = sr.segment_sum(d, i, S, layout=layout)
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError("segment sum not bitwise repeatable")
+    valid = (i >= 0) & (i < S)
+    iv = i[valid].long()
+    ref = torch.zeros(S, dtype=torch.float64, device=cuda).index_add_(
+        0, iv, d[valid].double())
+    mag = torch.zeros(S, dtype=torch.float64, device=cuda).index_add_(
+        0, iv, d[valid].double().abs())
+    k = torch.bincount(iv, minlength=S).double()
+    u = 2.0 ** -24
+    gamma = k * u / (1 - k * u)
+    excess = ((got.double() - ref).abs() - gamma * mag).max().item()
+    mx = sr.segment_max(d, i, S, layout=layout)
+    mx_equal = bool(torch.equal(mx, sr.segment_max_plain(d, i, S)))
+    log(f"(e) segment_reduce large (E={E}, S={S}, up to {int(k.max())} per "
+        f"segment): sum repeats bitwise; max(|sum - f64 sum| - "
+        f"gamma_k*sum|x|) = {excess} (must be <= 0); max == plain on card "
+        f"{mx_equal} [{card}]")
+    if excess > 0 or not mx_equal:
+        raise AssertionError("large segment sum outside gamma_k*sum|x| or "
+                             "max != plain")
+    # aggregate_tier row g == aggregate_edges over group g, at full width
+    from repro_torch.core.hierarchy import TierTree
+    tree = TierTree.from_spec("32@5,4@10,1@20", 1000)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    W = {"w1": torch.randn((1000, 784, 200), generator=g, device=cuda),
+         "b1": torch.randn((1000, 200), generator=g, device=cuda)}
+    H = torch.randint(0, 40, (1000,), generator=g, device=cuda).float()
+    gids = tree.parents[0]
+    Wg, Hg = eng.aggregate_tier(W, H, gids, 32)
+    bad = [g_ for g_ in range(32) if not all(
+        torch.equal(Wg[k_][g_], v)
+        for k_, v in eng.aggregate_edges(W, H, np.nonzero(gids == g_)[0],
+                                         None).items())]
+    log(f"(e) aggregate_tier (m=1000, 32 groups, w1 784x200, b1 200) row g "
+        f"== aggregate_edges over group g, bitwise: {not bad}")
+    if bad:
+        raise AssertionError(f"aggregate_tier rows {bad} differ from "
+                             "aggregate_edges")
+
+
+def phase_f_tiered_fog(torch, np, card, counters, ops):
+    """The tiered fog-scale path; keeps the tier-1 w1 segment sum's
+    inputs for phase (h)."""
+    from repro_torch.launch import train
+
+    biggest = {}
+    real_sum = ops.segment_sum
+
+    def keep_biggest(data, segment_ids, *, num_segments, layout=None):
+        if data.shape[0] > biggest.get("E", -1):
+            biggest.update(E=data.shape[0], data=data, ids=segment_ids,
+                           S=num_segments, layout=layout)
+        return real_sum(data, segment_ids, num_segments=num_segments,
+                        layout=layout)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.segment_sum = keep_biggest
+    try:
+        for c in counters.values():
+            c.reset_launches()
+        out = train.main(TIERED_FOG_ARGV)
+        launches = {name: c.launches for name, c in counters.items()}
+    finally:
+        ops.segment_sum = real_sum
+    T = int(FOG_ARGV[FOG_ARGV.index("--T") + 1])
+    tim = out["timing"]
+    hist = out["history"]
+    log(f"(f) tiered fog scale (mlp n=1000 T=20 tau=5 random rho=0.1, tiers "
+        f"32@5,4@10,1@20): P {out['pad_size']}, plan {tim['plan_s']:.4f} s, "
+        f"train {tim['train_s']:.3f} s, {T / tim['train_s']:.4f} rounds/s, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B, "
+        f"final_acc {out['final_acc']}, tier levels "
+        f"{hist['tier_agg_level']}, kernel launches {launches} [{card}]")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"tiered path launched no {missing} kernel")
+    # one H_g sum and one sum per leaf (the mlp has four), for tiers
+    # 1..level of each aggregation round
+    want = sum(hist["tier_agg_level"]) * (1 + 4)
+    if launches["segment_reduce"] != want:
+        raise AssertionError(f"{launches['segment_reduce']} segment "
+                             f"launches, expected {want}")
+    if hist["tier_agg_level"] != [1, 2, 1, 3]:
+        raise AssertionError(f"tier levels {hist['tier_agg_level']}")
+    if not (np.isfinite(np.stack(hist["device_loss"])).all()
+            and np.isfinite(hist["test_loss"]).all()
+            and np.isfinite(np.stack(hist["H_agg"])).all()):
+        raise AssertionError("tiered fog-scale history is not finite")
+    return launches, biggest
+
+
+def phase_g_tiered_defaults(np, card):
+    from repro_torch.launch import train
+
+    on_card = train.main(TIERED_SHORT_ARGV)
+    on_cpu = train.main(TIERED_SHORT_ARGV + ["--device", "cpu"])
+    dmax, amax = _compare_histories(np, on_card, on_cpu)
+    h, w = on_card["history"], on_cpu["history"]
+    for k in ("tier_agg_round", "tier_agg_level"):
+        if h[k] != w[k]:
+            raise AssertionError(f"{k} differs: {h[k]} vs {w[k]}")
+    log(f"(g) tiered defaults (cnn n=10 T=20, tiers 5@10,1@20) card vs CPU: "
+        f"cost, agg_round, H_agg, active, processed_counts, tier_agg_round "
+        f"{h['tier_agg_round']}, tier_agg_level {h['tier_agg_level']} equal;"
+        f" max |device_loss diff| {dmax}, max |test_acc diff| {amax} "
+        f"[{card}]")
+
+
+def phase_h_segment_timing(torch, sr, biggest, launches):
+    """segment_sum on the tier-1 w1 leaf of the tiered fog-scale run."""
+    d, ids, S, layout = (biggest[k] for k in ("data", "ids", "S", "layout"))
+    layout = layout or sr.segment_layout(ids, S)
+    E = d.shape[0]
+    flush = torch.empty(64 * 1024 ** 2, dtype=torch.uint8, device="cuda")
+    got = sr.segment_sum(d, ids, S, layout=layout)
+    plain = sr.segment_sum_plain(d, ids, S)
+    diff = (got.double() - plain.double()).abs()
+    err = float(diff.max())
+    # both are float32 sums of the same k terms in two orders, each within
+    # gamma_k * sum|x| of the exact sum: they differ by at most twice that
+    k = (layout.offsets[1:] - layout.offsets[:-1]).double()
+    mag = torch.zeros(S, dtype=torch.float64, device=d.device).index_add_(
+        0, ids.long(), d.double().abs())
+    u = 2.0 ** -24
+    if bool((diff > 2 * k * u / (1 - k * u) * mag).any()):
+        raise AssertionError("segment sum and its plain version differ by "
+                             "more than 2*gamma_k*sum|x| on the w1 leaf")
+    idx64 = ids.long()
+
+    def library_sum(d, ids, S):
+        return torch.zeros(S, device=d.device).index_add_(0, ids, d)
+
+    def library_max(d, ids, S):
+        return torch.full((S,), float("-inf"), device=d.device) \
+            .scatter_reduce_(0, idx64, d, "amax")
+
+    def kernel_sum(d, ids, S):
+        return sr.segment_sum(d, ids, S, layout=layout)
+
+    def kernel_max(d, ids, S):
+        return sr.segment_max(d, ids, S, layout=layout)
+
+    args = (d, ids, S)
+    ms = _time_ms(torch, kernel_sum, args, flush)
+    plain_ms = _time_ms(torch, sr.segment_sum_plain, args, flush)
+    library_ms = _time_ms(torch, library_sum, args, flush)
+    layout_ms = _time_ms(torch, sr.segment_layout, (ids, S), flush, reps=10)
+    max_ms = _time_ms(torch, kernel_max, args, flush)
+    max_plain_ms = _time_ms(torch, sr.segment_max_plain, args, flush)
+    max_library_ms = _time_ms(torch, library_max, args, flush)
+    if not torch.equal(kernel_max(*args), sr.segment_max_plain(*args)):
+        raise AssertionError("segment max != plain on the w1 leaf")
+    # least work: each float and each int32 id read once, each sum written
+    nbytes = 4 * E + 4 * E + 4 * S
+    ops_ = E                                  # one add per element
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / F32_OPS_PER_S
+    return {"name": "segment_reduce", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
+            "replaces": "src/repro/kernels/segment_reduce.py:78",
+            "launches": launches["segment_reduce"], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms,
+            "layout_ms": layout_ms, "max_ms": max_ms,
+            "max_plain_ms": max_plain_ms, "max_library_ms": max_library_ms,
+            "shape": {"E": E, "S": S}}
+
+
 def main() -> int:
     import torch
 
@@ -257,14 +528,17 @@ def main() -> int:
     try:
         import numpy as np
 
+        from repro_torch.core import engine as eng
         from repro_torch.device import resolve_device
         from repro_torch.kernels import _build
         from repro_torch.kernels import offload_greedy as og
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import segment_reduce as sr
     except ImportError as e:
         print(f"chip_smoke: cannot import the port from {ROOT / 'src'}: "
               f"{e}", file=sys.stderr)
         return 2
-    counters = {"offload_greedy": og}
+    counters = {"offload_greedy": og, "segment_reduce": sr}
     card = card_line()
     cuda = resolve_device("cuda")
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
@@ -276,38 +550,59 @@ def main() -> int:
     for name, path in libs.items():
         log(path.with_suffix(".log").read_text().strip())
 
-    failed, kernels, ins, launches = [], [], None, None
+    state: dict = {}
+    kernels: dict = {}
+
+    def c():
+        state["c"] = phase_c_fog(torch, np, card, counters, cuda)
+
+    def d():
+        launches, ins = state["c"]
+        k = kernels["offload_greedy"] = phase_d_timing(torch, og, ins,
+                                                       launches)
+        log(f"(d) {k['name']} on the fog-scale inputs {k['shape']}: "
+            f"kernel {k['ms']} ms, least time {1e3 * k['bound_ms']} us "
+            f"(bound by {k['bound_by']}), plain version {k['plain_ms']} ms, "
+            f"library call none, launches on the main path "
+            f"{k['launches']}, max abs err {k['max_abs_err']} [{card}]")
+
+    def f():
+        state["f"] = phase_f_tiered_fog(torch, np, card, counters, ops)
+
+    def h():
+        launches, biggest = state.pop("f")
+        k = kernels["segment_reduce"] = phase_h_segment_timing(
+            torch, sr, biggest, launches)
+        log(f"(h) {k['name']} sum on the tier-1 w1 leaf {k['shape']}: "
+            f"kernel {k['ms']} ms, least time {k['bound_ms']} ms (bound by "
+            f"{k['bound_by']}), plain version {k['plain_ms']} ms, library "
+            f"index_add_ {k['library_ms']} ms, layout build "
+            f"{k['layout_ms']} ms; max: kernel {k['max_ms']} ms, plain "
+            f"{k['max_plain_ms']} ms, library scatter_reduce_ amax "
+            f"{k['max_library_ms']} ms; launches on the tiered path "
+            f"{k['launches']}, max abs err vs plain {k['max_abs_err']} "
+            f"[{card}]")
+
     phases = [("a", lambda: phase_a_kernels(torch, og, cuda)),
               ("b", lambda: phase_b_defaults(torch, np, card, counters, cuda)),
-              ("c", lambda: phase_c_fog(torch, np, card, counters, cuda))]
+              ("c", c), ("d", d),
+              ("e", lambda: phase_e_segment(torch, np, sr, eng, card, cuda)),
+              ("f", f), ("g", lambda: phase_g_tiered_defaults(np, card)),
+              ("h", h)]
+    failed = []
     for name, fn in phases:
         t0 = time.perf_counter()
         try:
-            res = fn()
-            if name == "c":
-                launches, ins = res
+            fn()
         except Exception:                  # report every phase, then fail
             traceback.print_exc()
             failed.append(name)
         log(f"phase ({name}) {'FAILED' if name in failed else 'ok'} in "
             f"{time.perf_counter() - t0:.1f} s [{card}]")
-    if ins is not None:
-        try:
-            kernels.append(phase_d_timing(torch, og, ins, launches))
-            k = kernels[-1]
-            log(f"(d) {k['name']} on the fog-scale inputs {k['shape']}: "
-                f"kernel {k['ms']} ms, least time {1e3 * k['bound_ms']} us "
-                f"(bound by {k['bound_by']}), plain version "
-                f"{k['plain_ms']} ms, library call none, launches on the "
-                f"main path {k['launches']}, max abs err "
-                f"{k['max_abs_err']} [{card}]")
-        except Exception:
-            traceback.print_exc()
-            failed.append("d")
     if failed:
         print(f"chip_smoke: phases failed: {failed}", file=sys.stderr)
         return 1
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": [kernels[k] for k in counters]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

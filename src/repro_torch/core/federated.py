@@ -4,11 +4,14 @@
 routing, pad sizing) and hands the staged rounds to the training engine
 in :mod:`repro_torch.core.engine`: ``"scan"`` (the whole horizon on the
 device, default), ``"legacy"`` (the per-round oracle) or ``"auto"``
-(scan: the port runs on one card).
+(scan: the port runs on one card). With ``hierarchy=`` a
+:class:`repro_torch.core.hierarchy.TierTree` composes eq. (4) up its
+tiers (``"hierarchical"``, on the scan substrate).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -16,6 +19,7 @@ import torch
 from repro_torch.core import engine as eng
 from repro_torch.core import movement as mv
 from repro_torch.core.costs import CostTraces
+from repro_torch.core.hierarchy import TierTree
 from repro_torch.core.schedule import NetworkSchedule
 from repro_torch.data import pipeline as pl
 from repro_torch.device import resolve_device
@@ -46,6 +50,7 @@ def run_network_aware(cfg: FedConfig, data, traces: CostTraces,
                       engine: str = "scan",
                       schedule: NetworkSchedule | None = None,
                       params: dict | None = None,
+                      hierarchy: TierTree | None = None,
                       device=None) -> dict:
     """Train with a given movement plan. Returns the history dict.
 
@@ -54,16 +59,36 @@ def run_network_aware(cfg: FedConfig, data, traces: CostTraces,
     mask; ``activity`` overrides it. ``params`` — optional initial
     global parameters (port layout, e.g. from
     ``models.convert.params_from_jax``); by default they are drawn from
-    a ``torch.Generator`` seeded with ``cfg.seed``. ``device`` defaults
-    to ``cuda``.
+    a ``torch.Generator`` seeded with ``cfg.seed``. ``hierarchy`` — a
+    tier tree over the ``cfg.n`` devices whose first period is
+    ``cfg.tau``; engines ``"auto"``, ``"scan"`` and ``"hierarchical"``
+    then run it (an L=1 tree is the flat scan), and the history gains
+    ``"hierarchy"``. ``device`` defaults to ``cuda``.
     """
     device = resolve_device(device)
+    if hierarchy is not None:
+        if engine not in ("auto", "scan", "hierarchical"):
+            raise ValueError("hierarchy= runs on the scan substrate; "
+                             f"got engine={engine!r}")
+        if hierarchy.n != cfg.n:
+            raise ValueError(f"tier tree has n={hierarchy.n} devices "
+                             f"but cfg.n={cfg.n}")
+        if hierarchy.taus[0] != cfg.tau:
+            raise ValueError(f"tier tree aggregates its first tier "
+                             f"every {hierarchy.taus[0]} rounds but "
+                             f"cfg.tau={cfg.tau}")
+        engine = "hierarchical"
+    elif engine == "hierarchical":
+        raise ValueError("engine='hierarchical' needs a hierarchy= "
+                         "TierTree")
     if engine == "auto":
         engine = "scan"
     if engine in _UNPORTED_ENGINES:
         raise ValueError(f"engine={engine!r} is not ported yet (ROADMAP.md,"
                          f" {_UNPORTED_ENGINES[engine]})")
-    runners = {"scan": eng.run_rounds_scan, "legacy": eng.run_rounds_legacy}
+    runners = {"scan": eng.run_rounds_scan, "legacy": eng.run_rounds_legacy,
+               "hierarchical": functools.partial(
+                   eng.run_rounds_hierarchical, tree=hierarchy)}
     if engine not in runners:
         raise ValueError(f"unknown engine {engine!r}; expected one of "
                          f"{sorted(runners)} or 'auto'")
@@ -82,6 +107,10 @@ def run_network_aware(cfg: FedConfig, data, traces: CostTraces,
 
     hist = _history_base(cfg, y_tr, streams, processed, act_all)
     hist["max_points"] = max_pts
+    if hierarchy is not None:
+        hist["hierarchy"] = {"levels": hierarchy.levels,
+                             "group_counts": list(hierarchy.group_counts),
+                             "taus": list(hierarchy.taus)}
     hist.update(runners[engine](apply_fn, params, x_tr, y_tr, x_te, y_te,
                                 processed, act_all, cfg.tau, cfg.eta,
                                 max_pts, device=device))

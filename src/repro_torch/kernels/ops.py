@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import segment_reduce as sr
 from repro_torch.kernels.offload_greedy import offload_greedy_batched
 
 
@@ -44,3 +45,18 @@ def greedy_edges_batched(c_link, c_next, c_node, f_err, adj):
     flat = choice.reshape(-1)
     dst = torch.where(flat == 1, best_j.reshape(-1), src)
     return t_idx, src, dst, flat != 2, choice
+
+
+def segment_sum(data, segment_ids, *, num_segments, layout=None):
+    """out[s] = Σ data[segment_ids == s] over (E,) float32 data and
+    int32 ids; 0 for an empty segment, out-of-range ids add nothing.
+    ``layout`` — :func:`repro_torch.kernels.segment_reduce.
+    segment_layout` of the same ids, for callers that reduce over them
+    again and again."""
+    return sr.segment_sum(data, segment_ids, num_segments, layout=layout)
+
+
+def segment_max(data, segment_ids, *, num_segments, layout=None):
+    """out[s] = max data[segment_ids == s] (−inf for an empty
+    segment)."""
+    return sr.segment_max(data, segment_ids, num_segments, layout=layout)

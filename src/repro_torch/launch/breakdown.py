@@ -2,7 +2,8 @@
 
     python -m repro_torch.launch.breakdown [train.py flags] [--reps N]
 
-Builds the problem and the plan as ``launch/train.py`` does, then times
+Builds the problem, the plan and the ``--tiers`` tree (if any) as
+``launch/train.py`` does, then times
 ``run_network_aware`` cold (the first run in the process: library
 initialisation included) and warm (``--reps`` more runs), and profiles
 one more warm run with ``torch.profiler``: the device's busy time (the
@@ -47,19 +48,22 @@ def run(argv=None) -> dict:
     ap.add_argument("--top", type=int, default=8)
     own, rest = ap.parse_known_args(argv)
     args = train.parse_args(rest)
+    train._check_ported(args)
     device = resolve_device(args.device)
     pb = train.build_problem(args)
     t0 = time.perf_counter()
     plan = train.solve_setting(args.setting, pb["traces"], pb["schedule"],
                                pb["D"], device=device)
     plan_s = time.perf_counter() - t0
+    hierarchy = train.make_hierarchy(args, pb["cfg"])
 
     def once():
         _sync(device)
         t = time.perf_counter()
         F.run_network_aware(pb["cfg"], pb["data"], pb["traces"], pb["adj"],
                             plan, streams=pb["streams"],
-                            schedule=pb["schedule"], device=device)
+                            schedule=pb["schedule"], hierarchy=hierarchy,
+                            device=device)
         _sync(device)
         return time.perf_counter() - t
 
@@ -82,6 +86,7 @@ def run(argv=None) -> dict:
             "device_name": (torch.cuda.get_device_name(device)
                             if device.type == "cuda" else "cpu"),
             "T": args.T, "n": args.n, "model": args.model,
+            "tiers": args.tiers,
             "plan_s": plan_s, "train_cold_s": cold, "train_warm_s": warm,
             "profiled_wall_s": wall, "device_busy_s": busy,
             "device_idle_share": (1.0 - busy / wall) if device.type == "cuda"

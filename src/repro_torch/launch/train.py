@@ -22,6 +22,7 @@ import numpy as np
 from repro_torch.core import federated as F
 from repro_torch.core import movement as mv
 from repro_torch.core.costs import synthetic_costs, testbed_like_costs
+from repro_torch.core.hierarchy import TierTree
 from repro_torch.core.topology import make_schedule, make_topology
 from repro_torch.data import pipeline as pl
 from repro_torch.data.synthetic import make_image_dataset
@@ -63,7 +64,6 @@ def _check_ported(args) -> None:
          "faults and recovery"),
         (args.checkpoint or args.resume, "--checkpoint/--resume", 9,
          "faults and recovery"),
-        (args.tiers, "--tiers", 10, "hierarchy"),
         (args.engine == "batched", "--engine batched", 11, "sweep engine"),
         (args.engine == "sharded", "--engine sharded", 12, "multi-GPU"),
         (args.sanitize, "--sanitize", 13, "tooling"),
@@ -93,6 +93,18 @@ def build_problem(args) -> dict:
             "schedule": make_schedule("static", adj, cfg.T)}
 
 
+def make_hierarchy(args, cfg) -> TierTree | None:
+    """The ``--tiers`` tree over the run's devices, or None. Its first
+    period must be ``--tau``."""
+    if not args.tiers:
+        return None
+    tree = TierTree.from_spec(args.tiers, cfg.n)
+    if tree.taus[0] != cfg.tau:
+        raise SystemExit(f"--tiers first period {tree.taus[0]} must equal "
+                         f"--tau {cfg.tau}")
+    return tree
+
+
 def run_fog(args) -> dict:
     """The main path: costs → topology → streams → plan → routing →
     training → plan cost. Prints the reference's summary JSON (plus the
@@ -103,6 +115,7 @@ def run_fog(args) -> dict:
     pb = build_problem(args)
     cfg, traces, schedule, D = pb["cfg"], pb["traces"], pb["schedule"], \
         pb["D"]
+    hierarchy = make_hierarchy(args, cfg)
     t0 = time.perf_counter()
     plan = solve_setting(args.setting, traces, schedule, D,
                          error_model=args.error_model, device=device)
@@ -110,7 +123,8 @@ def run_fog(args) -> dict:
     engine = "scan" if args.engine == "auto" else args.engine
     hist = F.run_network_aware(cfg, pb["data"], traces, pb["adj"], plan,
                                streams=pb["streams"], schedule=schedule,
-                               engine=engine, device=device)
+                               engine=engine, hierarchy=hierarchy,
+                               device=device)
     t2 = time.perf_counter()
     cost = mv.plan_cost(plan, traces, D, error_model=args.error_model)
     out = {"mode": "fog", "setting": args.setting, "engine": engine,
@@ -121,6 +135,9 @@ def run_fog(args) -> dict:
            "sim_before": hist["sim_before"], "sim_after": hist["sim_after"],
            "device": str(device), "pad_size": hist["max_points"],
            "timing": {"plan_s": t1 - t0, "train_s": t2 - t1}}
+    if hierarchy is not None:
+        out["engine"] = "hierarchical"
+        out["hierarchy"] = hist["hierarchy"]
     print(json.dumps(out, default=float, indent=2))
     return {**out, "plan": plan, "history": hist}
 

@@ -1,4 +1,5 @@
-"""The CUDA kernels on the card, held to their plain PyTorch versions.
+"""The CUDA kernels on the card, held to their plain PyTorch versions
+(and the segment sum to a sequential ascending-order float32 sum).
 
 Every test here needs a CUDA card: it carries the ``gpu`` marker and
 skips with a reason where there is none. The file imports no JAX, so it
@@ -11,7 +12,9 @@ import pytest
 import torch
 
 from repro_torch.core import costs, movement, topology
+from repro_torch.core import engine as eng
 from repro_torch.kernels import offload_greedy as og
+from repro_torch.kernels import segment_reduce as sr
 
 pytestmark = pytest.mark.gpu
 
@@ -82,3 +85,93 @@ def test_device_plan_equals_plain_plan_on_card(cuda):
     want = movement._plan_from_choice(choice.cpu().numpy(),
                                       best_j.cpu().numpy())
     assert movement.plans_equal(plan, want)
+
+
+# ---------------------------------------------------------------------------
+# segment reduce
+# ---------------------------------------------------------------------------
+
+
+def _segment_case(E, S, seed, *, lo=0, hi=None):
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal(E).astype(np.float32)
+    ids = rng.integers(lo, S if hi is None else hi, E).astype(np.int32)
+    return data, ids
+
+
+def _sequential_sum(data, ids, S):
+    """float32 sums in ascending element order, one add at a time."""
+    out = np.zeros(S, np.float32)
+    for x, s in zip(data, ids):
+        if 0 <= s < S:
+            out[s] = np.float32(out[s] + x)
+    return out
+
+
+@pytest.mark.parametrize("E,S,lo,hi", [
+    (0, 5, 0, None), (1, 1, 0, None), (1000, 37, 0, None),
+    (3000, 2000, 0, None), (2048, 64, -9, 80), (5000, 1, 0, None)])
+def test_segment_sum_is_the_sequential_sum_bitwise(cuda, E, S, lo, hi):
+    data, ids = _segment_case(E, S, E + S, lo=lo, hi=hi)
+    before = sr.launches
+    got = sr.segment_sum(torch.from_numpy(data).to(cuda),
+                         torch.from_numpy(ids).to(cuda), S)
+    assert sr.launches == before + 1
+    want = _sequential_sum(data, ids, S)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
+def test_segment_sum_repeats_bitwise_and_max_equals_plain(cuda):
+    data, ids = _segment_case(1 << 21, 40_000, 7, lo=-100, hi=40_100)
+    d, i = torch.from_numpy(data).to(cuda), torch.from_numpy(ids).to(cuda)
+    layout = sr.segment_layout(i, 40_000)
+    first = sr.segment_sum(d, i, 40_000)
+    for _ in range(3):
+        again = sr.segment_sum(d, i, 40_000, layout=layout)
+        assert torch.equal(first.view(torch.int32), again.view(torch.int32))
+    got = sr.segment_max(d, i, 40_000, layout=layout)
+    assert torch.equal(got, sr.segment_max_plain(d, i, 40_000))
+    torch.cuda.synchronize()
+
+
+def test_segment_kernel_keeps_non_finite_in_its_segment(cuda):
+    data = torch.tensor([1, float("nan"), 3, 4, 5, float("inf")],
+                        device=cuda)
+    ids = torch.tensor([0, 0, 1, -1, 7, 2], dtype=torch.int32, device=cuda)
+    s = sr.segment_sum(data, ids, 3).cpu()
+    m = sr.segment_max(data, ids, 3).cpu()
+    assert s[0].isnan() and s[1] == 3 and s[2] == float("inf")
+    assert m[0].isnan() and m[1] == 3 and m[2] == float("inf")
+
+
+def test_segment_kernel_rejects_bad_arguments(cuda):
+    d = torch.ones(64, device=cuda)
+    i = torch.zeros(64, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        sr.segment_sum(d.double(), i, 4)
+    with pytest.raises(TypeError):
+        sr.segment_sum(d, i.long(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        sr.segment_sum(torch.ones(128, device=cuda)[::2], i, 4)
+    with pytest.raises(ValueError):
+        sr.segment_sum(d, i.cpu(), 4)
+    with pytest.raises(ValueError):
+        sr.segment_sum(d, i, 4, layout=sr.segment_layout(i.cpu(), 4))
+
+
+def test_aggregate_tier_row_is_aggregate_edges_bitwise_on_card(cuda):
+    rng = np.random.default_rng(0)
+    m, G = 300, 7
+    W = {"w": torch.from_numpy(rng.standard_normal((m, 50, 9))
+                               .astype(np.float32)).to(cuda),
+         "b": torch.from_numpy(rng.standard_normal((m,))
+                               .astype(np.float32)).to(cuda)}
+    H = torch.from_numpy(rng.integers(0, 9, m).astype(np.float32)).to(cuda)
+    gids = rng.integers(0, G, m)
+    Wg, Hg = eng.aggregate_tier(W, H, gids, G)
+    for g in range(G):
+        members = np.nonzero(gids == g)[0]
+        ref = eng.aggregate_edges(W, H, members, None)
+        for k in W:
+            assert torch.equal(Wg[k][g], ref[k])

@@ -73,7 +73,8 @@ def test_cli_cost_equals_reference_cli(capsys):
 @pytest.mark.parametrize("flags", [
     ["--setting", "C"], ["--setting", "E"], ["--error-model", "sqrt"],
     ["--schedule", "churn"], ["--churn", "0.1"], ["--schedule", "flap"],
-    ["--faults", "drop"], ["--tiers", "2@4,1@8"], ["--checkpoint", "x"],
+    ["--faults", "drop"], ["--tiers", "2@4,1@8", "--faults", "crash"],
+    ["--checkpoint", "x"],
     ["--resume", "x"], ["--sanitize"], ["--engine", "batched"],
     ["--engine", "sharded"], ["--mode", "lm"],
 ])
