@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; it
-imports no JAX. It builds every CUDA kernel of the fog paths from
-``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all started
-together), then runs eight phases and fails (exit 1, no result line) if
-any of them fails:
+imports no JAX. It builds every CUDA kernel of the fog and serving
+paths from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source,
+all started together), then runs thirteen phases and fails (exit 1, no
+result line) if any of them fails:
 
 (a) each kernel against its plain PyTorch version on the card, at a
     sweep of shapes plus tie and isolated-row cases: equality is exact
@@ -43,13 +43,49 @@ any of them fails:
     ``tier_agg_round`` and ``tier_agg_level`` exactly;
 (h) the segment sum timed on the tier-1 ``w1`` leaf that (f) gave it,
     beside its plain version, the library call (``index_add_``), the
-    layout build on its own, and its least time on this card.
+    layout build on its own, and its least time on this card;
+(i) the flash-attention and SSD-scan kernels against their plain
+    versions on the card: MHA, GQA 2:1 and MQA, head_dim 16, 64, 112
+    and 128, lengths that are no multiple of a tile, causal or not,
+    windows 32, 128 and 200, rows the window leaves with no key (must
+    be 0); the SSD scan at several (H, P, N, chunk) and the
+    state-carry impulse. The reference's float32 tolerances: 2e-5 for
+    attention, 1e-4 of max|y| for the scan;
+(j) the serving path of zamba2-7b at full width and depth (6.75 B
+    parameters, float32, drawn on the card from the seed), every launch
+    counter set to 0 just before and read just after the prefill step
+    on B=2 x S=4096 prompts: flash attention must launch exactly 9
+    times and the SSD scan 81 times, and the logits must be finite.
+    Cold and warm prefill time, prefill tokens/s and peak memory; then
+    ``serve.greedy_generate`` at the reference CLI's defaults (batch 4,
+    prompt 16, 32 generated) and its decode tokens/s;
+(k) full-width, full-depth correctness through the path with no
+    kernel, on (j)'s parameters and on the same parameters in float64,
+    for B=2 x S=256 prompts (two SSD chunks): in float64 (the kernels'
+    plain versions standing in for them) the prefill logits and
+    teacher-forced ``decode_step`` logits at every position agree within
+    2e-3 of the largest |logit| (the reference's 2e-3, scaled), which
+    drives every one of the nine shared-block cache slots; in float32
+    the kernels' prefill lies no further from the float64 prefill than
+    twice the larger distance of the two kernel-free float32 paths
+    (prefill through the plain versions, teacher-forced decode), nor
+    than that tolerance; and the first token ``greedy_generate`` emits
+    for each prompt has a float64 prefill logit within the float32
+    tolerance of the row's maximum;
+(l) both new kernels timed on the inputs (j) gave them, beside their
+    plain versions, the library call (scaled_dot_product_attention for
+    attention; none for the scan) and their least time on this card;
+(m) the smoke configs of zamba2-7b, mamba2-1.3b and qwen3-14b once on
+    the card and once on the CPU through the port, with the same
+    parameters: logits within 1e-4 of the largest |logit|, greedy
+    tokens equal.
 
 The line before the last is the JSON list of kernels; the one before it
 the card's name and power limit; the last line is the result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -421,7 +457,8 @@ def phase_f_tiered_fog(torch, np, card, counters, ops):
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} B, "
         f"final_acc {out['final_acc']}, tier levels "
         f"{hist['tier_agg_level']}, kernel launches {launches} [{card}]")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in ("offload_greedy", "segment_reduce")
+               if launches[k] == 0]
     if missing:
         raise AssertionError(f"tiered path launched no {missing} kernel")
     # one H_g sum and one sum per leaf (the mlp has four), for tiers
@@ -517,6 +554,437 @@ def phase_h_segment_timing(torch, sr, biggest, launches):
             "shape": {"E": E, "S": S}}
 
 
+# zamba2-7b serving: the prefill shape, the correctness shape, the serve
+# CLI's defaults
+SERVE_ARCH = "zamba2-7b"
+PREFILL_B, PREFILL_S = 2, 4096
+CHECK_B, CHECK_S = 2, 256
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 16, 32
+SEED = 0
+ATTN_TOL = 2e-5          # the reference's float32 tolerances
+SSD_TOL = 1e-4           # (tests/test_kernels.py), the latter of max|y|
+DECODE_TOL = 2e-3        # tests/test_models_smoke.py, of max|logit| here
+PORT_TOL = 1e-4          # tests/test_torch_lm.py, of max|logit|
+
+
+def _randn(torch, shape, seed, cuda, scale=1.0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=cuda) * scale
+
+
+def phase_i_new_kernels(torch, fa, sd, cuda):
+    """Flash attention and the SSD scan against their plain versions."""
+    attn = [  # B, H, KH, Sq, Sk, hd, causal, window
+        (1, 4, 4, 128, 128, 64, True, None),      # MHA
+        (2, 4, 2, 256, 256, 64, False, None),     # GQA 2:1
+        (1, 8, 1, 256, 256, 16, True, None),      # MQA
+        (1, 2, 2, 100, 77, 112, True, None),      # ragged, zamba2's hd
+        (1, 4, 2, 77, 100, 128, False, None),
+        (1, 2, 2, 300, 300, 112, True, 32),
+        (1, 2, 2, 300, 300, 64, True, 128),
+        (2, 4, 2, 300, 300, 128, False, 200),
+        (1, 4, 2, 200, 64, 112, True, 16),        # rows 79.. see no key
+        (2, 32, 32, 1000, 1000, 112, True, None),  # zamba2's heads
+    ]
+    for i, (B, H, KH, Sq, Sk, hd, causal, window) in enumerate(attn):
+        q = _randn(torch, (B, H, Sq, hd), 3 * i, cuda)
+        k = _randn(torch, (B, KH, Sk, hd), 3 * i + 1, cuda)
+        v = _randn(torch, (B, KH, Sk, hd), 3 * i + 2, cuda)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = fa.flash_attention_plain(q, k, v, fa.default_kv_map(H, KH),
+                                        causal=causal, window=window)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, atol=ATTN_TOL, rtol=ATTN_TOL)
+        dead = ""
+        if window is not None and Sq >= Sk + window:
+            rows = got[:, :, Sk + window - 1:]
+            if not bool((rows == 0).all()):
+                raise AssertionError("fully masked rows are not 0")
+            dead = f", {rows.shape[2]} fully masked rows all 0"
+        log(f"(i) flash_attention B={B} H={H} KH={KH} Sq={Sq} Sk={Sk} "
+            f"hd={hd} causal={causal} window={window}: max abs err {err}"
+            f"{dead}")
+    ssd = [(1, 2, 128, 32, 16, 32), (2, 4, 256, 64, 64, 128),
+           (1, 1, 64, 16, 128, 64), (2, 3, 64, 32, 16, 8),
+           (2, 8, 1024, 64, 64, 128), (1, 4, 384, 112, 32, 96)]
+    for i, (B, H, S, P, N, chunk) in enumerate(ssd):
+        xdt = _randn(torch, (B, H, S, P), 50 + i, cuda, 0.3)
+        a = -_randn(torch, (B, H, S), 60 + i, cuda, 0.3).abs()
+        Bm = _randn(torch, (B, S, N), 70 + i, cuda, 0.3)
+        Cm = _randn(torch, (B, S, N), 80 + i, cuda, 0.3)
+        got = sd.ssd_scan(xdt, a, Bm, Cm, chunk=chunk)
+        want = sd.ssd_scan_plain(xdt, a, Bm, Cm, chunk=chunk)
+        rel = float((got - want).abs().max() / want.abs().max())
+        log(f"(i) ssd_scan B={B} H={H} S={S} P={P} N={N} chunk={chunk}: "
+            f"max abs err / max|y| {rel}")
+        if not rel <= SSD_TOL:
+            raise AssertionError(f"ssd_scan != plain at {B, H, S, P, N}")
+    # state carried across chunks: an early impulse reaches the end
+    xdt = torch.zeros((1, 1, 256, 8), device=cuda)
+    xdt[0, 0, 3] = 1.0
+    a = torch.full((1, 1, 256), -0.01, device=cuda)
+    Bm = torch.full((1, 256, 8), 0.5, device=cuda)
+    got = sd.ssd_scan(xdt, a, Bm, Bm, chunk=64)
+    want = sd.ssd_scan_plain(xdt, a, Bm, Bm, chunk=64)
+    err = float((got - want).abs().max())
+    last = float(got[0, 0, -1].abs().max())
+    log(f"(i) ssd_scan state-carry impulse (S=256, chunk 64): |y_last| "
+        f"{last}, max abs err {err}")
+    if not (last > 1e-3 and err <= 1e-5):
+        raise AssertionError("the SSD state does not carry across chunks")
+
+
+def _serve_modules():
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import transformer as T
+    from repro_torch.models.module import init_params, param_count
+    return get_config, serve, steps, T, init_params, param_count
+
+
+def phase_j_serve(torch, np, card, counters, ops, cuda):
+    """zamba2-7b at full width and depth: prefill with launch counts,
+    then greedy serving. Keeps the params and the kernels' first inputs
+    for (k) and (l)."""
+    get_config, serve, steps, T, init_params, param_count = _serve_modules()
+    torch.cuda.empty_cache()
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(T.specs(cfg), seed=SEED, device=cuda)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(T.specs(cfg))
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (PREFILL_B, PREFILL_S)).astype(np.int32)).to(cuda)
+    prefill = steps.make_prefill_step(cfg)
+    first = {}
+
+    def keep(name, real):
+        def call(*args, **kw):
+            first.setdefault(name, (args, kw))
+            return real(*args, **kw)
+        return call
+
+    torch.cuda.reset_peak_memory_stats()
+    with _ops_as(ops, {"attention": keep("attention", ops.attention),
+                       "ssd": keep("ssd", ops.ssd)}):
+        for c in counters.values():
+            c.reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        again = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    finite = bool(torch.isfinite(logits).all())
+    log(f"(j) {SERVE_ARCH} full ({n_params} parameters, float32, "
+        f"{cfg.num_layers} Mamba2 blocks + shared attention every "
+        f"{cfg.attn_every}): init on the card {init_s:.3f} s; prefill "
+        f"B={PREFILL_B} S={PREFILL_S}: cold {cold:.4f} s, warm "
+        f"{warm:.4f} s, {PREFILL_B * PREFILL_S / warm:.1f} prefill "
+        f"tokens/s, max_memory_allocated {peak} B, logits "
+        f"{tuple(logits.shape)} finite {finite}, equal on a second run "
+        f"{bool(torch.equal(logits, again))}, kernel launches {launches} "
+        f"[{card}]")
+    if launches["flash_attention"] != cfg.num_layers // cfg.attn_every \
+            or launches["ssd_scan"] != cfg.num_layers:
+        raise AssertionError(f"prefill launched {launches}; expected 9 "
+                             "flash_attention and 81 ssd_scan")
+    if not finite:
+        raise AssertionError("prefill logits are not finite")
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    t0 = time.perf_counter()
+    out, tps = serve.greedy_generate(cfg, params, prompts, SERVE_GEN)
+    wall = time.perf_counter() - t0
+    log(f"(j) {SERVE_ARCH} full greedy_generate batch {SERVE_BATCH}, "
+        f"prompt {SERVE_PROMPT}, {SERVE_GEN} generated: tokens "
+        f"{out.shape}, {tps:.2f} decode tokens/s, wall {wall:.3f} s "
+        f"(prefill through the decode step included), sample "
+        f"{out[0, -8:].tolist()} [{card}]")
+    if out.shape != (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN) \
+            or not ((out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError("greedy_generate gave tokens of the wrong "
+                             "shape or range")
+    return {"cfg": cfg, "params": params, "first": first,
+            "launches": launches}
+
+
+@contextlib.contextmanager
+def _ops_as(ops, fns):
+    """Route the named ``ops`` functions through ``fns`` for a while."""
+    real = {name: getattr(ops, name) for name in fns}
+    for name, fn in fns.items():
+        setattr(ops, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(ops, name, fn)
+
+
+def _plain_ops(torch, fa, sd):
+    """ops.attention and ops.ssd through the kernels' plain versions,
+    which take any device and float dtype."""
+    def attention(q, k, v, *, causal=True, window=None, kv_map=None):
+        km = (fa.default_kv_map(q.shape[1], k.shape[1]) if kv_map is None
+              else torch.as_tensor(kv_map))
+        return fa.flash_attention_plain(q, k, v, km, causal=causal,
+                                        window=window)
+
+    def ssd(xdt, a, Bm, Cm, *, chunk=128):
+        return sd.ssd_scan_plain(xdt, a, Bm, Cm, chunk=chunk)
+
+    return {"attention": attention, "ssd": ssd}
+
+
+def _to_float64(torch, tree):
+    """Every floating leaf of a nested dict in float64, in place: the
+    largest first, each float32 leaf freed before the next is copied, so
+    27 GB of float32 parameters become 54 GB of float64 on an 80 GB card."""
+    found = []
+
+    def walk(d):
+        for key, val in d.items():
+            if isinstance(val, dict):
+                walk(val)
+            elif val.is_floating_point():
+                found.append((val.numel(), d, key))
+
+    walk(tree)
+    for _, d, key in sorted(found, key=lambda e: -e[0]):
+        d[key] = d[key].double()
+        torch.cuda.empty_cache()
+    return tree
+
+
+def _teacher_forced(torch, T, steps, init_params, cfg, params, toks, dtype):
+    """decode_step logits at every position of toks (B, S), the cache in
+    ``dtype`` (its SSM state spec says float32: cast to ``dtype`` too)."""
+    B, S = toks.shape
+    cache = init_params(T.init_cache_specs(cfg, B, S), dtype=dtype,
+                        device=toks.device)
+    cache["h"] = cache["h"].to(dtype)
+    decode = steps.make_decode_step(cfg)
+    out = []
+    for i in range(S):
+        lg, cache = decode(params, cache, {"tokens": toks[:, i:i + 1]}, i)
+        out.append(lg[:, 0, :cfg.vocab_size])
+    return torch.stack(out, dim=1)
+
+
+def phase_k_decode_check(torch, np, card, served, ops, fa, sd):
+    """Prefill against teacher-forced decode (no kernel) at full width
+    and depth: in float64, to the reference's tolerance; in float32, the
+    kernels' prefill against the float64 prefill, held to the float32
+    rounding the kernel-free paths show. Leaves (j)'s parameters in
+    float64."""
+    _, serve, steps, T, init_params, _ = _serve_modules()
+    cfg, params = served["cfg"], served["params"]
+    V = cfg.vocab_size
+    rng = np.random.default_rng(SEED + 1)
+    prompts = rng.integers(0, V, (CHECK_B, CHECK_S)).astype(np.int32)
+    toks = torch.from_numpy(prompts).cuda()
+    plain = _plain_ops(torch, fa, sd)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        kern32 = T.forward(params, {"tokens": toks}, cfg)[0][..., :V]
+        with _ops_as(ops, plain):
+            plain32 = T.forward(params, {"tokens": toks}, cfg)[0][..., :V]
+        dec32 = _teacher_forced(torch, T, steps, init_params, cfg, params,
+                                toks, torch.float32)
+    out, _ = serve.greedy_generate(cfg, params, prompts, 1)
+    torch.cuda.synchronize()
+    s32 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _to_float64(torch, params)
+    with torch.no_grad():
+        with _ops_as(ops, plain):
+            ref64 = T.forward(params, {"tokens": toks}, cfg)[0][..., :V]
+        dec64 = _teacher_forced(torch, T, steps, init_params, cfg, params,
+                                toks, torch.float64)
+    torch.cuda.synchronize()
+    s64 = time.perf_counter() - t0
+    top = float(ref64.abs().max())
+    tol = DECODE_TOL * top
+    d64 = float((dec64 - ref64).abs().max())
+    err = {name: float((x.double() - ref64).abs().max())
+           for name, x in (("kernel prefill", kern32),
+                           ("plain prefill", plain32),
+                           ("decode", dec32))}
+    tol32 = max(tol, 2 * max(err["plain prefill"], err["decode"]))
+    d32 = float((kern32 - dec32).abs().max())
+    log(f"(k) {SERVE_ARCH} full width and depth ({cfg.num_layers} Mamba2 "
+        f"blocks + the shared block {cfg.num_layers // cfg.attn_every} "
+        f"times), B={CHECK_B} S={CHECK_S} ({CHECK_S // cfg.ssm_chunk} SSD "
+        f"chunks): float64 prefill vs teacher-forced decode max abs diff "
+        f"{d64} (tolerance {tol} = {DECODE_TOL} x max|logit| {top}); "
+        f"float32 max abs diff from the float64 prefill: {err} (kernel "
+        f"prefill tolerance {tol32}); float32 prefill vs teacher-forced "
+        f"decode {d32}; float32 paths {s32:.3f} s, float64 paths "
+        f"{s64:.3f} s [{card}]")
+    if not d64 <= tol:
+        raise AssertionError("float64 prefill and decode logits differ")
+    if not err["kernel prefill"] <= tol32:
+        raise AssertionError("the kernels' float32 prefill is further from "
+                             "float64 than float32 rounding explains")
+    first = torch.from_numpy(out[:, CHECK_S].astype(np.int64)).cuda()
+    last = ref64[:, -1]
+    gap = (last.max(dim=1).values
+           - last.gather(1, first[:, None])[:, 0]).cpu().numpy()
+    log(f"(k) greedy_generate first tokens {out[:, CHECK_S].tolist()}, "
+        f"float64 prefill argmax {last.argmax(dim=1).tolist()}, its max "
+        f"logit minus the token's logit {gap.tolist()} (tolerance {tol32})")
+    if not (gap <= tol32).all():
+        raise AssertionError("greedy_generate's first token is not the "
+                             "prefill's maximum within the tolerance")
+
+
+def _visible_pairs(np, Sq, Sk, causal, window):
+    """(query, key) pairs the masks leave, counted row by row."""
+    i = np.arange(Sq)
+    hi = np.minimum(i, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def phase_l_timing(torch, np, fa, sd, served):
+    """Both new kernels on the inputs the zamba2-7b prefill gave them."""
+    flush = torch.empty(64 * 1024 ** 2, dtype=torch.uint8, device="cuda")
+    (q, k, v), kw = served["first"]["attention"]
+    kv_map = kw.get("kv_map")
+    B, H, Sq, hd = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    causal, window = kw["causal"], kw["window"]
+    km = torch.as_tensor(kv_map, dtype=torch.int32)
+
+    def kernel_attn(q, k, v):
+        return fa.flash_attention(q, k, v, kv_map, causal=causal,
+                                  window=window)
+
+    def plain_attn(q, k, v):
+        return fa.flash_attention_plain(q, k, v, km, causal=causal,
+                                        window=window)
+
+    def library_attn(q, k, v):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal)
+
+    got, want = kernel_attn(q, k, v), plain_attn(q, k, v)
+    attn_err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, atol=ATTN_TOL, rtol=ATTN_TOL)
+    lib_ok = window is None and H == KH
+    pairs = B * H * _visible_pairs(np, Sq, Sk, causal, window)
+    nbytes = 4 * (2 * B * H * Sq * hd + 2 * B * KH * Sk * hd)
+    ops_ = 4 * hd * pairs              # q.k and p.v: 2 flops a MAC each
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / F32_OPS_PER_S
+    attn = {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:109",
+            "launches": served["launches"]["flash_attention"],
+            "max_abs_err": attn_err,
+            "ms": _time_ms(torch, kernel_attn, (q, k, v), flush),
+            "plain_ms": _time_ms(torch, plain_attn, (q, k, v), flush),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": (_time_ms(torch, library_attn, (q, k, v), flush)
+                           if lib_ok else None),
+            "shape": {"B": B, "H": H, "KH": KH, "Sq": Sq, "Sk": Sk,
+                      "hd": hd, "causal": causal, "window": window,
+                      "visible_pairs": pairs}}
+    del got, want
+    (xdt, a, Bm, Cm), kw = served["first"]["ssd"]
+    chunk = kw["chunk"]
+    B, H, S, P = xdt.shape
+    N = Bm.shape[-1]
+
+    def kernel_ssd(*args):
+        return sd.ssd_scan(*args, chunk=chunk)
+
+    def plain_ssd(*args):
+        return sd.ssd_scan_plain(*args, chunk=chunk)
+
+    args = (xdt, a, Bm, Cm)
+    got, want = kernel_ssd(*args), plain_ssd(*args)
+    ssd_err = float((got - want).abs().max())
+    if not ssd_err <= SSD_TOL * float(want.abs().max()):
+        raise AssertionError("ssd_scan != plain on the prefill's inputs")
+    l = min(chunk, S)
+    tri = l * (l + 1) // 2      # the (i, j <= i) pairs: L is 0 above them
+    # C·Bᵀ once per (batch, chunk), as B and C are shared by the heads;
+    # per head the masked product with x, C·Sᵀ and the state update
+    ops_ = B * (S // l) * (2 * tri * N
+                           + H * (2 * tri * P + 2 * l * N * P + 2 * l * P * N))
+    nbytes = 4 * (2 * B * H * S * P + B * H * S + 2 * B * S * N)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / F32_OPS_PER_S
+    ssd = {"name": "ssd_scan", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "replaces": "src/repro/kernels/ssd_scan.py:81",
+           "launches": served["launches"]["ssd_scan"],
+           "max_abs_err": ssd_err,
+           "ms": _time_ms(torch, kernel_ssd, args, flush),
+           "plain_ms": _time_ms(torch, plain_ssd, args, flush),
+           "bound_ms": 1e3 * max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None,
+           "shape": {"B": B, "H": H, "S": S, "P": P, "N": N, "chunk": l,
+                     "flops": ops_}}
+    return attn, ssd
+
+
+def phase_m_smoke_configs(torch, np, card, counters, cuda):
+    """Smoke configs on the card and on the CPU with the same params."""
+    get_config, serve, _, T, init_params, _ = _serve_modules()
+    cpu = torch.device("cpu")
+    for arch in ("zamba2-7b", "mamba2-1.3b", "qwen3-14b"):
+        cfg = get_config(arch, smoke=True)
+        p_cpu = init_params(T.specs(cfg), seed=SEED, device=cpu)
+        p_card = {}
+
+        def to_card(src, dst):
+            for key, val in src.items():
+                if isinstance(val, dict):
+                    to_card(val, dst.setdefault(key, {}))
+                else:
+                    dst[key] = val.to(cuda)
+
+        to_card(p_cpu, p_card)
+        rng = np.random.default_rng(SEED + 2)
+        toks = rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+        for c in counters.values():
+            c.reset_launches()
+        with torch.no_grad():
+            lc, _ = T.forward(p_card, {"tokens": torch.from_numpy(toks)
+                                       .to(cuda)}, cfg)
+            lh, _ = T.forward(p_cpu, {"tokens": torch.from_numpy(toks)}, cfg)
+        launches = {n: c.launches for n, c in counters.items()}
+        diff = float((lc.cpu() - lh).abs().max())
+        tol = PORT_TOL * max(1.0, float(lh.abs().max()))
+        prompts = rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)
+        g_card, _ = serve.greedy_generate(cfg, p_card, prompts, 8)
+        g_cpu, _ = serve.greedy_generate(cfg, p_cpu, prompts, 8)
+        same = bool((g_card == g_cpu).all())
+        log(f"(m) {arch} smoke card vs CPU: logits max abs diff {diff} "
+            f"(tolerance {tol}), greedy tokens equal {same}, kernel "
+            f"launches on the card's forward {launches} [{card}]")
+        if not (diff <= tol and same):
+            raise AssertionError(f"{arch} smoke: card and CPU disagree")
+        want_ssd = cfg.num_layers if cfg.ssm_state else 0
+        want_attn = (cfg.num_layers // cfg.attn_every if cfg.attn_every
+                     else 0 if cfg.ssm_state else cfg.num_layers)
+        if (launches["ssd_scan"], launches["flash_attention"]) != \
+                (want_ssd, want_attn):
+            raise AssertionError(f"{arch} smoke launched {launches}")
+
+
 def main() -> int:
     import torch
 
@@ -531,14 +999,17 @@ def main() -> int:
         from repro_torch.core import engine as eng
         from repro_torch.device import resolve_device
         from repro_torch.kernels import _build
+        from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import offload_greedy as og
         from repro_torch.kernels import ops
         from repro_torch.kernels import segment_reduce as sr
+        from repro_torch.kernels import ssd_scan as sd
     except ImportError as e:
         print(f"chip_smoke: cannot import the port from {ROOT / 'src'}: "
               f"{e}", file=sys.stderr)
         return 2
-    counters = {"offload_greedy": og, "segment_reduce": sr}
+    counters = {"offload_greedy": og, "segment_reduce": sr,
+                "flash_attention": fa, "ssd_scan": sd}
     card = card_line()
     cuda = resolve_device("cuda")
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
@@ -583,12 +1054,38 @@ def main() -> int:
             f"{k['launches']}, max abs err vs plain {k['max_abs_err']} "
             f"[{card}]")
 
+    def j():
+        state["j"] = phase_j_serve(torch, np, card, counters, ops, cuda)
+
+    def k_():
+        phase_k_decode_check(torch, np, card, state["j"], ops, fa, sd)
+
+    def l_():
+        served = state.pop("j")
+        served.pop("params")             # the timing does not need them
+        torch.cuda.empty_cache()
+        for k in phase_l_timing(torch, np, fa, sd, served):
+            kernels[k["name"]] = k
+            log(f"(l) {k['name']} on the {SERVE_ARCH} prefill's inputs "
+                f"{k['shape']}: kernel {k['ms']} ms, least time "
+                f"{k['bound_ms']} ms (bound by {k['bound_by']}), plain "
+                f"version {k['plain_ms']} ms, library call "
+                f"{k['library_ms']} ms, launches on the serving path "
+                f"{k['launches']}, max abs err vs plain {k['max_abs_err']} "
+                f"[{card}]")
+        del served
+        torch.cuda.empty_cache()
+
     phases = [("a", lambda: phase_a_kernels(torch, og, cuda)),
               ("b", lambda: phase_b_defaults(torch, np, card, counters, cuda)),
               ("c", c), ("d", d),
               ("e", lambda: phase_e_segment(torch, np, sr, eng, card, cuda)),
               ("f", f), ("g", lambda: phase_g_tiered_defaults(np, card)),
-              ("h", h)]
+              ("h", h),
+              ("i", lambda: phase_i_new_kernels(torch, fa, sd, cuda)),
+              ("j", j), ("k", k_), ("l", l_),
+              ("m", lambda: phase_m_smoke_configs(torch, np, card, counters,
+                                                  cuda))]
     failed = []
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -25,3 +25,10 @@ def resolve_device(device=None) -> torch.device:
             "is False; pass device='cpu' (--device cpu) to run on the CPU")
     set_f32_numerics()
     return dev
+
+
+def synchronize(device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU), so that a
+    host clock read after it times the work and not its enqueueing."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)

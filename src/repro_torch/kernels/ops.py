@@ -9,7 +9,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import segment_reduce as sr
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.offload_greedy import offload_greedy_batched
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 
 def greedy_decision(c_link, c_next, c_node, f_err, adj):
@@ -60,3 +62,18 @@ def segment_max(data, segment_ids, *, num_segments, layout=None):
     """out[s] = max data[segment_ids == s] (−inf for an empty
     segment)."""
     return sr.segment_max(data, segment_ids, num_segments, layout=layout)
+
+
+def attention(q, k, v, *, causal=True, window=None, kv_map=None):
+    """Flash attention forward in the reference kernel's layout: q
+    (B,H,Sq,hd), k/v (B,KH,Sk,hd) float32 -> (B,H,Sq,hd). ``kv_map``
+    (H,) int32 maps q heads to K/V heads; ``None`` gives ``h // (H //
+    KH)``, the Pallas kernel's map."""
+    return flash_attention(q, k, v, kv_map, causal=causal, window=window)
+
+
+def ssd(xdt, a, Bm, Cm, *, chunk=128):
+    """Mamba2 SSD chunked scan in the reference kernel's layout: xdt
+    (B,H,S,P), a (B,H,S), Bm/Cm (B,S,N) float32 -> y (B,H,S,P)
+    float32."""
+    return ssd_scan(xdt, a, Bm, Cm, chunk=chunk)

@@ -1,0 +1,159 @@
+"""Mamba2 SSD chunked scan: the recurrence
+
+    h_t = exp(a_t)·h_{t-1} + x_t ⊗ B_t,   y_t = C_t · h_t,   h_0 = 0
+
+computed a chunk of ``l`` steps at a time. Per chunk, with cs the
+cumulative sum of a inside the chunk and S the carried (P × N) state:
+
+    y = (C·Bᵀ ∘ L)·x + exp(cs)·(C·Sᵀ),  L[i,j] = exp(cs_i − cs_j), i ≥ j
+    S ← exp(cs_last)·S + Σ_j exp(cs_last − cs_j) x_j ⊗ B_j
+
+xdt is (B, H, S, P), a (B, H, S) (the per-step log-decay dt·A), Bm and
+Cm (B, S, N), shared across heads; all float32. y is (B, H, S, P)
+float32. The chunk is ``min(chunk, S)`` and must divide S: a ragged S
+raises, as the reference asserts.
+
+On a CUDA tensor :func:`ssd_scan` launches the hand-written kernel in
+``csrc/ssd_scan.cu`` (it replaces the Pallas TPU kernel of
+:mod:`repro.kernels.ssd_scan`; the source says what bounds it and how).
+On a CPU tensor it runs :func:`ssd_scan_plain`, a torch port of the
+reference's ``ssm.ssd_chunked`` in the kernel's layout, with the
+inter-chunk recurrence written as a decay matrix over chunks (no
+sequential loop), which the card also uses as the kernel's yardstick.
+
+``launches`` counts kernel launches (never plain-version calls), so a
+run can show that it went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+
+launches = 0
+
+# cudaErrorInvalidValue: what the C entry point returns for a chunk whose
+# x, B, C, (l × l) scores and state do not fit one block's shared memory
+INVALID_VALUE = 1
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def _segsum(x):
+    """x (..., T) -> (..., T, T): [i, j] = Σ_{k=j+1..i} x_k for i ≥ j,
+    −inf above the diagonal. Each entry sums its own segment (no
+    difference of long prefix sums), so it stays exact to rounding."""
+    T = x.shape[-1]
+    xr = x[..., None].expand(*x.shape, T)          # [..., i, j] = x_i
+    strict = torch.tril(torch.ones(T, T, dtype=torch.bool, device=x.device),
+                        diagonal=-1)
+    seg = torch.cumsum(xr.masked_fill(~strict, 0.0), dim=-2)
+    lower = torch.tril(torch.ones(T, T, dtype=torch.bool, device=x.device))
+    return seg.masked_fill(~lower, float("-inf"))
+
+
+def ssd_scan_plain(xdt, a, Bm, Cm, *, chunk: int = 128):
+    """Plain PyTorch version (the reference's ``ssd_chunked`` in the
+    kernel's layout). Returns y (B,H,S,P) float32."""
+    B_, H, S, P = xdt.shape
+    N = Bm.shape[-1]
+    chunk = _chunk(S, chunk)
+    nc = S // chunk
+    x = xdt.reshape(B_, H, nc, chunk, P)
+    A = a.reshape(B_, H, nc, chunk)
+    Bc = Bm.reshape(B_, nc, chunk, N)
+    Cc = Cm.reshape(B_, nc, chunk, N)
+    cs = torch.cumsum(A, dim=-1)                               # (B,H,c,l)
+    Lmat = torch.exp(_segsum(A))                               # (B,H,c,l,l)
+    scores = Cc @ Bc.transpose(-1, -2)                         # (B,c,l,l)
+    y_diag = (scores[:, None] * Lmat) @ x                      # (B,H,c,l,P)
+    decay = torch.exp(cs[..., -1:] - cs)                       # (B,H,c,l)
+    states = (x * decay[..., None]).transpose(-1, -2) @ Bc[:, None]
+    # state before each chunk: decay-weighted sum of earlier chunks' states
+    last = F.pad(cs[..., -1], (1, 0))                          # (B,H,c+1)
+    chunk_decay = torch.exp(_segsum(last))                     # (B,H,c+1,c+1)
+    states = torch.cat([torch.zeros_like(states[:, :, :1]), states], dim=2)
+    prev = torch.einsum("bhzc,bhcpn->bhzpn", chunk_decay, states)[:, :, :-1]
+    y_off = (Cc[:, None] @ prev.transpose(-1, -2)) * torch.exp(cs)[..., None]
+    return (y_diag + y_off).reshape(B_, H, S, P)
+
+
+def _chunk(S: int, chunk: int) -> int:
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1; got {chunk}")
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"sequence length {S} is not a multiple of the SSD "
+                         f"chunk {chunk}; the scan does not pad")
+    return chunk
+
+
+def launch_error(err: int, l: int, P: int, N: int) -> RuntimeError:
+    """The error a failed launch raises, naming shared memory where the
+    card refused the chunk's size."""
+    why = (f": chunk {l}, P {P}, N {N} need more shared memory than one "
+           "block may have" if err == INVALID_VALUE else "")
+    return RuntimeError(f"ssd_scan kernel launch failed: CUDA error "
+                        f"{err}{why}")
+
+
+def _check(xdt, a, Bm, Cm):
+    for name, t in (("xdt", xdt), ("a", a), ("Bm", Bm), ("Cm", Cm)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be torch.float32; got {t.dtype} "
+                            "(bfloat16 is later work, ROADMAP.md queue 2)")
+        if t.device != xdt.device:
+            raise ValueError(f"{name} is on {t.device}, xdt on {xdt.device}")
+    if xdt.dim() != 4:
+        raise ValueError(f"xdt must be (B,H,S,P); got {tuple(xdt.shape)}")
+    B_, H, S, P = xdt.shape
+    if tuple(a.shape) != (B_, H, S):
+        raise ValueError(f"a must be {(B_, H, S)}; got {tuple(a.shape)}")
+    if Bm.dim() != 3 or Bm.shape[:2] != (B_, S) or Cm.shape != Bm.shape:
+        raise ValueError(f"Bm and Cm must be (B, S, N) with B={B_}, S={S}; "
+                         f"got {tuple(Bm.shape)} and {tuple(Cm.shape)}")
+
+
+def ssd_scan(xdt, a, Bm, Cm, *, chunk: int = 128):
+    """xdt (B,H,S,P), a (B,H,S), Bm/Cm (B,S,N) float32 -> y (B,H,S,P)
+    float32. The kernel on CUDA tensors (one launch), the plain version
+    on CPU tensors."""
+    global launches
+    _check(xdt, a, Bm, Cm)
+    B_, H, S, P = xdt.shape
+    N = Bm.shape[-1]
+    if S == 0:
+        return torch.zeros_like(xdt)
+    l = _chunk(S, chunk)
+    if xdt.device.type == "cpu":
+        return ssd_scan_plain(xdt, a, Bm, Cm, chunk=l)
+    if xdt.device.type != "cuda":
+        raise ValueError(f"no kernel for device {xdt.device}")
+    for name, t in (("xdt", xdt), ("a", a), ("Bm", Bm), ("Cm", Cm)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if P > 128 or N > 128 or l > 128:
+        raise ValueError(f"chunk {l}, P {P}, N {N}: the kernel takes each up "
+                         "to 128")
+    y = torch.empty_like(xdt)
+    if y.numel() == 0:
+        return y
+    lib = _build.load("ssd_scan")
+    fn = lib.ssd_scan_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(xdt.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(xdt.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                 y.data_ptr(), B_, H, S, P, N, l, stream)
+    if err != 0:
+        raise launch_error(err, l, P, N)
+    launches += 1
+    return y

@@ -29,6 +29,11 @@ from repro_torch.data.synthetic import make_image_dataset
 from repro_torch.device import resolve_device
 
 
+# what --mode lm waits for; serving the model zoo is launch/serve.py
+LM_TRAINING = ("model zoo, training slice: train step, optimizers, "
+               "FedAvg")
+
+
 def _unported(what: str, item: int, title: str) -> SystemExit:
     return SystemExit(f"{what} is not ported to repro_torch yet "
                       f"(ROADMAP.md, queue 1 item {item}: {title})")
@@ -52,7 +57,7 @@ def solve_setting(setting: str, traces, adj, D, error_model="discard",
 
 def _check_ported(args) -> None:
     checks = [
-        (args.mode == "lm", "--mode lm", 14, "model zoo and LM mode"),
+        (args.mode == "lm", "--mode lm", 14, LM_TRAINING),
         (args.setting in ("C", "D", "E"), f"--setting {args.setting}", 2,
          "planning"),
         (args.error_model != "discard", f"--error-model {args.error_model}",
@@ -201,7 +206,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None):
     args = parse_args(argv)
     if args.mode == "lm":
-        raise _unported("--mode lm", 14, "model zoo and LM mode")
+        raise _unported("--mode lm", 14, LM_TRAINING)
     return run_fog(args)
 
 

@@ -1,5 +1,8 @@
 """Carry the reference's parameters across to the port's layouts.
 
+:func:`params_from_jax` is for the paper's MNIST models,
+:func:`lm_params_from_jax` for the model zoo.
+
 The reference CNN (``repro.models.mnist``) is NHWC with HWIO kernels and
 flattens its last feature map in (h, w, c) order; the port is NCHW with
 OIHW kernels and flattens in (c, h, w) order. So the conv kernels are
@@ -28,3 +31,19 @@ def params_from_jax(params: dict[str, np.ndarray], *,
                 .reshape(a.shape[0], -1)
         out[name] = torch.from_numpy(np.array(a, order="C")).to(device)
     return out
+
+
+def lm_params_from_jax(tree, *, device=None):
+    """Reference LM parameter tree (nested dicts of numpy arrays, from
+    ``repro.models.module.init_params``) -> the port's tree of tensors
+    on ``device``. The port keeps the reference's (in, out) weight
+    layouts and its stacked leading ``layers`` axes, so this is a dtype
+    and device move with no transposes: float leaves become float32
+    tensors, integer leaves keep their type."""
+    if isinstance(tree, dict):
+        return {k: lm_params_from_jax(v, device=device)
+                for k, v in tree.items()}
+    a = np.asarray(tree)
+    if np.issubdtype(a.dtype, np.floating):
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.array(a, order="C")).to(device)

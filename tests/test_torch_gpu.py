@@ -1,5 +1,7 @@
 """The CUDA kernels on the card, held to their plain PyTorch versions
-(and the segment sum to a sequential ascending-order float32 sum).
+(and the segment sum to a sequential ascending-order float32 sum;
+flash attention at 2e-5, the SSD scan at 1e-4 of max|y|: the
+reference's float32 tolerances).
 
 Every test here needs a CUDA card: it carries the ``gpu`` marker and
 skips with a reason where there is none. The file imports no JAX, so it
@@ -13,8 +15,10 @@ import torch
 
 from repro_torch.core import costs, movement, topology
 from repro_torch.core import engine as eng
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import offload_greedy as og
 from repro_torch.kernels import segment_reduce as sr
+from repro_torch.kernels import ssd_scan as sd
 
 pytestmark = pytest.mark.gpu
 
@@ -175,3 +179,69 @@ def test_aggregate_tier_row_is_aggregate_edges_bitwise_on_card(cuda):
         ref = eng.aggregate_edges(W, H, members, None)
         for k in W:
             assert torch.equal(Wg[k][g], ref[k])
+
+
+def _randn(shape, seed, device, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(shape, generator=g) * scale).to(device)
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,hd,causal,window", [
+    (1, 2, 2, 128, 128, 64, True, None), (2, 4, 2, 256, 256, 64, False, None),
+    (1, 8, 1, 256, 256, 32, True, None), (2, 2, 2, 384, 384, 16, True, None),
+    (1, 2, 2, 100, 77, 112, True, None), (1, 4, 2, 77, 100, 128, False, None),
+    (1, 2, 2, 300, 300, 112, True, 200), (1, 2, 2, 256, 256, 64, True, 32),
+    (1, 2, 1, 200, 64, 112, True, 16),
+])
+def test_flash_attention_equals_plain(cuda, B, H, KH, Sq, Sk, hd, causal,
+                                      window):
+    q = _randn((B, H, Sq, hd), 1, cuda)
+    k, v = _randn((B, KH, Sk, hd), 2, cuda), _randn((B, KH, Sk, hd), 3, cuda)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.launches == before + 1
+    want = fa.flash_attention_plain(q, k, v, fa.default_kv_map(H, KH),
+                                    causal=causal, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_padded_head_map_on_card(cuda):
+    q = _randn((2, 8, 64, 64), 4, cuda)
+    k, v = _randn((2, 2, 64, 64), 5, cuda), _randn((2, 2, 64, 64), 6, cuda)
+    kv_map = [0, 0, 0, 1, 1, 1, 0, 0]            # H=6 padded to 8
+    got = fa.flash_attention(q, k, v, kv_map, causal=True)
+    want = fa.flash_attention_plain(q, k, v, torch.tensor(kv_map,
+                                                          dtype=torch.int32))
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("B,H,S,P,N,chunk", [
+    (1, 2, 128, 32, 16, 32), (2, 4, 256, 64, 64, 128),
+    (1, 1, 64, 16, 128, 64), (2, 3, 64, 32, 16, 8), (1, 2, 512, 64, 64, 128),
+])
+def test_ssd_scan_equals_plain(cuda, B, H, S, P, N, chunk):
+    xdt = _randn((B, H, S, P), 7, cuda, 0.3)
+    a = -_randn((B, H, S), 8, cuda, 0.3).abs()
+    Bm, Cm = _randn((B, S, N), 9, cuda, 0.3), _randn((B, S, N), 10, cuda, 0.3)
+    before = sd.launches
+    got = sd.ssd_scan(xdt, a, Bm, Cm, chunk=chunk)
+    assert sd.launches == before + 1
+    want = sd.ssd_scan_plain(xdt, a, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+def test_new_kernels_reject_what_they_cannot_take(cuda):
+    q = torch.zeros(1, 2, 8, 8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(2, 3), q, q)
+    x = torch.zeros(1, 1, 128, 64, device=cuda)
+    a = torch.zeros(1, 1, 128, device=cuda)
+    Bm = torch.zeros(1, 128, 128, device=cuda)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        sd.ssd_scan(x, a, Bm, Bm, chunk=128)     # N = 128 at l = 128
+    with pytest.raises(ValueError, match="contiguous"):
+        sd.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), a,
+                    Bm[..., :16].contiguous(), Bm[..., :16].contiguous())
