@@ -45,12 +45,16 @@ result line) if any of them fails:
     beside its plain version, the library call (``index_add_``), the
     layout build on its own, and its least time on this card;
 (i) the flash-attention and SSD-scan kernels against their plain
-    versions on the card: MHA, GQA 2:1 and MQA, head_dim 16, 64, 112
-    and 128, lengths that are no multiple of a tile, causal or not,
+    versions on the card: MHA, GQA 2:1 and MQA, head_dim 16, 64, 100,
+    112 and 128, lengths that are no multiple of a tile, causal or not,
     windows 32, 128 and 200, rows the window leaves with no key (must
-    be 0); the SSD scan at several (H, P, N, chunk) and the
+    be 0); the SSD scan at several (H, P, N, chunk), mamba2-1.3b's full
+    SSD shape (H=64, S=1024, P=64, N=128, chunk 128) and the
     state-carry impulse. The reference's float32 tolerances: 2e-5 for
-    attention, 1e-4 of max|y| for the scan;
+    attention, 1e-4 of max|y| for the scan, whose output is float32 on
+    bfloat16 inputs too; a bfloat16 attention output within one
+    bfloat16 rounding (half a step) of the plain version's float32
+    result on the same inputs, plus 2e-5;
 (j) the serving path of zamba2-7b at full width and depth (6.75 B
     parameters, float32, drawn on the card from the seed), every launch
     counter set to 0 just before and read just after the prefill step
@@ -72,9 +76,15 @@ result line) if any of them fails:
     than that tolerance; and the first token ``greedy_generate`` emits
     for each prompt has a float64 prefill logit within the float32
     tolerance of the row's maximum;
-(l) both new kernels timed on the inputs (j) gave them, beside their
-    plain versions, the library call (scaled_dot_product_attention for
-    attention; none for the scan) and their least time on this card;
+(l) both serving kernels timed on the inputs (j) gave them, beside
+    their plain versions, the library call (scaled_dot_product_attention
+    for attention; none for the scan), the CUDA kernels one call
+    launches (counted by torch.profiler), and two least times on this
+    card: ``bound_ms`` on the tensor cores (the larger of the bytes at
+    3.35 TB/s and the flops at 495 / 3 TFLOP/s, the 3xTF32 rate) and,
+    in the log line only, the flops at 67 TFLOP/s on the CUDA cores;
+    attention's kernel and plain version also against float64 (batch 0,
+    q heads 0-7);
 (m) the smoke configs of zamba2-7b, mamba2-1.3b and qwen3-14b once on
     the card and once on the CPU through the port, with the same
     parameters: logits within 1e-4 of the largest |logit|, greedy
@@ -95,10 +105,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM: HBM bandwidth and float32 rate outside the tensor cores
-# (NVIDIA data sheet; the least times below are against these peaks)
+# H100 SXM: HBM bandwidth, float32 rate outside the tensor cores and
+# dense TF32 tensor-core rate (NVIDIA data sheet; the least times below
+# are against these peaks). Float32 accuracy on the tensor cores takes
+# three TF32 products (3xTF32), so a third of the TF32 rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32X3_OPS_PER_S = 495e12 / 3
 
 DEFAULT_ARGV = ["--mode", "fog"]
 SHORT_ARGV = ["--mode", "fog", "--T", "20", "--n-train", "4000",
@@ -563,6 +576,7 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 16, 32
 SEED = 0
 ATTN_TOL = 2e-5          # the reference's float32 tolerances
 SSD_TOL = 1e-4           # (tests/test_kernels.py), the latter of max|y|
+BF16_HALF_STEP = 2.0 ** -8   # half a bfloat16 step, relative
 DECODE_TOL = 2e-3        # tests/test_models_smoke.py, of max|logit| here
 PORT_TOL = 1e-4          # tests/test_torch_lm.py, of max|logit|
 
@@ -572,8 +586,22 @@ def _randn(torch, shape, seed, cuda, scale=1.0):
     return torch.randn(shape, generator=g, device=cuda) * scale
 
 
+def bf16_excess(torch, got, want):
+    """How far a bfloat16 result lies outside one rounding of the float32
+    result plus the float32 tolerance: |got - want| - (half a bfloat16
+    step of the larger of |got|, |want|, + ATTN_TOL); <= 0 passes."""
+    got = got.float()
+    room = BF16_HALF_STEP * torch.maximum(got.abs(), want.abs()) + ATTN_TOL
+    return float(((got - want).abs() - room).max())
+
+
 def phase_i_new_kernels(torch, fa, sd, cuda):
-    """Flash attention and the SSD scan against their plain versions."""
+    """Flash attention and the SSD scan against their plain versions: in
+    float32 at the reference's float32 tolerances; a bfloat16 attention
+    output against the plain version in float32 on the same (widened)
+    inputs, within one bfloat16 rounding plus the float32 tolerance; the
+    scan's float32 output at its float32 tolerance whatever its inputs'
+    type."""
     attn = [  # B, H, KH, Sq, Sk, hd, causal, window
         (1, 4, 4, 128, 128, 64, True, None),      # MHA
         (2, 4, 2, 256, 256, 64, False, None),     # GQA 2:1
@@ -585,17 +613,33 @@ def phase_i_new_kernels(torch, fa, sd, cuda):
         (2, 4, 2, 300, 300, 128, False, 200),
         (1, 4, 2, 200, 64, 112, True, 16),        # rows 79.. see no key
         (2, 32, 32, 1000, 1000, 112, True, None),  # zamba2's heads
+        (1, 4, 2, 200, 200, 100, True, None),     # hd no multiple of 8
+        (2, 4, 2, 256, 256, 64, True, None, torch.bfloat16),
+        (1, 4, 4, 300, 300, 112, False, 128, torch.bfloat16),
+        (1, 2, 2, 130, 130, 100, True, None, torch.bfloat16),
     ]
-    for i, (B, H, KH, Sq, Sk, hd, causal, window) in enumerate(attn):
-        q = _randn(torch, (B, H, Sq, hd), 3 * i, cuda)
-        k = _randn(torch, (B, KH, Sk, hd), 3 * i + 1, cuda)
-        v = _randn(torch, (B, KH, Sk, hd), 3 * i + 2, cuda)
+    for i, (B, H, KH, Sq, Sk, hd, causal, window, *dt) in enumerate(attn):
+        dtype = dt[0] if dt else torch.float32
+        q = _randn(torch, (B, H, Sq, hd), 3 * i, cuda).to(dtype)
+        k = _randn(torch, (B, KH, Sk, hd), 3 * i + 1, cuda).to(dtype)
+        v = _randn(torch, (B, KH, Sk, hd), 3 * i + 2, cuda).to(dtype)
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
-        want = fa.flash_attention_plain(q, k, v, fa.default_kv_map(H, KH),
+        want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        fa.default_kv_map(H, KH),
                                         causal=causal, window=window)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        torch.testing.assert_close(got, want, atol=ATTN_TOL, rtol=ATTN_TOL)
+        if got.dtype != dtype:
+            raise AssertionError(f"flash_attention returned {got.dtype}")
+        err = float((got.float() - want).abs().max())
+        if dt:
+            tol = "one bfloat16 rounding + 2e-05"
+            if bf16_excess(torch, got, want) > 0:
+                raise AssertionError(f"bfloat16 flash_attention != plain "
+                                     f"at {B, H, KH, Sq, Sk, hd}")
+        else:
+            tol = ATTN_TOL
+            torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+        got = got.float()
         dead = ""
         if window is not None and Sq >= Sk + window:
             rows = got[:, :, Sk + window - 1:]
@@ -603,23 +647,29 @@ def phase_i_new_kernels(torch, fa, sd, cuda):
                 raise AssertionError("fully masked rows are not 0")
             dead = f", {rows.shape[2]} fully masked rows all 0"
         log(f"(i) flash_attention B={B} H={H} KH={KH} Sq={Sq} Sk={Sk} "
-            f"hd={hd} causal={causal} window={window}: max abs err {err}"
-            f"{dead}")
+            f"hd={hd} causal={causal} window={window} {dtype}: max abs "
+            f"err {err} (tolerance {tol}){dead}")
     ssd = [(1, 2, 128, 32, 16, 32), (2, 4, 256, 64, 64, 128),
            (1, 1, 64, 16, 128, 64), (2, 3, 64, 32, 16, 8),
-           (2, 8, 1024, 64, 64, 128), (1, 4, 384, 112, 32, 96)]
-    for i, (B, H, S, P, N, chunk) in enumerate(ssd):
-        xdt = _randn(torch, (B, H, S, P), 50 + i, cuda, 0.3)
+           (2, 8, 1024, 64, 64, 128), (1, 4, 384, 112, 32, 96),
+           (1, 64, 1024, 64, 128, 128),          # mamba2-1.3b's full shape
+           (2, 4, 256, 64, 64, 128, torch.bfloat16),
+           (1, 8, 512, 64, 128, 128, torch.bfloat16)]
+    for i, (B, H, S, P, N, chunk, *dt) in enumerate(ssd):
+        dtype = dt[0] if dt else torch.float32
+        tol = SSD_TOL
+        xdt = _randn(torch, (B, H, S, P), 50 + i, cuda, 0.3).to(dtype)
         a = -_randn(torch, (B, H, S), 60 + i, cuda, 0.3).abs()
-        Bm = _randn(torch, (B, S, N), 70 + i, cuda, 0.3)
-        Cm = _randn(torch, (B, S, N), 80 + i, cuda, 0.3)
+        Bm = _randn(torch, (B, S, N), 70 + i, cuda, 0.3).to(dtype)
+        Cm = _randn(torch, (B, S, N), 80 + i, cuda, 0.3).to(dtype)
         got = sd.ssd_scan(xdt, a, Bm, Cm, chunk=chunk)
         want = sd.ssd_scan_plain(xdt, a, Bm, Cm, chunk=chunk)
         rel = float((got - want).abs().max() / want.abs().max())
-        log(f"(i) ssd_scan B={B} H={H} S={S} P={P} N={N} chunk={chunk}: "
-            f"max abs err / max|y| {rel}")
-        if not rel <= SSD_TOL:
-            raise AssertionError(f"ssd_scan != plain at {B, H, S, P, N}")
+        log(f"(i) ssd_scan B={B} H={H} S={S} P={P} N={N} chunk={chunk} "
+            f"{dtype}: max abs err / max|y| {rel} (tolerance {tol})")
+        if got.dtype != torch.float32 or not rel <= tol:
+            raise AssertionError(f"ssd_scan != plain at {B, H, S, P, N} "
+                                 f"{dtype}")
     # state carried across chunks: an early impulse reaches the end
     xdt = torch.zeros((1, 1, 256, 8), device=cuda)
     xdt[0, 0, 3] = 1.0
@@ -856,6 +906,35 @@ def _visible_pairs(np, Sq, Sk, causal, window):
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+def _bounds(nbytes, ops_):
+    """Least times of a tensor-core kernel whose products are 3xTF32:
+    bytes at the HBM rate against flops at the 3xTF32 rate; and, for the
+    log line, the flops on the CUDA cores."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / TF32X3_OPS_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_cuda_cores_ms": 1e3 * max(t_bytes,
+                                             ops_ / F32_OPS_PER_S)}
+
+
+def _cuda_kernels(torch, fn, args):
+    """CUDA kernels that one call of fn launches, counted in a profiler
+    trace of a warm call (copies and memsets not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    if not names:
+        raise AssertionError("the profiler saw no CUDA kernel")
+    return len(names)
+
+
 def phase_l_timing(torch, np, fa, sd, served):
     """Both new kernels on the inputs the zamba2-7b prefill gave them."""
     flush = torch.empty(64 * 1024 ** 2, dtype=torch.uint8, device="cuda")
@@ -881,11 +960,23 @@ def phase_l_timing(torch, np, fa, sd, served):
     got, want = kernel_attn(q, k, v), plain_attn(q, k, v)
     attn_err = float((got - want).abs().max())
     torch.testing.assert_close(got, want, atol=ATTN_TOL, rtol=ATTN_TOL)
+    del got, want
+    # both against float64, on batch 0 and q heads 0..7
+    qs, ks, vs = q[:1, :8].contiguous(), k[:1], v[:1]
+    exact = fa.flash_attention_plain(qs.double(), ks.double(), vs.double(),
+                                     km[:8], causal=causal, window=window)
+    vs_f64 = {
+        "kernel": float((fa.flash_attention(qs, ks, vs, km[:8].to(q.device),
+                                            causal=causal, window=window)
+                         - exact).abs().max()),
+        "plain": float((fa.flash_attention_plain(
+            qs, ks, vs, km[:8], causal=causal, window=window)
+            - exact).abs().max())}
+    del exact
     lib_ok = window is None and H == KH
     pairs = B * H * _visible_pairs(np, Sq, Sk, causal, window)
     nbytes = 4 * (2 * B * H * Sq * hd + 2 * B * KH * Sk * hd)
     ops_ = 4 * hd * pairs              # q.k and p.v: 2 flops a MAC each
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / F32_OPS_PER_S
     attn = {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:109",
@@ -893,14 +984,14 @@ def phase_l_timing(torch, np, fa, sd, served):
             "max_abs_err": attn_err,
             "ms": _time_ms(torch, kernel_attn, (q, k, v), flush),
             "plain_ms": _time_ms(torch, plain_attn, (q, k, v), flush),
-            "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            **_bounds(nbytes, ops_),
             "library_ms": (_time_ms(torch, library_attn, (q, k, v), flush)
                            if lib_ok else None),
+            "cuda_kernels": _cuda_kernels(torch, kernel_attn, (q, k, v)),
+            "vs_float64": vs_f64,
             "shape": {"B": B, "H": H, "KH": KH, "Sq": Sq, "Sk": Sk,
                       "hd": hd, "causal": causal, "window": window,
-                      "visible_pairs": pairs}}
-    del got, want
+                      "visible_pairs": pairs, "flops": ops_}}
     (xdt, a, Bm, Cm), kw = served["first"]["ssd"]
     chunk = kw["chunk"]
     B, H, S, P = xdt.shape
@@ -924,7 +1015,6 @@ def phase_l_timing(torch, np, fa, sd, served):
     ops_ = B * (S // l) * (2 * tri * N
                            + H * (2 * tri * P + 2 * l * N * P + 2 * l * P * N))
     nbytes = 4 * (2 * B * H * S * P + B * H * S + 2 * B * S * N)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / F32_OPS_PER_S
     ssd = {"name": "ssd_scan", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
            "replaces": "src/repro/kernels/ssd_scan.py:81",
@@ -932,9 +1022,9 @@ def phase_l_timing(torch, np, fa, sd, served):
            "max_abs_err": ssd_err,
            "ms": _time_ms(torch, kernel_ssd, args, flush),
            "plain_ms": _time_ms(torch, plain_ssd, args, flush),
-           "bound_ms": 1e3 * max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           **_bounds(nbytes, ops_),
            "library_ms": None,
+           "cuda_kernels": _cuda_kernels(torch, kernel_ssd, args),
            "shape": {"B": B, "H": H, "S": S, "P": P, "N": N, "chunk": l,
                      "flops": ops_}}
     return attn, ssd
@@ -1066,13 +1156,19 @@ def main() -> int:
         torch.cuda.empty_cache()
         for k in phase_l_timing(torch, np, fa, sd, served):
             kernels[k["name"]] = k
+            cores_ms = k.pop("bound_cuda_cores_ms")
+            vs_f64 = k.pop("vs_float64", None)
             log(f"(l) {k['name']} on the {SERVE_ARCH} prefill's inputs "
                 f"{k['shape']}: kernel {k['ms']} ms, least time "
-                f"{k['bound_ms']} ms (bound by {k['bound_by']}), plain "
-                f"version {k['plain_ms']} ms, library call "
-                f"{k['library_ms']} ms, launches on the serving path "
-                f"{k['launches']}, max abs err vs plain {k['max_abs_err']} "
-                f"[{card}]")
+                f"{k['bound_ms']} ms on the tensor cores at the 3xTF32 "
+                f"rate (bound by {k['bound_by']}), {cores_ms} ms on the "
+                f"CUDA cores, plain version {k['plain_ms']} ms, library "
+                f"call {k['library_ms']} ms, {k['cuda_kernels']} CUDA "
+                f"kernels a call (profiler), launches on the serving path "
+                f"{k['launches']}, max abs err vs plain {k['max_abs_err']}"
+                + (f"; on batch 0, heads 0-7, max abs err vs float64: "
+                   f"kernel {vs_f64['kernel']}, plain float32 "
+                   f"{vs_f64['plain']}" if vs_f64 else "") + f" [{card}]")
         del served
         torch.cuda.empty_cache()
 

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 with ``nvcc`` for ``sm_90a`` into ``build/lib<name>-<hash>.so`` at the
-repo root, where ``<hash>`` is a digest of the source and the flags: an
-edited source builds anew, an unchanged one is loaded from the last
-build. The library is loaded with ``ctypes``. Only the sources in this
-package's ``csrc/`` are ever built.
+repo root, where ``<hash>`` is a digest of the source, the shared
+headers (``csrc/*.cuh``) and the flags: an edited source or header
+builds anew, an unchanged one is loaded from the last build. The
+library is loaded with ``ctypes``. Only the sources in this package's
+``csrc/`` are ever built.
 
 A build happens at a kernel's first launch, never at import: machines
 without ``nvcc`` import every module and use the plain versions.
@@ -35,8 +36,11 @@ def source_path(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
-    """Where ``name``'s build lives: keyed on its source and flags."""
+    """Where ``name``'s build lives: keyed on its source, the headers
+    and the flags."""
     h = hashlib.sha256(source_path(name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -66,7 +66,8 @@ def segment_max(data, segment_ids, *, num_segments, layout=None):
 
 def attention(q, k, v, *, causal=True, window=None, kv_map=None):
     """Flash attention forward in the reference kernel's layout: q
-    (B,H,Sq,hd), k/v (B,KH,Sk,hd) float32 -> (B,H,Sq,hd). ``kv_map``
+    (B,H,Sq,hd), k/v (B,KH,Sk,hd) float32 or bfloat16 -> (B,H,Sq,hd) of
+    q's type. ``kv_map``
     (H,) int32 maps q heads to K/V heads; ``None`` gives ``h // (H //
     KH)``, the Pallas kernel's map."""
     return flash_attention(q, k, v, kv_map, causal=causal, window=window)
@@ -74,6 +75,6 @@ def attention(q, k, v, *, causal=True, window=None, kv_map=None):
 
 def ssd(xdt, a, Bm, Cm, *, chunk=128):
     """Mamba2 SSD chunked scan in the reference kernel's layout: xdt
-    (B,H,S,P), a (B,H,S), Bm/Cm (B,S,N) float32 -> y (B,H,S,P)
-    float32."""
+    (B,H,S,P), Bm/Cm (B,S,N) float32 or bfloat16, a (B,H,S) float32 ->
+    y (B,H,S,P) float32."""
     return ssd_scan(xdt, a, Bm, Cm, chunk=chunk)

@@ -9,20 +9,25 @@ cumulative sum of a inside the chunk and S the carried (P × N) state:
     S ← exp(cs_last)·S + Σ_j exp(cs_last − cs_j) x_j ⊗ B_j
 
 xdt is (B, H, S, P), a (B, H, S) (the per-step log-decay dt·A), Bm and
-Cm (B, S, N), shared across heads; all float32. y is (B, H, S, P)
-float32. The chunk is ``min(chunk, S)`` and must divide S: a ragged S
-raises, as the reference asserts.
+Cm (B, S, N), shared across heads. xdt, Bm and Cm are all float32 or all
+bfloat16 (widened to float32, as the Pallas kernel does); a is float32.
+y is (B, H, S, P) float32. The chunk is ``min(chunk, S)`` and must
+divide S: a ragged S raises, as the reference asserts.
 
-On a CUDA tensor :func:`ssd_scan` launches the hand-written kernel in
-``csrc/ssd_scan.cu`` (it replaces the Pallas TPU kernel of
-:mod:`repro.kernels.ssd_scan`; the source says what bounds it and how).
+On a CUDA tensor :func:`ssd_scan` runs the hand-written chunk-parallel
+scan in ``csrc/ssd_scan.cu`` (it replaces the Pallas TPU kernel of
+:mod:`repro.kernels.ssd_scan`): four CUDA kernels per call (C·Bᵀ per
+batch and chunk, the chunk states, the sequential pass over them, the
+outputs), their products on the tensor cores by 3xTF32; the source
+says what bounds it and how. The wrapper allocates their scratch.
 On a CPU tensor it runs :func:`ssd_scan_plain`, a torch port of the
 reference's ``ssm.ssd_chunked`` in the kernel's layout, with the
 inter-chunk recurrence written as a decay matrix over chunks (no
 sequential loop), which the card also uses as the kernel's yardstick.
 
-``launches`` counts kernel launches (never plain-version calls), so a
-run can show that it went through the kernel.
+``launches`` counts calls that launched the kernels (one per call, for
+its four CUDA kernels; never plain-version calls), so a run can show
+that it went through them.
 """
 from __future__ import annotations
 
@@ -35,9 +40,8 @@ from repro_torch.kernels import _build
 
 launches = 0
 
-# cudaErrorInvalidValue: what the C entry point returns for a chunk whose
-# x, B, C, (l × l) scores and state do not fit one block's shared memory
-INVALID_VALUE = 1
+# the types xdt, Bm and Cm may have, and the code the C entry point reads
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
@@ -60,7 +64,10 @@ def _segsum(x):
 
 def ssd_scan_plain(xdt, a, Bm, Cm, *, chunk: int = 128):
     """Plain PyTorch version (the reference's ``ssd_chunked`` in the
-    kernel's layout). Returns y (B,H,S,P) float32."""
+    kernel's layout). bfloat16 inputs are widened to float32 (float64
+    stays float64). Returns y (B,H,S,P) in the widened type."""
+    xdt, Bm, Cm = (x.float() if x.dtype == torch.bfloat16 else x
+                   for x in (xdt, Bm, Cm))
     B_, H, S, P = xdt.shape
     N = Bm.shape[-1]
     chunk = _chunk(S, chunk)
@@ -94,20 +101,15 @@ def _chunk(S: int, chunk: int) -> int:
     return chunk
 
 
-def launch_error(err: int, l: int, P: int, N: int) -> RuntimeError:
-    """The error a failed launch raises, naming shared memory where the
-    card refused the chunk's size."""
-    why = (f": chunk {l}, P {P}, N {N} need more shared memory than one "
-           "block may have" if err == INVALID_VALUE else "")
-    return RuntimeError(f"ssd_scan kernel launch failed: CUDA error "
-                        f"{err}{why}")
-
-
 def _check(xdt, a, Bm, Cm):
-    for name, t in (("xdt", xdt), ("a", a), ("Bm", Bm), ("Cm", Cm)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be torch.float32; got {t.dtype} "
-                            "(bfloat16 is later work, ROADMAP.md queue 2)")
+    if a.dtype != torch.float32:
+        raise TypeError(f"a must be torch.float32; got {a.dtype}")
+    for name, t in (("xdt", xdt), ("Bm", Bm), ("Cm", Cm)):
+        if t.dtype not in DTYPES or t.dtype != xdt.dtype:
+            raise TypeError(f"xdt, Bm and Cm must all be torch.float32 or "
+                            f"all torch.bfloat16; got {name} {t.dtype}, "
+                            f"xdt {xdt.dtype}")
+    for name, t in (("a", a), ("Bm", Bm), ("Cm", Cm)):
         if t.device != xdt.device:
             raise ValueError(f"{name} is on {t.device}, xdt on {xdt.device}")
     if xdt.dim() != 4:
@@ -121,15 +123,17 @@ def _check(xdt, a, Bm, Cm):
 
 
 def ssd_scan(xdt, a, Bm, Cm, *, chunk: int = 128):
-    """xdt (B,H,S,P), a (B,H,S), Bm/Cm (B,S,N) float32 -> y (B,H,S,P)
-    float32. The kernel on CUDA tensors (one launch), the plain version
-    on CPU tensors."""
+    """xdt (B,H,S,P), Bm/Cm (B,S,N) float32 or bfloat16, a (B,H,S)
+    float32 -> y (B,H,S,P) float32. The kernels on CUDA tensors (four
+    CUDA kernels, counted as one launch), the plain version on CPU
+    tensors."""
     global launches
     _check(xdt, a, Bm, Cm)
     B_, H, S, P = xdt.shape
     N = Bm.shape[-1]
     if S == 0:
-        return torch.zeros_like(xdt)
+        return torch.zeros(xdt.shape, dtype=torch.float32,
+                           device=xdt.device)
     l = _chunk(S, chunk)
     if xdt.device.type == "cpu":
         return ssd_scan_plain(xdt, a, Bm, Cm, chunk=l)
@@ -141,19 +145,26 @@ def ssd_scan(xdt, a, Bm, Cm, *, chunk: int = 128):
     if P > 128 or N > 128 or l > 128:
         raise ValueError(f"chunk {l}, P {P}, N {N}: the kernel takes each up "
                          "to 128")
-    y = torch.empty_like(xdt)
+    y = torch.empty(xdt.shape, dtype=torch.float32, device=xdt.device)
     if y.numel() == 0:
         return y
+    nc, lp = S // l, -(-l // 16) * 16
+    f32 = dict(dtype=torch.float32, device=xdt.device)
+    cb = torch.empty((B_, nc, lp, lp), **f32)          # C·Bᵀ per chunk
+    states = torch.empty((B_, H, nc, P, N), **f32)     # s_c, then S_c
+    decay = torch.empty((B_, H, nc), **f32)            # exp(cs_last)
     lib = _build.load("ssd_scan")
     fn = lib.ssd_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(xdt.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(xdt.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                 y.data_ptr(), B_, H, S, P, N, l, stream)
+                 y.data_ptr(), cb.data_ptr(), states.data_ptr(),
+                 decay.data_ptr(), B_, H, S, P, N, l, DTYPES[xdt.dtype],
+                 stream)
     if err != 0:
-        raise launch_error(err, l, P, N)
+        raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     launches += 1
     return y

@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -143,12 +142,13 @@ def _project_qkv(x, p, cfg):
     return q, k, v
 
 
-def kv_head_map(cfg) -> np.ndarray:
-    """Padded q-head index -> kv head index (padded heads map to 0)."""
+def kv_head_map(cfg, device=None) -> torch.Tensor:
+    """Padded q-head index -> kv head index (padded heads map to 0), int32,
+    computed on ``device`` (no copy from the host, so the card need not
+    wait): every entry lies in [0, num_kv_heads)."""
     H, KH, Hp = cfg.num_heads, cfg.num_kv_heads, cfg.num_heads_padded
-    m = np.zeros((Hp,), np.int32)
-    m[:H] = np.arange(H) // (H // KH)
-    return m
+    h = torch.arange(Hp, dtype=torch.int32, device=device)
+    return torch.where(h < H, h // (H // KH), 0)
 
 
 def attention_apply(x, p, cfg, *, causal=True, positions=None, window=None):
@@ -167,7 +167,7 @@ def attention_apply(x, p, cfg, *, causal=True, positions=None, window=None):
                         k.transpose(1, 2).contiguous(),
                         v.transpose(1, 2).contiguous(),
                         causal=causal, window=window,
-                        kv_map=kv_head_map(cfg))
+                        kv_map=kv_head_map(cfg, x.device))
     out = out.transpose(1, 2).reshape(B, S, cfg.num_heads_padded
                                       * cfg.head_dim)
     return out @ p["wo"]

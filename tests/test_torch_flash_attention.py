@@ -4,7 +4,10 @@ in interpret mode, over the reference's own grid (shapes, GQA and MQA,
 causal or not, sliding windows, block shapes), at the reference's
 float32 tolerance of 2e-5. Plus the explicit head map against the
 reference model's ``full_attention`` with padded heads, fully masked
-rows, and the wrapper's CPU dispatch and argument checks. The CUDA
+rows, and the wrapper's CPU dispatch and argument checks. bfloat16
+inputs (rounded from the same float32 numbers on both sides) against
+the Pallas kernel and ``ref`` at the reference's bfloat16 tolerance of
+2e-2. The CUDA
 kernel itself is held to the plain version in ``test_torch_gpu.py``
 and ``chip_smoke.py`` phase (i)."""
 import jax.numpy as jnp
@@ -19,6 +22,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 
 TOL = 2e-5      # the reference's float32 tolerance (tests/test_kernels.py)
+BF16_TOL = 2e-2  # and its bfloat16 tolerance
 
 
 def _qkv(B, H, KH, Sq, hd, seed, Sk=None):
@@ -51,6 +55,37 @@ def test_plain_matches_ref_and_pallas(B, H, KH, S, hd, causal):
     pallas = pallas_flash(jq, jk, jv, causal=causal, interpret=True)
     for w in (want, pallas):
         np.testing.assert_allclose(got, np.asarray(w), atol=TOL, rtol=TOL)
+
+
+def bf16_pair(x):
+    """float32 numpy -> (torch bfloat16, jax bfloat16), each rounded on
+    its own side; their bits must agree."""
+    t = torch.from_numpy(x).to(torch.bfloat16)
+    j = jnp.asarray(x, jnp.bfloat16)
+    np.testing.assert_array_equal(t.view(torch.int16).numpy(),
+                                  np.asarray(j).view(np.int16))
+    return t, j
+
+
+@pytest.mark.parametrize("B,H,KH,S,hd", [
+    (1, 2, 2, 128, 64),
+    (2, 4, 2, 256, 64),     # GQA 2:1
+    (1, 8, 1, 256, 32),     # MQA
+    (2, 2, 2, 384, 16),     # 3 blocks, odd head_dim
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_bf16_matches_ref_and_pallas(B, H, KH, S, hd, causal):
+    pairs = [bf16_pair(x) for x in _qkv(B, H, KH, S, hd, seed=B + H + hd)]
+    (tq, jq), (tk, jk), (tv, jv) = pairs
+    before = fa.launches
+    got = ops.attention(tq, tk, tv, causal=causal)
+    assert fa.launches == before and got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    want = ref.flash_attention_ref(jq, jk, jv, causal=causal)
+    pallas = pallas_flash(jq, jk, jv, causal=causal, interpret=True)
+    for w in (want, pallas):
+        np.testing.assert_allclose(got, np.asarray(w, np.float32),
+                                   atol=BF16_TOL, rtol=BF16_TOL)
 
 
 @pytest.mark.parametrize("window", [32, 128, 200])
@@ -127,7 +162,9 @@ def test_default_map_is_the_pallas_map():
 
 
 @pytest.mark.parametrize("bad,err,match", [
-    (dict(dtype=torch.bfloat16), TypeError, "float32"),
+    (dict(dtype=torch.float16), TypeError, "float32"),
+    (dict(dtype=torch.float64), TypeError, "bfloat16"),
+    (dict(k_dtype=torch.bfloat16), TypeError, "all torch.bfloat16"),
     (dict(hd=129), ValueError, "head_dim"),
     (dict(kv_map=[0, 2]), ValueError, r"\[0, 2\)"),
     (dict(kv_map=[0]), ValueError, "kv_map"),
@@ -141,7 +178,8 @@ def test_wrapper_rejects_bad_arguments(bad, err, match):
     dt = bad.get("dtype", torch.float32)
     dev = bad.get("device", "cpu")
     q = torch.zeros(1, 2, 8, hd, dtype=dt, device=dev)
-    k = torch.zeros(bad.get("k_shape", (1, 2, 8, hd)), dtype=dt, device=dev)
+    k = torch.zeros(bad.get("k_shape", (1, 2, 8, hd)),
+                    dtype=bad.get("k_dtype", dt), device=dev)
     with pytest.raises(err, match=match):
         ops.attention(q, k, torch.zeros_like(k), causal=True,
                       window=bad.get("window"), kv_map=bad.get("kv_map"))

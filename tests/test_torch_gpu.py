@@ -1,7 +1,9 @@
 """The CUDA kernels on the card, held to their plain PyTorch versions
 (and the segment sum to a sequential ascending-order float32 sum;
 flash attention at 2e-5, the SSD scan at 1e-4 of max|y|: the
-reference's float32 tolerances).
+reference's float32 tolerances; the scan's output is float32 on
+bfloat16 inputs too, and a bfloat16 attention output lies within one
+bfloat16 rounding of the plain version's float32 result, plus 2e-5).
 
 Every test here needs a CUDA card: it carries the ``gpu`` marker and
 skips with a reason where there is none. The file imports no JAX, so it
@@ -191,7 +193,8 @@ def _randn(shape, seed, device, scale=1.0):
     (1, 8, 1, 256, 256, 32, True, None), (2, 2, 2, 384, 384, 16, True, None),
     (1, 2, 2, 100, 77, 112, True, None), (1, 4, 2, 77, 100, 128, False, None),
     (1, 2, 2, 300, 300, 112, True, 200), (1, 2, 2, 256, 256, 64, True, 32),
-    (1, 2, 1, 200, 64, 112, True, 16),
+    (1, 2, 1, 200, 64, 112, True, 16), (1, 2, 2, 200, 200, 100, True, None),
+    (1, 2, 2, 130, 130, 37, False, 50),
 ])
 def test_flash_attention_equals_plain(cuda, B, H, KH, Sq, Sk, hd, causal,
                                       window):
@@ -233,15 +236,98 @@ def test_ssd_scan_equals_plain(cuda, B, H, S, P, N, chunk):
     assert float((got - want).abs().max()) <= 1e-4 * scale
 
 
+def _ssd_inputs(B, H, S, P, N, cuda, dtype=torch.float32):
+    xdt = _randn((B, H, S, P), 7, cuda, 0.3).to(dtype)
+    a = -_randn((B, H, S), 8, cuda, 0.3).abs()
+    Bm = _randn((B, S, N), 9, cuda, 0.3).to(dtype)
+    Cm = _randn((B, S, N), 10, cuda, 0.3).to(dtype)
+    return xdt, a, Bm, Cm
+
+
+def test_ssd_scan_runs_mamba2_1_3b_chunk(cuda):
+    """mamba2-1.3b's full SSD shape (N = 128 at l = 128, 64 heads)."""
+    args = _ssd_inputs(1, 64, 1024, 64, 128, cuda)
+    got = sd.ssd_scan(*args, chunk=128)
+    want = sd.ssd_scan_plain(*args, chunk=128)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,hd,causal,window", [
+    (1, 4, 2, 256, 64, True, None), (2, 2, 2, 300, 112, False, None),
+    (1, 4, 4, 200, 100, True, 64),
+])
+def test_flash_attention_bf16_equals_plain(cuda, B, H, KH, Sq, hd, causal,
+                                           window):
+    q = _randn((B, H, Sq, hd), 11, cuda).bfloat16()
+    k = _randn((B, KH, Sq, hd), 12, cuda).bfloat16()
+    v = _randn((B, KH, Sq, hd), 13, cuda).bfloat16()
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    fa.default_kv_map(H, KH),
+                                    causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    # one rounding to bfloat16 (half a step) of the float32 result, whose
+    # own tolerance is 2e-5
+    got = got.float()
+    room = 2.0 ** -8 * torch.maximum(got.abs(), want.abs()) + 2e-5
+    assert bool(((got - want).abs() <= room).all())
+
+
+@pytest.mark.parametrize("B,H,S,P,N,chunk", [
+    (2, 4, 256, 64, 64, 128), (1, 2, 128, 32, 16, 32),
+    (1, 4, 256, 64, 128, 128),
+])
+def test_ssd_scan_bf16_equals_plain(cuda, B, H, S, P, N, chunk):
+    args = _ssd_inputs(B, H, S, P, N, cuda, torch.bfloat16)
+    got = sd.ssd_scan(*args, chunk=chunk)
+    want = sd.ssd_scan_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_launch_counters_count_kernel_calls_only(cuda):
+    q = _randn((1, 2, 64, 64), 14, cuda)
+    args = _ssd_inputs(1, 2, 128, 32, 16, cuda)
+    fa.reset_launches()
+    sd.reset_launches()
+    fa.flash_attention_plain(q, q, q, fa.default_kv_map(2, 2))
+    sd.ssd_scan_plain(*args, chunk=32)
+    fa.flash_attention(q.cpu(), q.cpu(), q.cpu())
+    assert (fa.launches, sd.launches) == (0, 0)
+    for n in (1, 2):
+        fa.flash_attention(q, q, q)
+        sd.ssd_scan(*args, chunk=32)
+        assert (fa.launches, sd.launches) == (n, n)
+    torch.cuda.synchronize()
+
+
+def test_flash_attention_takes_a_head_map_on_the_card(cuda):
+    q = _randn((1, 4, 96, 64), 15, cuda)
+    kv = _randn((1, 2, 96, 64), 16, cuda)
+    host = torch.tensor([1, 0, 0, 1], dtype=torch.int32)
+    got = fa.flash_attention(q, kv, kv, host.to(cuda))
+    want = fa.flash_attention(q, kv, kv, host)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 def test_new_kernels_reject_what_they_cannot_take(cuda):
     q = torch.zeros(1, 2, 8, 8, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q.transpose(2, 3), q, q)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.half(), q.half(), q.half())
     x = torch.zeros(1, 1, 128, 64, device=cuda)
     a = torch.zeros(1, 1, 128, device=cuda)
-    Bm = torch.zeros(1, 128, 128, device=cuda)
-    with pytest.raises(RuntimeError, match="shared memory"):
-        sd.ssd_scan(x, a, Bm, Bm, chunk=128)     # N = 128 at l = 128
+    Bm = torch.zeros(1, 128, 16, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         sd.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), a,
-                    Bm[..., :16].contiguous(), Bm[..., :16].contiguous())
+                    Bm, Bm)
+    with pytest.raises(ValueError, match="up to 128"):
+        sd.ssd_scan(x, a, torch.zeros(1, 128, 129, device=cuda),
+                    torch.zeros(1, 128, 129, device=cuda))
+    with pytest.raises(TypeError):
+        sd.ssd_scan(x.bfloat16(), a, Bm, Bm)
