@@ -9,9 +9,11 @@ paths from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source,
 all started together), then runs thirteen phases and fails (exit 1, no
 result line) if any of them fails:
 
-(a) each kernel against its plain PyTorch version on the card, at a
-    sweep of shapes plus tie and isolated-row cases: equality is exact
-    on every output;
+(a) the Theorem-3 kernel against its plain PyTorch version on the
+    card, at a sweep of shapes plus tie and isolated-row cases, rows
+    whose only link is the last column, density 0, rows that start off
+    a 16-byte boundary (n = 1003, 4097) and bases that do, and c_next
+    unstaged (n = 12000): equality is exact on every output;
 (b) the main path at the CLI defaults (cnn, n=10, T=100, τ=10): the
     device plan beside the numpy plan (differing decisions are reported,
     not asserted), then the defaults at T=20 once on the card and once
@@ -24,8 +26,16 @@ result line) if any of them fails:
     just before and read just after: each kernel must have launched,
     and the plan must equal the one the plain version gives on the card;
 (d) the Theorem-3 kernel timed on the inputs the fog-scale path gave it
-    (CUDA events, warmed, the L2 cache flushed before each launch),
-    beside its plain version and its least time on this card;
+    and on the same flags at full topology (the CLI's default), each
+    held bitwise to its plain version, then timed three times in turns
+    with it (CUDA events, warmed, the L2 cache flushed by a read before
+    each launch, the card spinning before each start event so that the
+    host's launch latency stays out of the window; the kernel also
+    without that spin), the card's clocks, power and temperature read
+    before each round; beside its byte bound and its sector floor; then
+    the fog-scale plan on the host clock, whole and split into
+    device_inputs, the kernel, and the COO epilogue with read-back and
+    host packing;
 (e) the segment-reduce kernel against its references on the card:
     random, mostly empty, out-of-range, empty, single-segment, ragged
     and non-finite cases; its sum bitwise equal to a sequential
@@ -120,6 +130,9 @@ FOG_ARGV = ["--mode", "fog", "--model", "mlp", "--n", "1000", "--T", "20",
             "--tau", "5", "--topology", "random", "--rho", "0.1",
             "--n-train", "60000", "--n-test", "10000"]
 TIERED_FOG_ARGV = FOG_ARGV + ["--tiers", "32@5,4@10,1@20"]
+# the fog-scale flags at the CLI's default topology (full)
+FULL_ARGV = FOG_ARGV[:FOG_ARGV.index("--topology")] + \
+    FOG_ARGV[FOG_ARGV.index("--rho") + 2:]
 TIERED_SHORT_ARGV = SHORT_ARGV + ["--tiers", "5@10,1@20"]
 
 
@@ -127,38 +140,86 @@ def log(*a):
     print(*a, flush=True)
 
 
-def card_line() -> str:
+def _smi(query: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
 
 
+def card_line() -> str:
+    return _smi("name,power.limit")
+
+
+def card_state() -> str:
+    """The card's SM and memory clocks, power draw and temperature now."""
+    return _smi("clocks.sm,clocks.mem,power.draw,temperature.gpu")
+
+
+def _greedy_case(torch, T, n, dens, seed, *, ties=False, isolated=0,
+                 last=0):
+    """Seeded Theorem-3 inputs on the CPU. ``ties``: integer-valued costs
+    (many equal sums); the first ``isolated`` rows have no link; the
+    first ``last`` rows have only column n-1."""
+    g = torch.Generator().manual_seed(seed)
+    if ties:
+        c_link = torch.randint(0, 3, (T, n, n), generator=g).float()
+        vec = [torch.randint(0, 3, (T, n), generator=g).float()
+               for _ in range(3)]
+    else:
+        c_link = torch.rand((T, n, n), generator=g)
+        vec = [torch.rand((T, n), generator=g) for _ in range(3)]
+    adj = torch.rand((T, n, n), generator=g) < dens
+    adj[:, :isolated] = False
+    if last:
+        adj[:, :last] = False
+        adj[:, :last, n - 1] = True
+    return [c_link, *vec, adj]
+
+
+def _unaligned(torch, a, off):
+    """A contiguous copy of ``a`` that starts ``off`` elements into its
+    storage, so off a 16-byte boundary."""
+    flat = torch.zeros(a.numel() + off, dtype=a.dtype, device=a.device)
+    flat[off:] = a.reshape(-1)
+    return flat[off:].view(a.shape)
+
+
 def phase_a_kernels(torch, og, cuda):
-    """Kernel vs plain version, exact, over shapes, ties, isolated rows."""
-    cases = [(1, 1, 1.0, False, 0), (3, 7, 0.5, False, 0),
-             (4, 129, 0.3, False, 0), (2, 256, 0.1, False, 0),
-             (20, 1000, 0.1, False, 0), (100, 1024, 1.0, False, 0),
-             (8, 300, 0.6, True, 0), (5, 200, 0.4, False, 23)]
-    for T, n, dens, ties, isolated in cases:
-        g = torch.Generator().manual_seed(T * 7919 + n)
-        if ties:                     # integer-valued costs: many ties
-            c_link = torch.randint(0, 3, (T, n, n), generator=g).float()
-            vec = [torch.randint(0, 3, (T, n), generator=g).float()
-                   for _ in range(3)]
-        else:
-            c_link = torch.rand((T, n, n), generator=g)
-            vec = [torch.rand((T, n), generator=g) for _ in range(3)]
-        adj = torch.rand((T, n, n), generator=g) < dens
-        adj[:, :isolated] = False
-        args = [a.to(cuda) for a in (c_link, *vec, adj)]
+    """Kernel vs plain version, exact, over shapes, ties, isolated rows,
+    rows whose only link is the last column, unaligned rows (n = 1003,
+    4097) and bases, and c_next unstaged (n = 12000)."""
+    # (T, n, density, ties, isolated, last, adj / c_link base offsets)
+    cases = [(1, 1, 1.0, False, 0, 0, None), (3, 7, 0.5, False, 0, 0, None),
+             (4, 129, 0.3, False, 0, 0, None),
+             (2, 256, 0.1, False, 0, 0, None),
+             (20, 1000, 0.1, False, 0, 0, None),
+             (100, 1024, 1.0, False, 0, 0, None),
+             (8, 300, 0.6, True, 0, 0, None),
+             (5, 200, 0.4, False, 23, 0, None),
+             (3, 1003, 0.1, False, 0, 0, None),
+             (2, 4097, 0.05, False, 0, 0, None),
+             (4, 1003, 0.0, False, 0, 0, None),
+             (5, 1003, 0.3, False, 0, 40, None),
+             (3, 4097, 0.02, False, 0, 300, None),
+             (20, 1000, 0.1, True, 0, 0, None),
+             (1, 12000, 0.01, False, 5, 7, None),
+             (3, 517, 0.2, False, 0, 0, (3, 1)),
+             (3, 517, 0.2, False, 0, 0, (5, 2))]
+    for T, n, dens, ties, isolated, last, offs in cases:
+        args = [a.to(cuda) for a in _greedy_case(
+            torch, T, n, dens, T * 7919 + n, ties=ties, isolated=isolated,
+            last=last)]
+        if offs:
+            args[4] = _unaligned(torch, args[4], offs[0])
+            args[0] = _unaligned(torch, args[0], offs[1])
         got = og.offload_greedy_batched(*args)
         want = og.offload_greedy_plain(*args)
         torch.cuda.synchronize()
         same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
         log(f"(a) offload_greedy T={T} n={n} density={dens} ties={ties} "
-            f"isolated={isolated}: choice/best_j/best_cost equal {same}")
+            f"isolated={isolated} last-column-only={last} base offsets "
+            f"{offs}: choice/best_j/best_cost equal {same}")
         if not all(same):
             raise AssertionError(f"kernel != plain version at T={T} n={n}")
 
@@ -262,16 +323,37 @@ def phase_c_fog(torch, np, card, counters, cuda):
         raise AssertionError("fog-scale plan differs from the plain "
                              "version's plan on the card")
     log("(c) fog-scale plan equals the plain version's plan on the card")
-    return launches, ins
+    return launches, pb, ins
 
 
-def _time_ms(torch, fn, args, flush, reps=30):
-    """Median time of one call, each launch after an L2 flush."""
+SPIN_CYCLES = 1_000_000     # ~0.5 ms of the card's clock
+
+
+def flush_buffer(torch, device):
+    """The buffer _flush reads: 128 MiB, over twice the L2 cache."""
+    return torch.zeros(128 * 1024 ** 2, dtype=torch.uint8, device=device)
+
+
+def _flush(flush):
+    """Evict the L2 cache by reading ``flush`` (larger than the 50 MB
+    L2): the lines it leaves are clean, so the timed call pays no
+    write-back of the flush's own lines, as it would after a write."""
+    flush.amax()
+
+
+def _time_ms(torch, fn, args, flush, reps=30, spin=True):
+    """Median time of one call on the card, each launch after an L2
+    flush. With ``spin``, the card spins (``torch.cuda._sleep``) before
+    each start event while the host queues the call behind it, so the
+    window holds the card's time alone; without it the window also holds
+    whatever part of the host's launch latency the card waits for."""
     for _ in range(3):
         fn(*args)
     times = []
     for _ in range(reps):
-        flush.zero_()
+        _flush(flush)
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -283,36 +365,156 @@ def _time_ms(torch, fn, args, flush, reps=30):
     return ms[len(ms) // 2]
 
 
-def phase_d_timing(torch, og, ins, launches):
-    """offload_greedy on the fog-scale path's own inputs."""
+def _greedy_bounds(torch, ins):
+    """Least times of one Theorem-3 call on these inputs, in ms. The
+    bound: the bytes it must move (all of adj, c_link at live links
+    only, each vector and output once) at the HBM rate, against its
+    operations (one add and one compare a live link) on the CUDA cores.
+    The sector floor: the same with c_link counted in the 32-B sectors
+    that hold a live link, as DRAM moves them (c_link's storage starts
+    on a sector boundary); the granule floor: in 64-B granules."""
     c_link, c_next, c_node, f_err, adj = ins
     T, n = c_node.shape
-    flush = torch.empty(64 * 1024 ** 2, dtype=torch.uint8, device="cuda")
-    got = og.offload_greedy_batched(*ins)
-    want = og.offload_greedy_plain(*ins)
-    err = max(float((a.double() - b.double()).abs().max())
-              for a, b in zip(got, want))
-    if err != 0.0:           # held exactly: same adds, order-free min
-        raise AssertionError(f"kernel != plain version on the fog-scale "
-                             f"inputs (max abs err {err})")
-    ms = _time_ms(torch, og.offload_greedy_batched, ins, flush)
-    plain_ms = _time_ms(torch, og.offload_greedy_plain, ins, flush)
-    # least work for these inputs: every adjacency byte, the c_link
-    # entries of live links only, each vector once, each output once
     eye = torch.eye(n, dtype=torch.bool, device=adj.device)
-    live = int((adj & ~eye).sum())
-    nbytes = T * n * n + 4 * live + 3 * 4 * T * n + 3 * 4 * T * n
-    ops = 2 * live                        # one add, one compare per link
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    live = (adj & ~eye).reshape(-1)
+    links = int(live.sum())
+
+    def blocks(floats):         # blocks of c_link that hold a live link
+        pad = live.new_zeros((-live.numel()) % floats)
+        return int(torch.cat([live, pad]).view(-1, floats).any(1).sum())
+
+    sectors, granules = blocks(8), blocks(16)
+    rest = T * n * n + 3 * 4 * T * n + 3 * 4 * T * n
+    t_bytes = (rest + 4 * links) / HBM_BYTES_PER_S
+    t_ops = 2 * links / F32_OPS_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "sector_floor_ms": 1e3 * (rest + 32 * sectors) / HBM_BYTES_PER_S,
+            "granule_floor_ms": 1e3 * (rest + 64 * granules)
+            / HBM_BYTES_PER_S,
+            "live_links": links, "live_sectors": sectors,
+            "live_granules": granules}
+
+
+def _in_turns(torch, fns, args, flush, reps=3):
+    """Each of ``fns`` (name -> fn) timed ``reps`` times by _time_ms, in
+    turns, the order reversed every other round, the card's state read
+    before each round. A name ending in ``/host`` is timed without the
+    spin. Returns name -> [ms, ...] and the states."""
+    times = {k: [] for k in fns}
+    states = []
+    for r in range(reps):
+        states.append(card_state())
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            times[k].append(_time_ms(torch, fns[k], args, flush,
+                                     spin=not k.endswith("/host")))
+    return times, states
+
+
+def _spread(ms):
+    s = sorted(ms)
+    return {"min": s[0], "median": s[len(s) // 2], "max": s[-1]}
+
+
+def _plan_parts(torch, mv, ops, og, pb, cuda, reps=3):
+    """The fog-scale plan on the host clock, whole (``greedy_linear``)
+    and in its three parts through the same functions: device_inputs
+    (host float32 conversion, adjacency copy, host-to-device copies),
+    the kernel, and the COO epilogue plus read-back and host packing;
+    beside them device_inputs' two largest host steps on their own
+    (c_link to float32, the adjacency copy)."""
+    import numpy as np
+
+    traces, sched = pb["traces"], pb["schedule"]
+    T, n = traces.c_node.shape
+    rows = []
+    for _ in range(reps):
+        h0 = time.perf_counter()
+        np.ascontiguousarray(traces.c_link, np.float32)
+        np.array(sched.adj_view(), dtype=bool, order="C")
+        host_s = time.perf_counter() - h0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = mv.greedy_linear(traces, sched, device=cuda)
+        t1 = time.perf_counter()
+        ins = mv.device_inputs(traces, sched, cuda)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        choice, best_j, _ = og.offload_greedy_batched(*ins)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        parts = mv._plan_from_edges(T, n, ops.greedy_edges_from_choice(
+            choice, best_j))
+        t4 = time.perf_counter()
+        if not mv.plans_equal(plan, parts):
+            raise AssertionError("the plan built part by part differs")
+        rows.append({"plan_s": t1 - t0, "device_inputs_s": t2 - t1,
+                     "kernel_s": t3 - t2, "epilogue_readback_pack_s": t4 - t3,
+                     "of_which_host_convert_s": host_s})
+    return rows
+
+
+def phase_d_timing(torch, og, ops, mv, c_state, cuda, card):
+    """offload_greedy on the fog-scale path's own inputs and on the same
+    flags at full topology, in turns with its plain version, and the
+    fog-scale plan split into its parts."""
+    from repro_torch.launch import train
+
+    launches, pb, fog_ins = c_state
+    full = train.build_problem(train.parse_args(FULL_ARGV))
+    inputs = {"random rho=0.1": fog_ins,
+              "full": mv.device_inputs(full["traces"], full["schedule"],
+                                       cuda)}
+    del full
+    flush = flush_buffer(torch, cuda)
+    fns = {"kernel": og.offload_greedy_batched,
+           "plain": og.offload_greedy_plain,
+           "kernel/host": og.offload_greedy_batched}
+    rows = {}
+    for name, ins in inputs.items():
+        got = og.offload_greedy_batched(*ins)
+        want = og.offload_greedy_plain(*ins)
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(got, want))
+        if err != 0.0:       # held exactly: same adds, order-free min
+            raise AssertionError(f"kernel != plain version on the {name} "
+                                 f"inputs (max abs err {err})")
+        b = _greedy_bounds(torch, ins)
+        times, states = _in_turns(torch, fns, ins, flush)
+        rows[name] = dict(b, err=err, ms=_spread(times["kernel"])["median"],
+                          plain_ms=_spread(times["plain"])["median"])
+        log(f"(d) offload_greedy on the {name} inputs (T, n = "
+            f"{tuple(ins[2].shape)}, {b['live_links']} live links in "
+            f"{b['live_sectors']} sectors):"
+            f" kernel {times['kernel']} ms, plain {times['plain']} ms "
+            f"(3 rounds in turns, median of 30 each; min/median/max "
+            f"{_spread(times['kernel'])} and {_spread(times['plain'])}); "
+            f"the kernel without the spin before its start event "
+            f"{times['kernel/host']} ms; "
+            f"bound {b['bound_ms']} ms ({b['bound_by']}), sector floor "
+            f"{b['sector_floor_ms']} ms, 64-B granule floor "
+            f"{b['granule_floor_ms']} ms; card before each round "
+            f"(clocks.sm, clocks.mem, power.draw, temperature) {states} "
+            f"[{card}]")
+    for k, r in enumerate(_plan_parts(torch, mv, ops, og, pb, cuda)):
+        log(f"(d) fog-scale plan, repeat {k}: " + ", ".join(
+            f"{key} {v}" for key, v in r.items()) + f" [{card}]")
+    fog, full = rows["random rho=0.1"], rows["full"]
+    T, n = fog_ins[2].shape
+    log(f"(d) offload_greedy, median of the 3 rounds: fog scale {fog['ms']}"
+        f" ms (bound {fog['bound_ms']} ms, sector floor "
+        f"{fog['sector_floor_ms']} ms, plain {fog['plain_ms']} ms); full "
+        f"topology {full['ms']} ms (bound {full['bound_ms']} ms, sector "
+        f"floor {full['sector_floor_ms']} ms, plain {full['plain_ms']} ms) "
+        f"[{card}]")
     return {"name": "offload_greedy", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/offload_greedy.cu",
             "replaces": "src/repro/kernels/offload_greedy.py:80",
-            "launches": launches["offload_greedy"], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
-            "shape": {"T": T, "n": n, "live_links": live}}
+            "launches": launches["offload_greedy"],
+            "max_abs_err": fog["err"], "ms": fog["ms"],
+            "plain_ms": fog["plain_ms"], "bound_ms": fog["bound_ms"],
+            "bound_by": fog["bound_by"], "library_ms": None,
+            "shape": {"T": T, "n": n, "live_links": fog["live_links"]}}
 
 
 def _seq_sum(np, data, ids, S):
@@ -511,7 +713,7 @@ def phase_h_segment_timing(torch, sr, biggest, launches):
     d, ids, S, layout = (biggest[k] for k in ("data", "ids", "S", "layout"))
     layout = layout or sr.segment_layout(ids, S)
     E = d.shape[0]
-    flush = torch.empty(64 * 1024 ** 2, dtype=torch.uint8, device="cuda")
+    flush = flush_buffer(torch, "cuda")
     got = sr.segment_sum(d, ids, S, layout=layout)
     plain = sr.segment_sum_plain(d, ids, S)
     diff = (got.double() - plain.double()).abs()
@@ -937,7 +1139,7 @@ def _cuda_kernels(torch, fn, args):
 
 def phase_l_timing(torch, np, fa, sd, served):
     """Both new kernels on the inputs the zamba2-7b prefill gave them."""
-    flush = torch.empty(64 * 1024 ** 2, dtype=torch.uint8, device="cuda")
+    flush = flush_buffer(torch, "cuda")
     (q, k, v), kw = served["first"]["attention"]
     kv_map = kw.get("kv_map")
     B, H, Sq, hd = q.shape
@@ -1087,6 +1289,7 @@ def main() -> int:
         import numpy as np
 
         from repro_torch.core import engine as eng
+        from repro_torch.core import movement as mv
         from repro_torch.device import resolve_device
         from repro_torch.kernels import _build
         from repro_torch.kernels import flash_attention as fa
@@ -1118,9 +1321,8 @@ def main() -> int:
         state["c"] = phase_c_fog(torch, np, card, counters, cuda)
 
     def d():
-        launches, ins = state["c"]
-        k = kernels["offload_greedy"] = phase_d_timing(torch, og, ins,
-                                                       launches)
+        k = kernels["offload_greedy"] = phase_d_timing(
+            torch, og, ops, mv, state["c"], cuda, card)
         log(f"(d) {k['name']} on the fog-scale inputs {k['shape']}: "
             f"kernel {k['ms']} ms, least time {1e3 * k['bound_ms']} us "
             f"(bound by {k['bound_by']}), plain version {k['plain_ms']} ms, "

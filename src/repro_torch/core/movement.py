@@ -222,17 +222,21 @@ def _greedy_linear_device(traces: CostTraces, adj,
     from repro_torch.kernels import ops
 
     T, n = traces.c_node.shape
-    t_idx, src, dst, keep, _ = ops.greedy_edges_batched(
-        *device_inputs(traces, adj, device))
-    t_idx, src, dst, keep = (a.cpu().numpy() for a in (t_idx, src, dst,
-                                                       keep))
+    return _plan_from_edges(T, n, ops.greedy_edges_batched(
+        *device_inputs(traces, adj, device)))
+
+
+def _plan_from_edges(T: int, n: int, edges) -> MovementPlan:
+    """The plan from ``ops.greedy_edges_batched``'s device tensors:
+    read back and packed on the host."""
+    t_idx, src, dst, keep = (a.cpu().numpy() for a in edges[:4])
     r = np.zeros((T, n))
     r.reshape(-1)[~keep] = 1.0
-    edges = PlanEdges(t=t_idx[keep].astype(np.int64),
-                      src=src[keep].astype(np.int64),
-                      dst=dst[keep].astype(np.int64),
-                      qty=np.ones(int(keep.sum())))
-    return MovementPlan(r=r, edges=edges, n=n)
+    kept = PlanEdges(t=t_idx[keep].astype(np.int64),
+                     src=src[keep].astype(np.int64),
+                     dst=dst[keep].astype(np.int64),
+                     qty=np.ones(int(keep.sum())))
+    return MovementPlan(r=r, edges=kept, n=n)
 
 
 def plan_cost(plan: MovementPlan, traces: CostTraces, D: np.ndarray, *,

@@ -9,7 +9,11 @@ discard.
 On a CUDA tensor :func:`offload_greedy_batched` launches the
 hand-written kernel in ``csrc/offload_greedy.cu`` (it replaces the
 Pallas TPU kernel of :mod:`repro.kernels.offload_greedy`; the source
-says what bounds it and how). On a CPU tensor it runs
+says what bounds it and how: one warp a row, adjacency read as 16-byte
+vectors, c_link as float4 only where a 4-column word holds a live link,
+c_next staged once per block and round, a persistent grid sized by the
+kernel itself; a view whose c_link and adjacency bases disagree mod 16
+bytes is copied first, :func:`vector_aligned`). On a CPU tensor it runs
 :func:`offload_greedy_plain`, the plain PyTorch version of
 ``repro.kernels.ref.offload_greedy_ref`` batched over T, which the card
 also uses as the kernel's yardstick: both add in float32 with one
@@ -75,6 +79,19 @@ def _check(c_link, c_next, c_node, f_err, adj):
     return T, n
 
 
+def vector_aligned(c_link, adj):
+    """``c_link`` and ``adj``, each copied afresh where needed so that
+    ``c_link``'s base minus four times ``adj``'s is a multiple of 16
+    bytes: the kernel reads a run's c_link as ``float4`` wherever it
+    reads its adjacency as a 16-byte vector. Any two fresh allocations
+    agree; only a view into other storage can disagree, and then each of
+    the two that is not itself 16-byte aligned is copied."""
+    if (c_link.data_ptr() - 4 * adj.data_ptr()) % 16 == 0:
+        return c_link, adj
+    return tuple(a if a.data_ptr() % 16 == 0 else a.clone()
+                 for a in (c_link, adj))
+
+
 def offload_greedy_batched(c_link, c_next, c_node, f_err, adj):
     """All-rounds Theorem-3 rule: the kernel on CUDA tensors (one launch
     for the whole horizon), the plain version on CPU tensors. Same
@@ -85,8 +102,7 @@ def offload_greedy_batched(c_link, c_next, c_node, f_err, adj):
         return offload_greedy_plain(c_link, c_next, c_node, f_err, adj)
     if c_link.device.type != "cuda":
         raise ValueError(f"no kernel for device {c_link.device}")
-    if T > 65535:
-        raise ValueError(f"T={T} exceeds the kernel's grid limit 65535")
+    c_link, adj = vector_aligned(c_link, adj)
     lib = _build.load("offload_greedy")
     fn = lib.offload_greedy_launch
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,

@@ -39,6 +39,12 @@ def greedy_edges_batched(c_link, c_next, c_node, f_err, adj):
     kernel in the reference."""
     choice, best_j, _ = offload_greedy_batched(c_link, c_next, c_node,
                                                f_err, adj)
+    return greedy_edges_from_choice(choice, best_j)
+
+
+def greedy_edges_from_choice(choice, best_j):
+    """The COO epilogue of :func:`greedy_edges_batched` on the kernel's
+    (T, n) ``choice`` and ``best_j``."""
     T, n = choice.shape
     dev = choice.device
     t_idx = torch.arange(T, dtype=torch.int32, device=dev) \

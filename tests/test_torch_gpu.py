@@ -32,7 +32,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(T, n, density, seed, device, *, ties=False, isolated=0):
+def _inputs(T, n, density, seed, device, *, ties=False, isolated=0,
+            last=0):
+    """Seeded kernel inputs; ``ties``: integer-valued costs (many equal
+    sums); the first ``isolated`` rows have no link; the first ``last``
+    rows have only column n-1."""
     g = torch.Generator().manual_seed(seed)
     if ties:
         c_link = torch.randint(0, 3, (T, n, n), generator=g).float()
@@ -43,19 +47,28 @@ def _inputs(T, n, density, seed, device, *, ties=False, isolated=0):
         vec = [torch.rand((T, n), generator=g) for _ in range(3)]
     adj = torch.rand((T, n, n), generator=g) < density
     adj[:, :isolated] = False
+    if last:
+        adj[:, :last] = False
+        adj[:, :last, n - 1] = True
     return [a.to(device) for a in (c_link, *vec, adj)]
 
 
-@pytest.mark.parametrize("T,n,density,ties,isolated", [
-    (1, 1, 1.0, False, 0), (3, 7, 0.5, False, 0), (4, 129, 0.3, False, 0),
-    (2, 256, 0.1, False, 0), (20, 1000, 0.1, False, 0),
-    (100, 1024, 1.0, False, 0), (6, 300, 0.7, True, 0),
-    (5, 200, 0.4, False, 17),
+# n = 1003 and 4097 leave most rows unaligned for the kernel's 16-byte
+# loads (head and tail peeled); n = 12000 reads c_next unstaged
+@pytest.mark.parametrize("T,n,density,ties,isolated,last", [
+    (1, 1, 1.0, False, 0, 0), (3, 7, 0.5, False, 0, 0),
+    (4, 129, 0.3, False, 0, 0), (2, 256, 0.1, False, 0, 0),
+    (20, 1000, 0.1, False, 0, 0), (100, 1024, 1.0, False, 0, 0),
+    (6, 300, 0.7, True, 0, 0), (5, 200, 0.4, False, 17, 0),
+    (3, 1003, 0.1, False, 0, 0), (2, 4097, 0.05, False, 0, 0),
+    (4, 1003, 0.0, False, 0, 0), (5, 1003, 0.3, False, 0, 40),
+    (3, 4097, 0.02, False, 0, 300), (4, 1000, 0.5, True, 0, 0),
+    (1, 12000, 0.01, False, 5, 7),
 ])
 def test_kernel_equals_plain_version_bitwise(cuda, T, n, density, ties,
-                                             isolated):
+                                             isolated, last):
     args = _inputs(T, n, density, T * 7919 + n, cuda, ties=ties,
-                   isolated=isolated)
+                   isolated=isolated, last=last)
     before = og.launches
     got = og.offload_greedy_batched(*args)
     assert og.launches == before + 1
@@ -64,6 +77,52 @@ def test_kernel_equals_plain_version_bitwise(cuda, T, n, density, ties,
     for g, w in zip(got, want):
         assert g.dtype == w.dtype
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("adj_off,link_off", [(3, 0), (0, 1), (5, 2)])
+def test_kernel_on_unaligned_bases_equals_plain(cuda, adj_off, link_off):
+    """Contiguous views that start off a 16-byte boundary: the head peel
+    follows adj's address, and the wrapper copies a view whose c_link
+    runs would not be 16-byte aligned with adj's."""
+    T, n = 3, 517
+    c_link, c_next, c_node, f_err, adj = _inputs(T, n, 0.2, 11, cuda)
+    a = torch.zeros(T * n * n + adj_off, dtype=torch.bool, device=cuda)
+    a[adj_off:] = adj.reshape(-1)
+    c = torch.zeros(T * n * n + link_off, device=cuda)
+    c[link_off:] = c_link.reshape(-1)
+    args = [c[link_off:].view(T, n, n), c_next, c_node, f_err,
+            a[adj_off:].view(T, n, n)]
+    got = og.offload_greedy_batched(*args)
+    want = og.offload_greedy_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_kernel_entry_refuses_bases_that_disagree(cuda):
+    """The C entry point called with a c_link view one float into its
+    storage (its runs off 16 bytes from adj's) returns
+    cudaErrorMisalignedAddress and launches nothing."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    T, n = 2, 64
+    c_link, c_next, c_node, f_err, adj = _inputs(T, n, 0.5, 3, cuda)
+    shifted = torch.zeros(T * n * n + 1, device=cuda)
+    outs = [torch.full((T, n), -1, dtype=dt, device=cuda)
+            for dt in (torch.int32, torch.int32, torch.float32)]
+    fn = _build.load("offload_greedy").offload_greedy_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(shifted[1:].data_ptr(), c_next.data_ptr(), c_node.data_ptr(),
+             f_err.data_ptr(), adj.data_ptr(),
+             *(o.data_ptr() for o in outs), T, n,
+             torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 716                   # cudaErrorMisalignedAddress
+    assert all(bool((o == -1).all()) for o in outs)
 
 
 def test_kernel_rejects_noncontiguous_and_wrong_dtype(cuda):
