@@ -6,7 +6,7 @@
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; it
 imports no JAX. It builds every CUDA kernel of the fog and serving
 paths from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source,
-all started together), then runs thirteen phases and fails (exit 1, no
+all started together), then runs fourteen phases and fails (exit 1, no
 result line) if any of them fails:
 
 (a) the Theorem-3 kernel against its plain PyTorch version on the
@@ -98,7 +98,26 @@ result line) if any of them fails:
 (m) the smoke configs of zamba2-7b, mamba2-1.3b and qwen3-14b once on
     the card and once on the CPU through the port, with the same
     parameters: logits within 1e-4 of the largest |logit|, greedy
-    tokens equal.
+    tokens equal;
+(n) planning beyond setting B: the convex solver (800 Adam steps, plain
+    PyTorch) at n=200, T=20, rho=0.1, sqrt and neg_G, on setting-B and
+    setting-E inputs, on the card against the port on the CPU from the
+    same z0: plans within 1e-3 and objectives within rtol 1e-4, or, on
+    setting-E inputs, where a 1e-7 move of z0 moves the card's own plan
+    by more than 1e-3, within twice that spread; batched B=3 within
+    1e-5 of sequential on the card. Then ``--setting E --error-model
+    sqrt`` at fog scale: the plan feasible, within the capacities to
+    1e-6, its objective no more than 1.02x the no-movement and the
+    all-discard plans', the history complete and finite; the plan's
+    time split into window estimates, operands to the card, the solve
+    (CUDA events, steps/s, peak memory, launches, device time and top
+    kernels a step from the profiler), read-back and the host repair.
+    Settings C and D with ``discard`` at fog scale, every launch
+    counter set to 0 just before each and read just after: one
+    Theorem-3 launch each, the plan equal to the kernel's plain
+    version's on the card (D repaired). Last, E/sqrt at the CLI
+    defaults (cnn, n=10, T=20) on the card and on the CPU, both trained
+    from the CPU's plan, held to each other as in (b).
 
 The line before the last is the JSON list of kernels; the one before it
 the card's name and power limit; the last line is the result.
@@ -1277,6 +1296,311 @@ def phase_m_smoke_configs(torch, np, card, counters, cuda):
             raise AssertionError(f"{arch} smoke launched {launches}")
 
 
+# ---------------------------------------------------------------------------
+# (n) planning beyond setting B: settings C/D/E, the convex solver
+# ---------------------------------------------------------------------------
+
+E_SQRT = ["--setting", "E", "--error-model", "sqrt"]
+CONVEX_ARGV = FOG_ARGV[:FOG_ARGV.index("--n") + 1] + ["200"] + \
+    FOG_ARGV[FOG_ARGV.index("--n") + 2:]
+CONVEX_ITERS = 800
+PLAN_ATOL, OBJ_RTOL = 1e-3, 1e-4   # tests/test_torch_convex.py
+
+
+def _objective(mv, plan, tr, D, em):
+    return mv.plan_cost(plan, tr, D, error_model=em)["total"]
+
+
+def _card_spread(mv, tr, adj, D, em, z0, base, cuda):
+    """The card's own plans from z0·(1 + k·1e-7), k = ±1, ±2: the
+    largest |Δs|, |Δr| from ``base`` and the objectives' range."""
+    runs = [mv.solve_convex(tr, adj, D, error_model=em,
+                            z0=z0 * (1 + k * 1e-7), device=cuda)
+            for k in (-2, -1, 1, 2)]
+    objs = [_objective(mv, p, tr, D, em) for p in runs + [base]]
+    return (max(max(abs(p.s - base.s).max(), abs(p.r - base.r).max())
+                for p in runs), max(objs) - min(objs))
+
+
+def phase_n_convex_card_vs_cpu(torch, np, card, cuda):
+    """The convex solve at n=200, T=20, rho=0.1, sqrt and neg_G, on
+    setting-B and setting-E inputs: the card against the port on the CPU
+    from the same z0; batched B=3 against sequential on the card."""
+    from repro_torch.core import estimator as est
+    from repro_torch.core import movement as mv
+    from repro_torch.core.costs import with_capacity
+    from repro_torch.launch import train
+
+    pb = train.build_problem(train.parse_args(CONVEX_ARGV))
+    tr, sched, D = pb["traces"], pb["schedule"], pb["D"]
+    T, n = D.shape
+    probs = {"B": (tr, sched, D),
+             "E": (est.estimate_traces(with_capacity(tr, float(D.mean()))),
+                   sched, est.estimate_counts(D))}
+    z0 = mv.convex_z0(T, n, [0])[0]
+    for setting, (tr_, adj, D_) in probs.items():
+        for em in ("sqrt", "neg_G"):
+            t0 = time.perf_counter()
+            got = mv.solve_convex(tr_, adj, D_, error_model=em, z0=z0,
+                                  device=cuda)
+            t1 = time.perf_counter()
+            want = mv.solve_convex(tr_, adj, D_, error_model=em, z0=z0,
+                                   device="cpu")
+            t2 = time.perf_counter()
+            d_plan = max(abs(got.s - want.s).max(),
+                         abs(got.r - want.r).max())
+            o_got, o_want = (_objective(mv, p, tr_, D_, em)
+                             for p in (got, want))
+            d_obj = abs(o_got - o_want)
+            strict = d_plan <= PLAN_ATOL and d_obj <= OBJ_RTOL * abs(o_want)
+            note = "within 1e-3 / rtol 1e-4"
+            if not strict:
+                # capacity-bound inputs: the descent is chaotic in the
+                # reference too (tests/test_torch_convex.py); hold the
+                # card to twice its own spread under 1e-7 moves of z0
+                s_spread, o_spread = _card_spread(mv, tr_, adj, D_, em, z0,
+                                                  got, cuda)
+                note = (f"card's own spread from z0·(1 ± 1e-7, 2e-7): "
+                        f"plan {s_spread}, objective {o_spread}")
+                if setting == "B" or not (
+                        s_spread > PLAN_ATOL and d_plan <= 2 * s_spread
+                        and d_obj <= max(2 * o_spread,
+                                         OBJ_RTOL * abs(o_want))):
+                    raise AssertionError(
+                        f"convex {setting}/{em}: card vs CPU plan "
+                        f"{d_plan}, objective {o_got} vs {o_want}; {note}")
+            log(f"(n) convex n={n} T={T} rho=0.1 setting-{setting} inputs "
+                f"{em}: card vs CPU max |ds|,|dr| {d_plan}, objective "
+                f"{o_got} vs {o_want} (rel {d_obj / abs(o_want)}), {note}; "
+                f"card {t1 - t0:.3f} s, CPU {t2 - t1:.3f} s [{card}]")
+    tr_, adj, D_ = probs["B"]
+    seeds = [0, 1, 2]
+    batched = mv.solve_convex_batched([tr_] * 3, [adj] * 3, [D_] * 3,
+                                      seeds=seeds, device=cuda)
+    gap = max(max(abs(b.s - q.s).max(), abs(b.r - q.r).max())
+              for b, q in zip(batched, (
+                  mv.solve_convex(tr_, adj, D_, seed=sd, device=cuda)
+                  for sd in seeds)))
+    log(f"(n) convex batched B=3 vs sequential on the card (setting-B "
+        f"inputs, sqrt, seeds {seeds}): max |ds|,|dr| {gap} [{card}]")
+    if gap > 1e-5:
+        raise AssertionError(f"batched vs sequential gap {gap}")
+
+
+def _kernel_stats(torch, fn):
+    """CUDA kernels, their summed device time (us) and that time by
+    kernel name in a profiler trace of one warm call (copies and
+    memsets not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and not e.name.startswith(("Memcpy", "Memset"))]
+    by_name: dict = {}
+    for e in ev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    return len(ev), sum(by_name.values()), by_name
+
+
+def _convex_plan_parts(torch, mv, est, with_capacity, pb, cuda):
+    """solve_setting("E", sqrt) at fog scale through the same functions,
+    part by part on the host clock (each part ends in a sync): window
+    estimates, operands to the card, the 800-step solve (also by CUDA
+    events, with peak memory), read-back into a plan with its edges,
+    and the capacity repair; launches and device time a step from the
+    profiler (a 10-step run less a 5-step run)."""
+    traces, sched, D = pb["traces"], pb["schedule"], pb["D"]
+    T, n = D.shape
+    kw = dict(error_model="sqrt", gamma=1.0, lr=0.05, capacity_penalty=50.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cap = with_capacity(traces, float(D.mean()))
+    tr, D_hat = est.estimate_traces(cap), est.estimate_counts(D)
+    t1 = time.perf_counter()
+    ins = mv.convex_device_inputs([tr], [sched], [D_hat], cuda)
+    z0 = mv.convex_z0(T, n, [0]).to(cuda)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    s, r = mv.convex_run(*ins, z0, iters=CONVEX_ITERS, **kw)
+    e1.record()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    plan = mv.plans_from_dense(s, r)[0]
+    n_edges = len(plan.edges)
+    t4 = time.perf_counter()
+    plan = mv.repair_capacities(plan, cap, sched, D)
+    t5 = time.perf_counter()
+    del s, r
+    stats = {k: _kernel_stats(torch, lambda k=k: mv.convex_run(
+        *ins, z0, iters=k, **kw)) for k in (5, 10)}
+    solve_ms = e0.elapsed_time(e1)
+    return plan, {
+        "estimate_s": t1 - t0, "device_inputs_s": t2 - t1,
+        "solve_s": t3 - t2, "solve_ms_events": solve_ms,
+        "steps_per_s": CONVEX_ITERS / (solve_ms / 1e3),
+        "readback_s": t4 - t3, "repair_s": t5 - t4, "edges": n_edges,
+        "launches_per_step": (stats[10][0] - stats[5][0]) / 5,
+        "device_us_per_step": (stats[10][1] - stats[5][1]) / 5,
+        "top_kernels_us_per_step": dict(sorted(
+            ((name, (us - stats[5][2].get(name, 0.0)) / 5)
+             for name, us in stats[10][2].items()),
+            key=lambda kv: -kv[1])[:6]),
+        "peak_bytes": peak, "held_before_solve_bytes": held}
+
+
+def phase_n_fog_e_sqrt(torch, np, card, counters, cuda):
+    """--setting E --error-model sqrt at fog scale end to end on the
+    card, its plan checked against the capacities and the no-movement
+    and all-discard plans, then the plan's time split into parts."""
+    from repro_torch.core import estimator as est
+    from repro_torch.core import movement as mv
+    from repro_torch.core.costs import with_capacity
+    from repro_torch.launch import train
+
+    for c in counters.values():
+        c.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out = train.main(FOG_ARGV + E_SQRT)
+    launches = {name: c.launches for name, c in counters.items()}
+    run_peak = torch.cuda.max_memory_allocated()
+    pb = train.build_problem(train.parse_args(FOG_ARGV + E_SQRT))
+    traces, sched, D = pb["traces"], pb["schedule"], pb["D"]
+    T, n = D.shape
+    cap = with_capacity(traces, float(D.mean()))
+    plan, hist = out["plan"], out["history"]
+    plan.check(sched)
+    G = plan.processed(D)
+    e = plan.edges
+    off = e.src != e.dst
+    vol = e.qty[off] * D[e.t[off], e.src[off]]
+    link_cap = cap.cap_link[e.t[off], e.src[off], e.dst[off]]
+    if not (np.all(G <= cap.cap_node + 1e-6)
+            and np.all(vol <= link_cap + 1e-6)):
+        raise AssertionError(f"E/sqrt plan over capacity: G max {G.max()}, "
+                             f"link volume over by "
+                             f"{float((vol - link_cap).max())}")
+    obj = _objective(mv, plan, traces, D, "sqrt")
+    base = _objective(mv, mv.no_movement_plan(T, n), traces, D, "sqrt")
+    empty = mv.PlanEdges(*(np.zeros(0, np.int64) for _ in range(3)),
+                         qty=np.zeros(0))
+    disc = _objective(mv, mv.MovementPlan(r=np.ones((T, n)), edges=empty,
+                                          n=n), traces, D, "sqrt")
+    dl = np.stack(hist["device_loss"])
+    tau = int(FOG_ARGV[FOG_ARGV.index("--tau") + 1])
+    if dl.shape != (T, n) or not np.isfinite(dl).all() \
+            or not np.isfinite(hist["test_loss"]).all() \
+            or len(hist["test_acc"]) != T // tau:
+        raise AssertionError("E/sqrt fog-scale history incomplete or not "
+                             "finite")
+    log(f"(n) fog scale --setting E --error-model sqrt: plan "
+        f"{out['timing']['plan_s']:.4f} s, train "
+        f"{out['timing']['train_s']:.3f} s, P {out['pad_size']}, final_acc "
+        f"{out['final_acc']}, {len(e)} plan edges, objective {obj} against "
+        f"no movement {base} and all discard {disc}, G max {G.max()} (cap "
+        f"{cap.cap_node.max()}), max_memory_allocated {run_peak} B, kernel "
+        f"launches {launches} [{card}]")
+    if not (obj <= 1.02 * base and obj <= 1.02 * disc):
+        raise AssertionError(f"E/sqrt objective {obj} above 1.02x no "
+                             f"movement {base} or all discard {disc}")
+    for rep in range(2):
+        again, parts = _convex_plan_parts(torch, mv, est, with_capacity, pb,
+                                          cuda)
+        log(f"(n) fog-scale E/sqrt plan by part (rep {rep}): "
+            + ", ".join(f"{k} {v}" for k, v in parts.items())
+            + f"; plan equals the run's: {mv.plans_equal(again, plan)} "
+            f"[{card}]")
+        if not mv.plans_equal(again, plan):
+            raise AssertionError("the part-by-part E/sqrt plan differs from "
+                                 "the run's: the split above is not of the "
+                                 "path the run timed")
+
+
+def phase_n_discard_fog(torch, np, card, counters, cuda, og):
+    """Settings C and D with the discard model at fog scale: each run
+    launches the Theorem-3 kernel once, and its plan equals the one the
+    kernel's plain version gives on the card (D then repaired)."""
+    from repro_torch.core import estimator as est
+    from repro_torch.core import movement as mv
+    from repro_torch.core.costs import with_capacity
+    from repro_torch.launch import train
+
+    for setting in ("C", "D"):
+        argv = FOG_ARGV + ["--setting", setting]
+        for c in counters.values():
+            c.reset_launches()
+        out = train.main(argv)
+        launches = {name: c.launches for name, c in counters.items()}
+        pb = train.build_problem(train.parse_args(argv))
+        traces, sched, D = pb["traces"], pb["schedule"], pb["D"]
+        cap = with_capacity(traces, float(D.mean()))
+        tr = est.estimate_traces(traces) if setting == "C" else cap
+        choice, best_j, _ = og.offload_greedy_plain(
+            *mv.device_inputs(tr, sched, cuda))
+        plain = mv._plan_from_choice(choice.cpu().numpy(),
+                                     best_j.cpu().numpy())
+        if setting == "D":
+            plain = mv.repair_capacities(plain, cap, sched, D)
+        same = mv.plans_equal(out["plan"], plain)
+        hist = out["history"]
+        log(f"(n) fog scale --setting {setting} (discard): plan "
+            f"{out['timing']['plan_s']:.4f} s, train "
+            f"{out['timing']['train_s']:.3f} s, final_acc "
+            f"{out['final_acc']}, unit cost {out['cost']['unit']}, kernel "
+            f"launches {launches}, plan equals the plain version's: {same} "
+            f"[{card}]")
+        if launches["offload_greedy"] != 1:
+            raise AssertionError(f"setting {setting}: "
+                                 f"{launches['offload_greedy']} Theorem-3 "
+                                 "launches, expected 1")
+        if not same:
+            raise AssertionError(f"setting {setting}: plan differs from the "
+                                 "plain version's")
+        if not (np.isfinite(np.stack(hist["device_loss"])).all()
+                and np.isfinite(hist["test_loss"]).all()):
+            raise AssertionError(f"setting {setting} history not finite")
+
+
+def phase_n_defaults_e_sqrt(np, card, cuda):
+    """The CLI defaults (cnn, n=10, T=20) with --setting E --error-model
+    sqrt on the card and on the CPU, both trained from the CPU's plan and
+    held to each other as in (b); the card's own plan beside it."""
+    from repro_torch.core import movement as mv
+    from repro_torch.launch import train
+
+    argv = SHORT_ARGV + E_SQRT
+    on_cpu = train.main(argv + ["--device", "cpu"])
+    pb = train.build_problem(train.parse_args(argv))
+    own = train.solve_setting("E", pb["traces"], pb["schedule"], pb["D"],
+                              error_model="sqrt", device=cuda)
+    want = on_cpu["plan"]
+    o_own = mv.plan_cost(own, pb["traces"], pb["D"],
+                         error_model="sqrt")["total"]
+    solve = train.solve_setting
+    train.solve_setting = lambda *a, **k: want
+    try:
+        on_card = train.main(argv)
+    finally:
+        train.solve_setting = solve
+    dmax, amax = _compare_histories(np, on_card, on_cpu)
+    log(f"(n) defaults --setting E --error-model sqrt (cnn n=10 T=20), "
+        f"card and CPU from the CPU's plan: cost, agg_round, H_agg, active, "
+        f"processed_counts equal; max |device_loss diff| {dmax}, max "
+        f"|test_acc diff| {amax}; the card's own plan: objective {o_own} "
+        f"vs the CPU's {on_cpu['cost']['total']}, max |ds| "
+        f"{abs(own.s - want.s).max()} [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -1374,6 +1698,12 @@ def main() -> int:
         del served
         torch.cuda.empty_cache()
 
+    def n_():
+        phase_n_convex_card_vs_cpu(torch, np, card, cuda)
+        phase_n_fog_e_sqrt(torch, np, card, counters, cuda)
+        phase_n_discard_fog(torch, np, card, counters, cuda, og)
+        phase_n_defaults_e_sqrt(np, card, cuda)
+
     phases = [("a", lambda: phase_a_kernels(torch, og, cuda)),
               ("b", lambda: phase_b_defaults(torch, np, card, counters, cuda)),
               ("c", c), ("d", d),
@@ -1383,7 +1713,8 @@ def main() -> int:
               ("i", lambda: phase_i_new_kernels(torch, fa, sd, cuda)),
               ("j", j), ("k", k_), ("l", l_),
               ("m", lambda: phase_m_smoke_configs(torch, np, card, counters,
-                                                  cuda))]
+                                                  cuda)),
+              ("n", n_)]
     failed = []
     for name, fn in phases:
         t0 = time.perf_counter()

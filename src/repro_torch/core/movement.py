@@ -1,19 +1,27 @@
-"""The paper's data-movement optimization (5)–(9), main-path subset.
+"""The paper's data-movement optimization (5)–(9).
 
 Decision variables per round t: ``s[t,i,j]`` — fraction of data collected
 at device i offloaded to device j (``s[t,i,i]`` = processed locally);
 ``r[t,i]`` — fraction discarded. Conservation: r + Σ_j s = 1 (eq. 8);
-graph support (eq. 7).
+graph support (eq. 7); node/link capacities (eq. 9).
 
-``greedy_linear`` is the Theorem-3 closed form for the linear discard
-cost f_i(t)·D_i(t)·r_i(t): each datapoint takes the least-marginal-cost
-option among {process: c_i(t), offload→k: c_ik(t)+c_k(t+1), discard:
-f_i(t)} with k = argmin_j c_ij(t)+c_j(t+1) over out-neighbours. Two
-backends: vectorized numpy (a bitwise copy of the reference's) and the
-device path through ``kernels.ops.greedy_edges_batched`` (the CUDA
-kernel on the card). ``plan_cost`` evaluates the paper's objective
-decomposition. Plans are sparse: a COO edge list plus the discard
-vector, as in :mod:`repro.core.movement`.
+* ``greedy_linear`` — the Theorem-3 closed form for the linear discard
+  cost f_i(t)·D_i(t)·r_i(t): each datapoint takes the least-marginal-cost
+  option among {process: c_i(t), offload→k: c_ik(t)+c_k(t+1), discard:
+  f_i(t)} with k = argmin_j c_ij(t)+c_j(t+1) over out-neighbours. Two
+  backends: vectorized numpy (a bitwise copy of the reference's) and the
+  device path through ``kernels.ops.greedy_edges_batched`` (the CUDA
+  kernel on the card).
+* ``repair_capacities`` — Theorem 6's local repair of capacity
+  violations, host numpy with the reference's arithmetic order.
+* ``solve_convex`` / ``solve_convex_batched`` — the general convex
+  program (Lemma 1) by a masked softmax over [s | r] and Adam, in plain
+  PyTorch on the device; capacities enter as quadratic hinge penalties.
+* ``theorem4_closed_form`` — the hierarchical closed form (Theorem 4).
+
+``plan_cost`` evaluates the paper's objective decomposition. Plans are
+sparse: a COO edge list plus the discard vector, as in
+:mod:`repro.core.movement`.
 """
 from __future__ import annotations
 
@@ -43,17 +51,49 @@ class PlanEdges:
         return len(self.t)
 
 
+def _edges_from_dense(s: np.ndarray) -> PlanEdges:
+    tt, ii, jj = np.nonzero(s)           # np.nonzero is lex-sorted
+    return PlanEdges(t=tt.astype(np.int64), src=ii.astype(np.int64),
+                     dst=jj.astype(np.int64), qty=np.asarray(s[tt, ii, jj],
+                                                             np.float64))
+
+
 class MovementPlan:
     """Movement decisions for all rounds: COO ``edges`` plus the dense
-    discard vector ``r`` (T, n). The dense (T, n, n) share tensor ``.s``
-    is built lazily, for small-n tests only."""
+    discard vector ``r`` (T, n).
 
-    def __init__(self, r: np.ndarray, edges: PlanEdges, n: int):
+    Construct either from a dense tensor (``MovementPlan(s=s, r=r)``,
+    edges extracted lazily) or directly from edges
+    (``MovementPlan(r=r, edges=edges, n=n)``). The dense (T, n, n) share
+    tensor ``.s`` of an edge-built plan is built lazily, for small-n
+    oracles and tests only."""
+
+    def __init__(self, s: np.ndarray | None = None,
+                 r: np.ndarray | None = None, *,
+                 edges: PlanEdges | None = None, n: int | None = None):
+        if r is None:
+            raise TypeError("MovementPlan requires r")
         self.r = np.asarray(r)
-        self.edges = edges
-        self.n = int(n)
-        self._dense: np.ndarray | None = None
+        if s is not None:
+            s = np.asarray(s)
+            self._dense: np.ndarray | None = s
+            self._edges: PlanEdges | None = edges
+            self.n = s.shape[2]
+        elif edges is not None:
+            if n is None:
+                raise TypeError("edge-constructed MovementPlan requires n")
+            self._dense = None
+            self._edges = edges
+            self.n = int(n)
+        else:
+            raise TypeError("MovementPlan requires s or edges")
         self._splits: np.ndarray | None = None
+
+    @property
+    def edges(self) -> PlanEdges:
+        if self._edges is None:
+            self._edges = _edges_from_dense(self._dense)
+        return self._edges
 
     @property
     def T(self) -> int:
@@ -63,7 +103,7 @@ class MovementPlan:
     def s(self) -> np.ndarray:
         """Dense (T, n, n) view — O(T·n²) memory, built once."""
         if self._dense is None:
-            e = self.edges
+            e = self._edges
             s = np.zeros((self.T, self.n, self.n))
             np.add.at(s, (e.t, e.src, e.dst), e.qty)
             self._dense = s
@@ -77,6 +117,19 @@ class MovementPlan:
         e, sp = self.edges, self._splits
         sl = slice(sp[t], sp[t + 1])
         return e.src[sl], e.dst[sl], e.qty[sl]
+
+    def round_dense(self, t: int, out: np.ndarray | None = None
+                    ) -> np.ndarray:
+        """Round t as a dense (n, n) matrix, written into ``out`` when
+        given (zeroed first) so per-round consumers can reuse a single
+        buffer instead of materializing (T, n, n)."""
+        if out is None:
+            out = np.zeros((self.n, self.n))
+        else:
+            out[:] = 0.0
+        src, dst, qty = self.round_edges(t)
+        out[src, dst] = qty
+        return out
 
     def diag(self) -> np.ndarray:
         """s_ii(t) for all rounds as a dense (T, n) array."""
@@ -105,6 +158,28 @@ class MovementPlan:
         np.add.at(G, (te[arrive] + 1, de[arrive]),
                   qe[arrive] * D[te[arrive], se[arrive]])
         return G
+
+    def check(self, adj, atol: float = 1e-5):
+        """Validate nonnegativity, conservation (eq. 8) and graph
+        support (eq. 7). ``adj`` may be a static (n, n) matrix, a
+        (T, n, n) stack or a NetworkSchedule: every offload edge is
+        validated against the adjacency of its round."""
+        T, n = self.r.shape
+        sched = as_schedule(adj, T)
+        e = self.edges
+        assert np.all(e.qty >= -atol) and np.all(self.r >= -atol)
+        total = self.r.copy()
+        np.add.at(total, (e.t, e.src), e.qty)
+        assert np.allclose(total, 1.0, atol=1e-4), total
+        for t in range(T):
+            src, dst, qty = self.round_edges(t)
+            off = src != dst
+            if not off.any():
+                continue
+            present = sched.has_edges(t, src[off], dst[off])
+            lost = qty[off] * ~present
+            assert np.all(lost <= atol), \
+                f"offload over missing link at round {t}"
 
 
 def plans_equal(p: MovementPlan, q: MovementPlan) -> bool:
@@ -237,6 +312,364 @@ def _plan_from_edges(T: int, n: int, edges) -> MovementPlan:
                      dst=dst[keep].astype(np.int64),
                      qty=np.ones(int(keep.sum())))
     return MovementPlan(r=r, edges=kept, n=n)
+
+
+def _adj_t(adj, T: int) -> np.ndarray:
+    """(T, n, n) adjacency view for the dense oracles: a broadcast view
+    (no copy) for static matrices, the stored stack otherwise."""
+    return as_schedule(adj, T).adj_view()
+
+
+# ---------------------------------------------------------------------------
+# Capacity repair (Theorem 6 guidance) — host code, the reference's
+# arithmetic in the reference's order: the knife-edge capacity
+# comparisons in _revert depend on it
+# ---------------------------------------------------------------------------
+
+
+def _repair_round(s_t, r_t, prev, t, T, adj_t, traces, D, diag_next,
+                  dg, eye):
+    """Repair one round in place on the dense (n, n) buffer ``s_t``:
+    vectorized violation detection, scalar replay of spill events in the
+    loop oracle's order. ``adj_t`` is round t's (n, n) adjacency;
+    ``prev`` is round t−1 post-repair (None at t=0); ``diag_next`` is
+    the pre-repair s_ii of round t+1 (rounds ahead are untouched when
+    round t is repaired)."""
+    n = s_t.shape[0]
+    Dt = D[t]
+    Dt_safe = np.maximum(Dt, 1e-12)
+    # local processing this round from s_ii(t) plus arrivals from t-1
+    if t > 0:
+        vol_prev = prev * D[t - 1][:, None]
+        arrivals = vol_prev.sum(0) - vol_prev[dg, dg]
+    else:
+        arrivals = np.zeros(n)
+    # (1) link capacity
+    viol = (adj_t & ~eye) & (s_t * Dt[:, None] > traces.cap_link[t])
+    if viol.any():
+        spill_ij = np.where(
+            viol, s_t - traces.cap_link[t] / Dt_safe[:, None], 0.0)
+        s_t -= spill_ij
+        for i, j in zip(*np.nonzero(spill_ij > 0)):   # source-major
+            _revert(s_t, r_t, t, i, spill_ij[i, j], traces, Dt, arrivals)
+    # (2) node capacity of receivers at t+1 (arrivals processed then),
+    # cut sender by sender in the loop oracle's order
+    if t + 1 < T:
+        vol = s_t * Dt[:, None]
+        inc = vol.sum(0) - vol[dg, dg]
+        over = inc + diag_next * D[t + 1] - traces.cap_node[t + 1]
+        for j in np.nonzero(over > 1e-9)[0]:
+            excess = over[j]
+            for i in np.nonzero(vol[:, j] > 0)[0]:
+                if i == j:
+                    continue
+                if excess <= 1e-12:
+                    break
+                cut = min(vol[i, j], excess)
+                spill = cut / max(Dt[i], 1e-12)
+                s_t[i, j] -= spill
+                excess -= cut
+                _revert(s_t, r_t, t, i, spill, traces, Dt, arrivals)
+    # (3) own node capacity at t for s_ii
+    over = s_t[dg, dg] * Dt + arrivals - traces.cap_node[t]
+    mask = over > 1e-9
+    if mask.any():
+        cut = np.minimum(s_t[dg, dg] * Dt, np.maximum(over, 0.0))
+        spill = np.where(mask, cut / Dt_safe, 0.0)
+        s_t[dg, dg] -= spill
+        r_t += spill
+
+
+def _revert(s_t, r_t, t, i, spill, traces, Dt, arrivals):
+    """Send a spilled fraction back to i's next-best option (on round
+    t's dense (n, n) view ``s_t`` and discard row ``r_t``)."""
+    cap_left = traces.cap_node[t, i] - (s_t[i, i] * Dt[i] + arrivals[i])
+    if (traces.c_node[t, i] <= traces.f_err[t, i]
+            and cap_left >= spill * Dt[i]):
+        s_t[i, i] += spill
+    else:
+        r_t[i] += spill
+
+
+def repair_capacities(plan: MovementPlan, traces: CostTraces,
+                      adj, D: np.ndarray) -> MovementPlan:
+    """Local repair of capacity violations (Theorem 6 guidance).
+
+    A forward pass over t (arrivals chain the rounds), streamed over the
+    sparse plan: each round is expanded into one of two reused dense
+    (n, n) buffers (this round and the previous one, for arrivals),
+    repaired by :func:`_repair_round` and compressed back to edges.
+    ``adj`` may be a static matrix, a (T, n, n) stack or a
+    NetworkSchedule. Bitwise equal to ``repair_capacities_dense`` and
+    ``repair_capacities_loop``, fractional plans included."""
+    T, n = plan.r.shape
+    sched = as_schedule(adj, T)
+    r = plan.r.copy()
+    dg = np.arange(n)
+    eye = np.eye(n, dtype=bool)
+    diag0 = plan.diag()                  # pre-repair s_ii, read one round ahead
+    cur = np.zeros((n, n))
+    prev = np.zeros((n, n))
+    ts, srcs, dsts, qtys = [], [], [], []
+    for t in range(T):
+        plan.round_dense(t, out=cur)
+        _repair_round(cur, r[t], prev if t > 0 else None, t, T,
+                      sched.adj_at(t), traces, D,
+                      diag0[t + 1] if t + 1 < T else None, dg, eye)
+        ii, jj = np.nonzero(cur)
+        ts.append(np.full(len(ii), t, np.int64))
+        srcs.append(ii.astype(np.int64))
+        dsts.append(jj.astype(np.int64))
+        qtys.append(cur[ii, jj].copy())
+        prev, cur = cur, prev            # repaired round feeds t+1 arrivals
+    edges = PlanEdges(t=np.concatenate(ts), src=np.concatenate(srcs),
+                      dst=np.concatenate(dsts), qty=np.concatenate(qtys))
+    return MovementPlan(r=r, edges=edges, n=n)
+
+
+def repair_capacities_dense(plan: MovementPlan, traces: CostTraces,
+                            adj, D: np.ndarray) -> MovementPlan:
+    """Dense-tensor repair, the oracle of the streamed
+    :func:`repair_capacities`."""
+    T, n = plan.r.shape
+    adj3 = _adj_t(adj, T)
+    s = plan.s.copy()
+    r = plan.r.copy()
+    dg = np.arange(n)
+    eye = np.eye(n, dtype=bool)
+    for t in range(T):
+        _repair_round(s[t], r[t], s[t - 1] if t > 0 else None, t, T,
+                      adj3[t], traces, D,
+                      s[t + 1][dg, dg] if t + 1 < T else None, dg, eye)
+    return MovementPlan(s=s, r=r)
+
+
+def repair_capacities_loop(plan: MovementPlan, traces: CostTraces,
+                           adj, D: np.ndarray) -> MovementPlan:
+    """Per-(i, j) Python-loop repair, the oracle of the vectorized
+    paths."""
+    T, n = plan.r.shape
+    adj3 = _adj_t(adj, T)
+    s = plan.s.copy()
+    r = plan.r.copy()
+    for t in range(T):
+        Dt = D[t]
+        arrivals = (s[t - 1] * D[t - 1][:, None]).sum(0) - \
+            np.diag(s[t - 1]) * D[t - 1] if t > 0 else np.zeros(n)
+        for i in range(n):
+            for j in np.nonzero(adj3[t][i])[0]:
+                if i == j or s[t, i, j] == 0:
+                    continue
+                cap = traces.cap_link[t, i, j]
+                if s[t, i, j] * Dt[i] > cap:
+                    spill = s[t, i, j] - cap / max(Dt[i], 1e-12)
+                    s[t, i, j] -= spill
+                    _revert(s[t], r[t], t, i, spill, traces, Dt, arrivals)
+        if t + 1 < T:
+            inc = (s[t] * Dt[:, None]).sum(0) - np.diag(s[t]) * Dt
+            local_next = np.diag(s[t + 1]) * D[t + 1]
+            over = inc + local_next - traces.cap_node[t + 1]
+            for j in np.nonzero(over > 1e-9)[0]:
+                senders = [i for i in range(n)
+                           if i != j and s[t, i, j] * Dt[i] > 0]
+                excess = over[j]
+                for i in senders:
+                    if excess <= 1e-12:
+                        break
+                    vol = s[t, i, j] * Dt[i]
+                    cut = min(vol, excess)
+                    spill = cut / max(Dt[i], 1e-12)
+                    s[t, i, j] -= spill
+                    excess -= cut
+                    _revert(s[t], r[t], t, i, spill, traces, Dt, arrivals)
+        G_now = np.diag(s[t]) * Dt + arrivals
+        over = G_now - traces.cap_node[t]
+        for i in np.nonzero(over > 1e-9)[0]:
+            cut = min(np.diag(s[t])[i] * Dt[i], over[i])
+            spill = cut / max(Dt[i], 1e-12)
+            s[t, i, i] -= spill
+            r[t, i] += spill
+    return MovementPlan(s=s, r=r)
+
+
+# ---------------------------------------------------------------------------
+# General convex solver (1/sqrt error cost, Lemma 1) on the device
+# ---------------------------------------------------------------------------
+
+
+def _convex_mask(traces: CostTraces, adj) -> np.ndarray:
+    """Support mask over the [s_ij | r_i] softmax parametrization."""
+    T, n = traces.c_node.shape
+    adj3 = _adj_t(adj, T)
+    mask = np.concatenate(
+        [adj3 | np.eye(n, dtype=bool)[None], np.ones((T, n, 1), bool)],
+        axis=2).copy()                                     # [s_ij | r_i]
+    # no off-horizon offloading in the final round
+    mask[T - 1, :, :n] &= np.eye(n, dtype=bool)
+    return mask
+
+
+def _convex_inputs(traces: CostTraces, adj, D: np.ndarray) -> tuple:
+    """One scenario's solver operands on the host, as the reference
+    builds them: every trace in float32, capacities clipped at 1e12, the
+    boolean support mask and the counts in float32."""
+    f32 = np.float32
+    return (np.asarray(traces.c_node, f32), np.asarray(traces.c_link, f32),
+            np.asarray(traces.f_err, f32),
+            np.asarray(np.minimum(traces.cap_node, 1e12), f32),
+            np.asarray(np.minimum(traces.cap_link, 1e12), f32),
+            _convex_mask(traces, adj), np.asarray(D, f32))
+
+
+def convex_device_inputs(traces_seq, adj_seq, D_seq, device) -> tuple:
+    """The solver's operands for B scenarios, stacked on a leading
+    scenario axis and sent to ``device`` once: c_node, c_link, f_err,
+    cap_node, cap_link, mask, D, each (B, T, ...)."""
+    stacked = [np.stack(a) for a in zip(*(
+        _convex_inputs(tr, adj, D)
+        for tr, adj, D in zip(traces_seq, adj_seq, D_seq)))]
+    return tuple(torch.from_numpy(a).to(device) for a in stacked)
+
+
+def convex_z0(T: int, n: int, seeds) -> torch.Tensor:
+    """The default initial point, (B, T, n, n+1): ``0.01·randn`` from a
+    CPU ``torch.Generator`` per seed, so every device starts from the
+    same point."""
+    return torch.stack([
+        0.01 * torch.randn((T, n, n + 1),
+                           generator=torch.Generator().manual_seed(sd))
+        for sd in seeds])
+
+
+def _as_z0(z0) -> torch.Tensor:
+    """A caller's initial point as a float32 tensor (arrays copied)."""
+    if isinstance(z0, torch.Tensor):
+        return z0.float()
+    return torch.from_numpy(np.array(z0, np.float32))
+
+
+def convex_run(c_node, c_link, f_err, cap_node, cap_link, mask, D, z0, *,
+               error_model: str, gamma: float, iters: int, lr: float,
+               capacity_penalty: float):
+    """Adam descent on the masked-softmax objective for B scenarios at
+    once (every operand carries a leading scenario axis; the objectives
+    are summed, so each scenario's gradient is its own). Returns the
+    device tensors (s (B, T, n, n), r (B, T, n)). No host sync inside
+    the loop."""
+    n = c_node.shape[-1]
+    off_mask = 1.0 - torch.eye(n, dtype=z0.dtype, device=z0.device)
+    neg_inf = torch.tensor(float("-inf"), dtype=z0.dtype, device=z0.device)
+
+    def unpack(z):
+        p = torch.softmax(torch.where(mask, z, neg_inf), dim=-1)
+        return p[..., :n], p[..., n]                       # rows sum to 1
+
+    def objective(z):
+        s, r = unpack(z)
+        off = s * off_mask
+        G = torch.diagonal(s, dim1=-2, dim2=-1) * D
+        inc = torch.einsum("btji,btj->bti", off, D)
+        G = G + torch.nn.functional.pad(inc[:, :-1], (0, 0, 1, 0))
+        vol = off * D[..., None]
+        proc = torch.sum(G * c_node)
+        trans = torch.sum(vol * c_link)
+        if error_model == "sqrt":
+            err = torch.sum(f_err * gamma / torch.sqrt(G + 1e-3))
+        elif error_model == "neg_G":
+            err = -torch.sum(f_err * G)
+        else:  # "discard"
+            err = torch.sum(f_err * D * r)
+        pen = (torch.sum(torch.relu(G - cap_node) ** 2)
+               + torch.sum(torch.relu(vol - cap_link) ** 2))
+        return proc + trans + err + capacity_penalty * pen
+
+    z = z0.clone().requires_grad_(True)
+    m = torch.zeros_like(z0)
+    v = torch.zeros_like(z0)
+    f32 = np.float32
+    for i in range(iters):
+        g, = torch.autograd.grad(objective(z), z)
+        # the bias corrections in float32, as the reference's traced step
+        bc1 = float(f32(1) - f32(0.9) ** f32(i + 1))
+        bc2 = float(f32(1) - f32(0.999) ** f32(i + 1))
+        with torch.no_grad():
+            g = torch.where(mask, g, 0.0)
+            m = 0.9 * m + 0.1 * g
+            v = 0.999 * v + 0.001 * g * g
+            mh = m / bc1
+            vh = v / bc2
+            z = z - lr * mh / (torch.sqrt(vh) + 1e-8)
+        z.requires_grad_(True)
+    with torch.no_grad():
+        return unpack(z)
+
+
+def plans_from_dense(s: torch.Tensor, r: torch.Tensor) -> list:
+    """Read the solver's (B, T, n, n) shares and (B, T, n) discards back
+    as float64 and wrap each scenario as a plan (edges extracted
+    lazily)."""
+    s = s.cpu().double().numpy()
+    r = r.cpu().double().numpy()
+    return [MovementPlan(s=s[b], r=r[b]) for b in range(len(s))]
+
+
+def solve_convex_batched(traces_seq, adj_seq, D_seq, *,
+                         error_model: str = "sqrt", gamma: float = 1.0,
+                         iters: int = 800, lr: float = 0.05,
+                         capacity_penalty: float = 50.0, seeds=0,
+                         z0=None, device=None) -> list[MovementPlan]:
+    """Solve B (traces, adj, D) scenarios in one descent on ``device``
+    (``cuda`` by default).
+
+    Masked-softmax parametrization of [s | r] + Adam, with the error
+    model "sqrt" (f·γ/√G), "neg_G" (−f·G) or "discard" (f·D·r); each
+    ``adj`` may be a static matrix, a (T, n, n) stack or a
+    NetworkSchedule (the support mask then varies per round). All
+    scenarios share (T, n). ``z0`` — the initial point (B, T, n, n+1);
+    by default drawn by :func:`convex_z0` from ``seeds``: an int gives
+    every scenario the same point, a sequence one each."""
+    device = resolve_device(device)
+    B = len(traces_seq)
+    T, n = traces_seq[0].c_node.shape
+    if z0 is None:
+        if np.ndim(seeds) == 0:
+            seeds = [int(seeds)] * B
+        z0 = convex_z0(T, n, seeds)
+    z0 = _as_z0(z0)
+    s, r = convex_run(*convex_device_inputs(traces_seq, adj_seq, D_seq,
+                                            device), z0.to(device),
+                      error_model=error_model, gamma=gamma, iters=iters,
+                      lr=lr, capacity_penalty=capacity_penalty)
+    return plans_from_dense(s, r)
+
+
+def solve_convex(traces: CostTraces, adj, D: np.ndarray, *,
+                 error_model: str = "sqrt", gamma: float = 1.0,
+                 iters: int = 800, lr: float = 0.05,
+                 capacity_penalty: float = 50.0, seed: int = 0,
+                 z0=None, device=None) -> MovementPlan:
+    """One scenario of :func:`solve_convex_batched` (``z0`` (T, n, n+1)
+    or None for the ``seed``'s default point)."""
+    return solve_convex_batched(
+        [traces], [adj], [D], error_model=error_model, gamma=gamma,
+        iters=iters, lr=lr, capacity_penalty=capacity_penalty, seeds=seed,
+        z0=None if z0 is None else _as_z0(z0)[None],
+        device=device)[0]
+
+
+def theorem4_closed_form(c: np.ndarray, c_server: float, c_t: float,
+                         gamma: float, D: np.ndarray
+                         ) -> tuple[np.ndarray, np.ndarray]:
+    """n devices offloading to an edge server (node n+1).
+
+    Returns (r*, s*) per eqs. (13)-(14):
+      r_i* = 1 − (γ/2c_i)^{2/3}/D_i − s_i,
+      s_i* = (γ/(2(c_{n+1}+c_t)))^{2/3} / Σ_j D_j.
+    """
+    s_star = (gamma / (2 * (c_server + c_t))) ** (2.0 / 3.0) / D.sum()
+    s = np.full_like(c, s_star)
+    r = 1.0 - (gamma / (2 * c)) ** (2.0 / 3.0) / D - s
+    return np.clip(r, 0.0, 1.0), np.clip(s, 0.0, 1.0)
 
 
 def plan_cost(plan: MovementPlan, traces: CostTraces, D: np.ndarray, *,

@@ -19,9 +19,11 @@ import time
 
 import numpy as np
 
+from repro_torch.core import estimator as est
 from repro_torch.core import federated as F
 from repro_torch.core import movement as mv
-from repro_torch.core.costs import synthetic_costs, testbed_like_costs
+from repro_torch.core.costs import (synthetic_costs, testbed_like_costs,
+                                    with_capacity)
 from repro_torch.core.hierarchy import TierTree
 from repro_torch.core.topology import make_schedule, make_topology
 from repro_torch.data import pipeline as pl
@@ -40,28 +42,39 @@ def _unported(what: str, item: int, title: str) -> SystemExit:
 
 
 def solve_setting(setting: str, traces, adj, D, error_model="discard",
-                  device=None):
-    """Paper Table III settings: A no movement; B perfect information.
-    C–E (imperfect information, capacities) are not ported yet."""
+                  device=None, z0=None, iters=800):
+    """Paper Table III settings: A no movement; B perfect information;
+    C imperfect information; D perfect information + capacity; E
+    imperfect information + capacity. ``error_model`` "discard" plans
+    by the Theorem-3 rule, "neg_G" and "sqrt" by ``iters`` steps of the
+    convex solver on ``device`` (from ``z0`` when given; the paper
+    tables take 400). C and E plan on window estimates; D and E are
+    repaired against the true traces and counts."""
     T_, n = D.shape
     if setting == "A":
         return mv.no_movement_plan(T_, n)
-    if setting in ("C", "D", "E"):
-        raise _unported(f"setting {setting}", 2, "planning")
-    if setting != "B":
+    if setting not in ("B", "C", "D", "E"):
         raise ValueError(f"unknown setting {setting!r}")
-    if error_model != "discard":
-        raise _unported(f"error model {error_model!r}", 2, "planning")
-    return mv.greedy_linear(traces, adj, device=device)
+    if setting in ("D", "E"):
+        traces = with_capacity(traces, float(D.mean()))
+    tr = traces
+    if setting in ("C", "E"):
+        tr = est.estimate_traces(traces)
+    if error_model == "discard":
+        plan = mv.greedy_linear(tr, adj, device=device)
+    else:
+        plan = mv.solve_convex(tr, adj, est.estimate_counts(D)
+                               if setting in ("C", "E") else D,
+                               error_model=error_model, iters=iters,
+                               z0=z0, device=device)
+    if setting in ("D", "E"):
+        plan = mv.repair_capacities(plan, traces, adj, D)
+    return plan
 
 
 def _check_ported(args) -> None:
     checks = [
         (args.mode == "lm", "--mode lm", 14, LM_TRAINING),
-        (args.setting in ("C", "D", "E"), f"--setting {args.setting}", 2,
-         "planning"),
-        (args.error_model != "discard", f"--error-model {args.error_model}",
-         2, "planning"),
         (args.schedule != "static" or args.churn or args.p_exit
          or args.p_entry, "churn and flap schedules", 8,
          "dynamics and prediction"),

@@ -152,6 +152,44 @@ def test_device_plan_equals_plain_plan_on_card(cuda):
     assert movement.plans_equal(plan, want)
 
 
+def _convex_problem(n, T, rho, seed):
+    """Setting-B inputs at fog density (no capacities: there the descent
+    is well posed, see tests/test_torch_convex.py)."""
+    rng = np.random.default_rng(seed)
+    tr = costs.testbed_like_costs(n, T, rng)
+    adj = topology.make_topology("random", n, rng, rho=rho)
+    D = rng.poisson(15, (T, n)).astype(float)
+    return tr, adj, D
+
+
+@pytest.mark.parametrize("em", ["sqrt", "neg_G"])
+def test_convex_solve_on_card_matches_cpu(cuda, em):
+    """n = 200, T = 20, rho = 0.1, the same z0 on both devices: plans
+    within 1e-3, objectives within rtol 1e-4."""
+    tr, adj, D = _convex_problem(200, 20, 0.1, 0)
+    z0 = movement.convex_z0(20, 200, [0])[0]
+    got = movement.solve_convex(tr, adj, D, error_model=em, z0=z0,
+                                device=cuda)
+    want = movement.solve_convex(tr, adj, D, error_model=em, z0=z0,
+                                 device="cpu")
+    np.testing.assert_allclose(got.s, want.s, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(got.r, want.r, rtol=0, atol=1e-3)
+    cost = [movement.plan_cost(p, tr, D, error_model=em)["total"]
+            for p in (got, want)]
+    np.testing.assert_allclose(cost[0], cost[1], rtol=1e-4)
+
+
+def test_convex_batched_equals_sequential_on_card(cuda):
+    probs = [_convex_problem(120, 10, 0.2, sd) for sd in (1, 2, 3)]
+    trs, adjs, Ds = zip(*probs)
+    batched = movement.solve_convex_batched(list(trs), list(adjs), list(Ds),
+                                            seeds=[0, 1, 2], device=cuda)
+    for (tr, adj, D), sd, got in zip(probs, (0, 1, 2), batched):
+        want = movement.solve_convex(tr, adj, D, seed=sd, device=cuda)
+        np.testing.assert_allclose(got.s, want.s, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got.r, want.r, rtol=0, atol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # segment reduce
 # ---------------------------------------------------------------------------

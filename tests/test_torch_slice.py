@@ -71,7 +71,9 @@ def test_cli_cost_equals_reference_cli(capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--setting", "C"], ["--setting", "E"], ["--error-model", "sqrt"],
+    ["--setting", "C", "--churn", "0.1"], ["--setting", "E", "--faults",
+                                           "drop"],
+    ["--error-model", "sqrt", "--engine", "batched"],
     ["--schedule", "churn"], ["--churn", "0.1"], ["--schedule", "flap"],
     ["--faults", "drop"], ["--tiers", "2@4,1@8", "--faults", "crash"],
     ["--checkpoint", "x"],
