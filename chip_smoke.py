@@ -6,7 +6,7 @@
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; it
 imports no JAX. It builds every CUDA kernel of the fog and serving
 paths from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source,
-all started together), then runs fourteen phases and fails (exit 1, no
+all started together), then runs fifteen phases and fails (exit 1, no
 result line) if any of them fails:
 
 (a) the Theorem-3 kernel against its plain PyTorch version on the
@@ -117,7 +117,32 @@ result line) if any of them fails:
     Theorem-3 launch each, the plan equal to the kernel's plain
     version's on the card (D repaired). Last, E/sqrt at the CLI
     defaults (cnn, n=10, T=20) on the card and on the CPU, both trained
-    from the CPU's plan, held to each other as in (b).
+    from the CPU's plan, held to each other as in (b);
+(o) network dynamics: the Theorem-3 kernel against its plain version,
+    bit for bit, on the operands ``device_inputs`` builds from a
+    churn-masked schedule at fog scale (p_exit = p_entry = 0.05), a flap
+    schedule (p_flap = 0.1), the ``predict_schedule`` of each, and an
+    n = 1003 schedule with a round where every device has exited, a
+    round whose rows each keep one live receiver column (the next
+    round has a single device active) and that round itself; timed on
+    the churn inputs beside its plain version and its bound on their
+    live links (in the log only: the kernels line keeps the fog-scale
+    static timing of (d)). Then the
+    fog-scale CLI under ``--churn 0.05`` with ``--replan oracle``,
+    ``predict`` and ``once`` and under ``--schedule flap --p-flap 0.1
+    --replan predict``, every launch counter set to 0 just before each
+    run and read just after: exactly one Theorem-3 launch a plan, the
+    plan equal to the plain version's on the card, the oracle plan
+    unchanged by ``realize_plan``, the history complete and finite with
+    ``active`` equal to ``schedule.activity()``, and the plan's time by
+    part (predict_schedule, device_inputs, the kernel, the epilogue with
+    read-back, realize_plan). Then cnn, n=10, T=20, 2,000 samples under
+    churn (the three replan modes), flap, and ``--tiers 5@10,1@20`` with
+    churn, on
+    the card and on the CPU, held as in (b) plus ``n_events`` and the
+    tier fields; last, Table V at ``--quick`` on the card against the
+    port on the CPU (costs and ``avg_active`` exactly, accuracies within
+    1e-2).
 
 The line before the last is the JSON list of kernels; the one before it
 the card's name and power limit; the last line is the result.
@@ -1601,6 +1626,286 @@ def phase_n_defaults_e_sqrt(np, card, cuda):
         f"{abs(own.s - want.s).max()} [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# (o) network dynamics: churn and flap schedules, predictive replanning,
+# realized plans, the Theorem-3 kernel on per-round adjacency
+# ---------------------------------------------------------------------------
+
+CHURN = ["--churn", "0.05"]
+FLAP = ["--schedule", "flap", "--p-flap", "0.1"]
+DYN_FOG = [(CHURN + ["--replan", m], m) for m in ("oracle", "predict",
+                                                  "once")] + \
+    [(FLAP + ["--replan", "predict"], "predict")]
+# the small case at half the samples of (b): its CPU runs set (o)'s time
+DYN_SHORT_ARGV = SHORT_ARGV[:SHORT_ARGV.index("--n-train") + 1] + \
+    ["2000"] + SHORT_ARGV[SHORT_ARGV.index("--n-train") + 2:]
+DYN_SHORT = [DYN_SHORT_ARGV + ["--churn", "0.1", "--replan", m]
+             for m in ("oracle", "predict", "once")] + \
+    [DYN_SHORT_ARGV + ["--schedule", "flap"],
+     DYN_SHORT_ARGV + ["--tiers", "5@10,1@20", "--churn", "0.1"]]
+
+
+EDGE_ONE = 500          # the one device active in the edge cases' round 3
+
+
+def _edge_schedule(np, ts):
+    """n = 1003 (rows off a 16-byte boundary), T = 6: round 1 with every
+    device exited, round 2 with every device active, round 3 with device
+    ``EDGE_ONE`` alone, so that each row of round 2 keeps one live
+    receiver column."""
+    rng = np.random.default_rng(17)
+    T, n = 6, 1003
+    adj = rng.random((n, n)) < 0.2
+    np.fill_diagonal(adj, False)
+    active = rng.random((T, n)) < 0.8
+    active[1] = False
+    active[2] = True
+    active[3] = False
+    active[3, EDGE_ONE] = True
+    return ts.NetworkSchedule.masked(adj, active,
+                                     initial_active=np.ones(n, bool))
+
+
+def _check_edge_operands(adj):
+    """The edge cases' adjacency operand (T, n, n) as ``device_inputs``
+    builds it: rounds 0, 1 and 3 empty (no receiver active at t+1, all
+    exited, one device with no link to itself), and round 2's rows each
+    keeping column ``EDGE_ONE`` alone where the base graph has it.
+    Returns the count of round-2 rows with their one live column."""
+    one = adj[2, :, EDGE_ONE]
+    rest = adj[2].clone()
+    rest[:, EDGE_ONE] = False
+    if adj[[0, 1, 3]].any() or rest.any() or not one.any():
+        raise AssertionError(
+            "edge-case operands: rounds 0, 1 and 3 should be empty and "
+            f"round 2 should keep column {EDGE_ONE} alone")
+    return int(one.sum())
+
+
+def phase_o_kernel(torch, np, og, cuda, card):
+    """Kernel 1 against its plain version, bit for bit, on the operands
+    ``device_inputs`` builds from churn-masked and flap schedules at fog
+    scale, from their predictions, and from the edge cases; then timed
+    on the churn inputs beside its plain version and its bound."""
+    from repro_torch.core import estimator as est
+    from repro_torch.core import movement as mv
+    from repro_torch.core import schedule as ts
+    from repro_torch.core.costs import synthetic_costs
+    from repro_torch.launch import train
+
+    problems = {}
+    cases = {}
+    for name, flags in (("churn 0.05", CHURN), ("flap 0.1", FLAP)):
+        pb = problems[tuple(flags)] = train.build_problem(
+            train.parse_args(FOG_ARGV + flags))
+        sched = pb["schedule"]
+        cases[name] = (pb["traces"], sched)
+        cases[f"predicted {name}"] = (pb["traces"],
+                                      est.predict_schedule(sched))
+    edge = _edge_schedule(np, ts)
+    cases["edge cases n=1003"] = (synthetic_costs(
+        edge.n, edge.T, np.random.default_rng(18)), edge)
+    churn_ins = None
+    for name, (traces, sched) in cases.items():
+        ins = mv.device_inputs(traces, sched, cuda)
+        got = og.offload_greedy_batched(*ins)
+        want = og.offload_greedy_plain(*ins)
+        torch.cuda.synchronize()
+        same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+        adj = ins[4]
+        rows_live = int(adj.any(2).sum())
+        log(f"(o) offload_greedy on {name} ({sched.storage} storage, T, n = "
+            f"{tuple(ins[2].shape)}, {int(adj.sum())} live links, "
+            f"{rows_live} of {adj.shape[0] * adj.shape[1]} rows with a "
+            f"link): choice/best_j/best_cost equal {same} [{card}]")
+        if not all(same):
+            raise AssertionError(f"kernel != plain version on {name}")
+        if name == "churn 0.05":
+            churn_ins = ins
+    single = _check_edge_operands(mv.device_inputs(
+        cases["edge cases n=1003"][0], edge, cuda)[4])
+    log(f"(o) edge cases: rounds 0, 1 and 3 empty; round 2 has {single} "
+        f"rows whose one live column is {EDGE_ONE}")
+    flush = flush_buffer(torch, cuda)
+    b = _greedy_bounds(torch, churn_ins)
+    times, states = _in_turns(torch, {"kernel": og.offload_greedy_batched,
+                                      "plain": og.offload_greedy_plain},
+                              churn_ins, flush)
+    log(f"(o) offload_greedy on the churn-masked fog-scale inputs "
+        f"({b['live_links']} live links in {b['live_sectors']} sectors): "
+        f"kernel {_spread(times['kernel'])} ms, plain "
+        f"{_spread(times['plain'])} ms (3 rounds in turns, median of 30 "
+        f"each), bound {b['bound_ms']} ms "
+        f"({b['bound_by']}), sector floor {b['sector_floor_ms']} ms, 64-B "
+        f"granule floor {b['granule_floor_ms']} ms; card before each round "
+        f"{states} [{card}]")
+    return problems
+
+
+def _dyn_plan_parts(torch, mv, est, ops, og, pb, replan, cuda):
+    """The plan of a dynamic fog-scale run part by part on the host
+    clock: predict_schedule, device_inputs, the kernel, the COO epilogue
+    with read-back and host packing, and realize_plan."""
+    sched = pb["schedule"]
+    T, n = pb["D"].shape
+    t0 = time.perf_counter()
+    net = (sched if replan == "oracle" else est.predict_schedule(sched)
+           if replan == "predict" else pb["adj"])
+    t1 = time.perf_counter()
+    ins = mv.device_inputs(pb["traces"], net, cuda)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    choice, best_j, _ = og.offload_greedy_batched(*ins)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    plan = mv._plan_from_edges(T, n, ops.greedy_edges_from_choice(
+        choice, best_j))
+    t4 = time.perf_counter()
+    realized = mv.realize_plan(plan, sched)
+    t5 = time.perf_counter()
+    return plan, realized, ins, {
+        "predict_schedule_s": t1 - t0, "device_inputs_s": t2 - t1,
+        "kernel_s": t3 - t2, "epilogue_readback_pack_s": t4 - t3,
+        "realize_plan_s": t5 - t4}
+
+
+def phase_o_fog(torch, np, og, ops, counters, cuda, card, problems):
+    """The fog-scale CLI under churn (oracle, predict, once) and flap
+    (predict): one Theorem-3 launch a plan, the plan equal to the plain
+    version's, the oracle plan unchanged by realize_plan, the history
+    complete and finite with the schedule's active trace; and the plan's
+    time by part. ``problems``: the runs' problems by schedule flags
+    (``build_problem`` does not read ``--replan``)."""
+    from repro_torch.core import estimator as est
+    from repro_torch.core import movement as mv
+    from repro_torch.launch import train
+
+    T = int(FOG_ARGV[FOG_ARGV.index("--T") + 1])
+    tau = int(FOG_ARGV[FOG_ARGV.index("--tau") + 1])
+    for flags, replan in DYN_FOG:
+        argv = FOG_ARGV + flags
+        for c in counters.values():
+            c.reset_launches()
+        out = train.main(argv)
+        launches = {name: c.launches for name, c in counters.items()}
+        pb = problems[tuple(flags[:-2])]
+        sched = pb["schedule"]
+        if out["replan"] != replan or sched.static_adj is not None:
+            raise AssertionError(f"{flags}: replan {out['replan']}, "
+                                 f"expected a dynamic {replan} run")
+        if launches["offload_greedy"] != 1:
+            raise AssertionError(f"{flags}: {launches['offload_greedy']} "
+                                 "Theorem-3 launches, expected 1")
+        hist = out["history"]
+        dl = np.stack(hist["device_loss"])
+        if dl.shape != (T, sched.n) or not np.isfinite(dl).all() \
+                or not np.isfinite(hist["test_loss"]).all() \
+                or len(hist["test_acc"]) != T // tau:
+            raise AssertionError(f"{flags}: history incomplete or not "
+                                 "finite")
+        if not np.array_equal(np.stack(hist["active"]), sched.activity()):
+            raise AssertionError(f"{flags}: active differs from the "
+                                 "schedule's activity()")
+        parts = []
+        for rep in range(2):
+            plan, realized, ins, split = _dyn_plan_parts(
+                torch, mv, est, ops, og, pb, replan, cuda)
+            if not mv.plans_equal(realized, out["plan"]):
+                raise AssertionError(f"{flags}: the part-by-part plan "
+                                     "differs from the run's")
+            parts.append(split)
+        choice, best_j, _ = og.offload_greedy_plain(*ins)
+        plain = mv.realize_plan(mv._plan_from_choice(
+            choice.cpu().numpy(), best_j.cpu().numpy()), sched)
+        if not mv.plans_equal(out["plan"], plain):
+            raise AssertionError(f"{flags}: plan differs from the plain "
+                                 "version's")
+        unchanged = mv.plans_equal(plan, realized)
+        if replan == "oracle" and not unchanged:
+            raise AssertionError("the oracle plan changed under "
+                                 "realize_plan: the kernel's receiver mask "
+                                 "is not the reference's")
+        lost = float((realized.r - plan.r).sum())
+        log(f"(o) fog scale {' '.join(flags)}: {out['n_events']} events, "
+            f"replan {out['replan']}, run timing {out['timing']}, "
+            f"final_acc {out['final_acc']}, unit cost {out['cost']['unit']},"
+            f" kernel launches {launches}, plan equals the plain version's, "
+            f"realize_plan left it unchanged: {unchanged} (shares lost in "
+            f"realization {lost}); plan by part: {parts} [{card}]")
+
+
+def _rerun_with_memory_held(torch, np, train, argv, first):
+    """Run ``argv`` on the card again with all but 1 GiB of its free
+    memory held, and require the same history bit for bit: the CNN's
+    convolutions must not change their arithmetic with the workspace
+    they can get (cuDNN did; ``device.set_f32_numerics`` turns it off)."""
+    held = torch.empty(torch.cuda.mem_get_info()[0] - 2 ** 30,
+                       dtype=torch.uint8, device="cuda")
+    try:
+        again = train.main(argv)
+    finally:
+        del held
+        torch.cuda.empty_cache()
+    for k in ("device_loss", "test_loss", "test_acc"):
+        if not np.array_equal(np.asarray(again["history"][k]),
+                              np.asarray(first["history"][k])):
+            raise AssertionError(f"{k} changed with the card's memory held")
+
+
+def phase_o_small(torch, np, card):
+    """cnn n=10 T=20 under churn (oracle, predict, once), flap, and
+    tiers with churn, on the card and on the CPU, held to each other as
+    in (b), plus n_events, schedule, replan and the tier fields. The
+    flap run, the most sensitive to its arithmetic, runs once more on the
+    card with its memory held and must repeat its history bit for bit."""
+    from repro_torch.launch import train
+
+    for argv in DYN_SHORT:
+        on_card = train.main(argv)
+        if "flap" in argv:
+            _rerun_with_memory_held(torch, np, train, argv, on_card)
+        on_cpu = train.main(argv + ["--device", "cpu"])
+        dmax, amax = _compare_histories(np, on_card, on_cpu)
+        for k in ("n_events", "schedule", "replan"):
+            if on_card[k] != on_cpu[k]:
+                raise AssertionError(f"{k} differs: {on_card[k]} vs "
+                                     f"{on_cpu[k]}")
+        h, w = on_card["history"], on_cpu["history"]
+        for k in ("tier_agg_round", "tier_agg_level"):
+            if h.get(k) != w.get(k):
+                raise AssertionError(f"{k} differs")
+        log(f"(o) {' '.join(argv[len(DYN_SHORT_ARGV):])} (cnn n=10 T=20, "
+            f"2000 samples) card "
+            f"vs CPU: cost, agg_round, H_agg, active, processed_counts, "
+            f"n_events {on_card['n_events']}, replan {on_card['replan']} "
+            f"equal; max |device_loss diff| {dmax}, max |test_acc diff| "
+            f"{amax}; train_s card {on_card['timing']['train_s']} CPU "
+            f"{on_cpu['timing']['train_s']}"
+            f"{'; repeated bitwise with memory held' if 'flap' in argv else ''}"
+            f" [{card}]")
+
+
+def phase_o_table5(np, cuda, card):
+    """Table V at --quick on the card against the port on the CPU: cost
+    rows and avg_active exactly, accuracies within 1e-2."""
+    from repro_torch.launch import tables
+
+    got = tables.table5_dynamics(tables.QUICK, cuda)
+    want = tables.table5_dynamics(tables.QUICK, "cpu")
+    for row in ("static", "dynamic"):
+        if got[row]["cost"] != want[row]["cost"]:
+            raise AssertionError(f"Table V {row} cost differs")
+        if abs(got[row]["acc"] - want[row]["acc"]) > 1e-2:
+            raise AssertionError(f"Table V {row} accuracy differs by more "
+                                 "than 1e-2")
+    if got["headline"]["avg_active"] != want["headline"]["avg_active"]:
+        raise AssertionError("Table V avg_active differs")
+    log(f"(o) Table V --quick card vs CPU: costs and avg_active "
+        f"{got['headline']['avg_active']} equal; accuracies "
+        f"{[got[r]['acc'] for r in ('static', 'dynamic')]} vs "
+        f"{[want[r]['acc'] for r in ('static', 'dynamic')]} [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -1704,6 +2009,12 @@ def main() -> int:
         phase_n_discard_fog(torch, np, card, counters, cuda, og)
         phase_n_defaults_e_sqrt(np, card, cuda)
 
+    def o():
+        problems = phase_o_kernel(torch, np, og, cuda, card)
+        phase_o_fog(torch, np, og, ops, counters, cuda, card, problems)
+        phase_o_small(torch, np, card)
+        phase_o_table5(np, cuda, card)
+
     phases = [("a", lambda: phase_a_kernels(torch, og, cuda)),
               ("b", lambda: phase_b_defaults(torch, np, card, counters, cuda)),
               ("c", c), ("d", d),
@@ -1714,7 +2025,7 @@ def main() -> int:
               ("j", j), ("k", k_), ("l", l_),
               ("m", lambda: phase_m_smoke_configs(torch, np, card, counters,
                                                   cuda)),
-              ("n", n_)]
+              ("n", n_), ("o", o)]
     failed = []
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -7,6 +7,9 @@ device, default), ``"legacy"`` (the per-round oracle) or ``"auto"``
 (scan: the port runs on one card). With ``hierarchy=`` a
 :class:`repro_torch.core.hierarchy.TierTree` composes eq. (4) up its
 tiers (``"hierarchical"``, on the scan substrate).
+
+Baselines: ``run_centralized`` (all data at one node) and
+``run_federated`` (no movement, G_i = D_i), the Table II rows.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from repro_torch.core import movement as mv
 from repro_torch.core.costs import CostTraces
 from repro_torch.core.hierarchy import TierTree
 from repro_torch.core.schedule import NetworkSchedule
+from repro_torch.core.topology import churn_schedule
 from repro_torch.data import pipeline as pl
 from repro_torch.device import resolve_device
 from repro_torch.models import mnist as mm
@@ -36,6 +40,8 @@ class FedConfig:
     iid: bool = True
     seed: int = 0
     max_points: int = 0          # pad size; 0 -> auto from streams
+    p_exit: float = 0.0
+    p_entry: float = 0.0
 
 
 # engines of the reference not ported yet, with their ROADMAP.md item
@@ -161,3 +167,66 @@ def _history_base(cfg: FedConfig, y_tr, streams, processed,
     hist["processed_counts"] = [[len(ix) for ix in processed[t]]
                                 for t in range(cfg.T)]
     return hist
+
+
+def run_centralized(cfg: FedConfig, data, steps: int | None = None,
+                    batch: int = 600, params: dict | None = None,
+                    device=None) -> dict:
+    """All data processed at one node (Table II "Centralized"): plain
+    SGD at ``cfg.eta`` on batches drawn without replacement from
+    ``np.random.default_rng(cfg.seed)``, ``steps`` (default ``cfg.T``)
+    of them. ``params`` as in :func:`run_network_aware`."""
+    device = resolve_device(device)
+    x_tr, y_tr, x_te, y_te = data
+    specs_fn, apply_fn = mm.MODELS[cfg.model]
+    if params is None:
+        params = mm.init_params(
+            specs_fn(), torch.Generator().manual_seed(cfg.seed),
+            device=device)
+    else:
+        params = {k: torch.as_tensor(v, dtype=torch.float32).to(device)
+                  .clone() for k, v in params.items()}
+    steps = steps or cfg.T
+
+    def tensors(x, y):
+        return (torch.from_numpy(np.asarray(x, np.float32)).to(device),
+                torch.from_numpy(np.asarray(y, np.int64)).to(device))
+
+    rng = np.random.default_rng(cfg.seed)
+    losses = []
+    for _ in range(steps):
+        idx = rng.choice(len(x_tr), batch, replace=False)
+        x, y = tensors(x_tr[idx], y_tr[idx])
+        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        loss = mm.ce_loss(apply_fn(p, x), y)
+        grads = torch.autograd.grad(loss, list(p.values()))
+        with torch.no_grad():
+            params = {k: v - cfg.eta * g
+                      for (k, v), g in zip(p.items(), grads)}
+        losses.append(loss.item())
+    x, y = tensors(x_te, y_te)
+    with torch.no_grad():
+        logits = apply_fn(params, x)
+        return {"test_acc": float(mm.accuracy(logits, y)),
+                "test_loss": float(mm.ce_loss(logits, y)),
+                "train_loss": losses}
+
+
+def run_federated(cfg: FedConfig, data, **kw) -> dict:
+    """No-movement baseline: G_i(t) = D_i(t)."""
+    plan = mv.no_movement_plan(cfg.T, cfg.n)
+    traces = kw.pop("traces", None)
+    adj = kw.pop("adj", None)            # training never reads it
+    if traces is None:
+        from repro_torch.core.costs import synthetic_costs
+        traces = synthetic_costs(cfg.n, cfg.T,
+                                 np.random.default_rng(cfg.seed))
+    return run_network_aware(cfg, data, traces, adj, plan, **kw)
+
+
+def churn_activity(cfg: FedConfig, rng: np.random.Generator) -> np.ndarray:
+    """(T, n) churn trace: the active mask of :func:`churn_schedule` at
+    ``cfg.p_exit``/``cfg.p_entry`` with a sync every ``cfg.tau``."""
+    sched = churn_schedule(np.ones((cfg.n, cfg.n), bool), cfg.T,
+                           cfg.p_exit, cfg.p_entry, rng, tau=cfg.tau)
+    return sched.activity()

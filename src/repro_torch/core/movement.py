@@ -12,6 +12,9 @@ graph support (eq. 7); node/link capacities (eq. 9).
   backends: vectorized numpy (a bitwise copy of the reference's) and the
   device path through ``kernels.ops.greedy_edges_batched`` (the CUDA
   kernel on the card).
+* ``realize_plan`` — a plan confronted with the network that happened:
+  shares over links that are down, or toward receivers gone at the
+  arrival round, are lost to the discard vector.
 * ``repair_capacities`` — Theorem 6's local repair of capacity
   violations, host numpy with the reference's arithmetic order.
 * ``solve_convex`` / ``solve_convex_batched`` — the general convex
@@ -109,12 +112,17 @@ class MovementPlan:
             self._dense = s
         return self._dense
 
-    def round_edges(self, t: int):
-        """(src, dst, qty) views of round t's edges (sorted by src, dst)."""
+    def _round_splits(self) -> np.ndarray:
+        """Edge offsets of the rounds: round t is ``[sp[t], sp[t+1])``."""
         if self._splits is None:
             self._splits = np.searchsorted(self.edges.t,
                                            np.arange(self.T + 1))
-        e, sp = self.edges, self._splits
+        return self._splits
+
+    def round_edges(self, t: int):
+        """(src, dst, qty) views of round t's edges (sorted by src, dst)."""
+        sp = self._round_splits()
+        e = self.edges
         sl = slice(sp[t], sp[t + 1])
         return e.src[sl], e.dst[sl], e.qty[sl]
 
@@ -222,7 +230,10 @@ def greedy_linear(traces: CostTraces, adj, *, backend: str = "auto",
                   device=None) -> MovementPlan:
     """Theorem 3 rule as one batched min-plus over all T rounds.
 
-    ``adj``: static (n, n) matrix, (T, n, n) stack or NetworkSchedule.
+    ``adj``: static (n, n) matrix, (T, n, n) stack or NetworkSchedule;
+    each round's decision uses that round's adjacency, and under an
+    active trace the devices inactive at t+1 leave round t's candidate
+    set (their arrivals would be lost, see :func:`realize_plan`).
     ``backend``: "numpy" (vectorized on the host, float64 adds),
     "cuda" (the device path in float32 on ``device``: the CUDA kernel on
     a card, its plain PyTorch version with ``device="cpu"``), or "auto"
@@ -277,7 +288,13 @@ def device_inputs(traces: CostTraces, adj, device) -> tuple:
     arrival round t+1 removed."""
     T, n = traces.c_node.shape
     sched = as_schedule(adj, T)
-    adj3 = np.array(sched.adj_view(), dtype=bool, order="C")   # own copy
+    adj3 = np.empty((T, n, n), bool)
+    static = sched.static_adj
+    if static is not None:
+        adj3[:] = static
+    else:
+        for t in range(T - 1):      # adj_at reuses its buffer: copy out
+            adj3[t] = sched.adj_at(t)
     adj3[T - 1] = False
     act = sched.activity()
     if not act.all():
@@ -318,6 +335,41 @@ def _adj_t(adj, T: int) -> np.ndarray:
     """(T, n, n) adjacency view for the dense oracles: a broadcast view
     (no copy) for static matrices, the stored stack otherwise."""
     return as_schedule(adj, T).adj_view()
+
+
+def realize_plan(plan: MovementPlan, schedule) -> MovementPlan:
+    """Confront a plan with the network that actually materialized.
+
+    Two loss channels, both charged to the discard vector ``r``:
+    send-side (the link is absent at the edge's round: flapped down, or
+    an endpoint churned out) and receiver-side (the receiver is inactive
+    at t+1, the round its arrivals would be processed). A greedy plan
+    solved on the schedule itself passes unchanged; a static schedule
+    passes any plan unchanged."""
+    T, n = plan.r.shape
+    sched = as_schedule(schedule, T)
+    e = plan.edges
+    keep = np.ones(len(e), bool)
+    r = plan.r.copy()
+    sp = plan._round_splits()
+    for t in range(T):
+        sl = slice(sp[t], sp[t + 1])
+        src, dst, qty = e.src[sl], e.dst[sl], e.qty[sl]
+        off = src != dst
+        if not off.any():
+            continue
+        present = np.zeros(len(src), bool)
+        present[off] = sched.has_edges(t, src[off], dst[off])
+        lost = off & ~present
+        if t + 1 < T:                    # arrival round: receiver gone
+            act_next = np.asarray(sched.active_at(t + 1), bool)
+            lost |= off & ~act_next[dst]
+        if lost.any():
+            np.add.at(r[t], src[lost], qty[lost])
+            keep[np.arange(sp[t], sp[t + 1])[lost]] = False
+    edges = PlanEdges(t=e.t[keep], src=e.src[keep], dst=e.dst[keep],
+                      qty=e.qty[keep])
+    return MovementPlan(r=r, edges=edges, n=n)
 
 
 # ---------------------------------------------------------------------------

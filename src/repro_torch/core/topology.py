@@ -3,13 +3,16 @@
 A topology is a boolean adjacency matrix ``adj`` (n, n) of directed
 links (i, j) — ``adj[i, j]`` means i may offload to j. The aggregation
 server is implicit (every device reaches it for parameters, never for
-data). A copy of :mod:`repro.core.topology` with the same rng stepping.
+data). Dynamics: at each round, active devices exit w.p. ``p_exit`` and
+inactive devices re-enter w.p. ``p_entry`` (paper §V-E), and links flap
+down and back up. A copy of :mod:`repro.core.topology` with the same rng
+stepping; the edge-list producers are not ported yet.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.core.schedule import NetworkSchedule
+from repro_torch.core.schedule import NetEvent, NetworkSchedule
 
 
 def fully_connected(n: int) -> np.ndarray:
@@ -94,13 +97,105 @@ def make_topology(kind: str, n: int, rng: np.random.Generator, *,
     raise ValueError(f"unknown topology {kind!r}")
 
 
-def make_schedule(kind: str, adj: np.ndarray, T: int) -> NetworkSchedule:
-    """CLI dispatcher over the schedule producers. Only the static
-    schedule is ported; churn and flap are ROADMAP.md queue 1 item 8."""
+class ChurnProcess:
+    """Node entry/exit dynamics (paper §V-E)."""
+
+    def __init__(self, n: int, p_exit: float, p_entry: float,
+                 rng: np.random.Generator):
+        self.n, self.p_exit, self.p_entry = n, p_exit, p_entry
+        self.rng = rng
+        self.active = np.ones(n, bool)
+        # nodes that re-entered mid-period wait for the next global sync
+        self.waiting = np.zeros(n, bool)
+
+    def step(self) -> np.ndarray:
+        r = self.rng.random(self.n)
+        exits = self.active & (r < self.p_exit)
+        entries = (~self.active) & (r < self.p_entry)
+        self.active = (self.active & ~exits) | entries
+        self.waiting = (self.waiting | entries) & self.active
+        return self.active.copy()
+
+    def sync(self):
+        """Global aggregation: waiting nodes receive parameters."""
+        self.waiting[:] = False
+
+    def contributing(self) -> np.ndarray:
+        """Nodes whose updates count for the current aggregation."""
+        return self.active & ~self.waiting
+
+
+def churn_schedule(adj: np.ndarray, T: int, p_exit: float, p_entry: float,
+                   rng: np.random.Generator, *,
+                   tau: int | None = None) -> NetworkSchedule:
+    """Node entry/exit as a masked schedule: :class:`ChurnProcess` steps
+    once a round (``sync()`` every ``tau`` rounds), and each round's
+    adjacency drops every link with an inactive endpoint. Every device
+    starts active, so exits in round 0 are events."""
+    n = np.asarray(adj).shape[0]
+    proc = ChurnProcess(n, p_exit, p_entry, rng)
+    rows = []
+    for t in range(T):
+        rows.append(proc.step())
+        if tau and (t + 1) % tau == 0:
+            proc.sync()
+    return NetworkSchedule.masked(adj, np.stack(rows),
+                                  initial_active=np.ones(n, bool))
+
+
+def link_flap_schedule(adj: np.ndarray, T: int, rng: np.random.Generator,
+                       *, p_down: float = 0.05,
+                       p_up: float = 0.5) -> NetworkSchedule:
+    """Seeded link flaps: each up link fails w.p. ``p_down`` per round
+    and each failed base link recovers w.p. ``p_up`` (links absent from
+    the base graph never appear). One uniform per unordered pair, so
+    (i, j) and (j, i) flap together. Stored as an event list: O(n² +
+    #events) memory, never O(T·n²)."""
+    base = np.asarray(adj, bool)
+    n = base.shape[0]
+    lo = np.arange(n)[:, None] > np.arange(n)[None, :]
+    up = base.copy()
+    events: list[NetEvent] = []
+    for t in range(1, T):
+        r = rng.random(base.shape)
+        r = np.where(lo, r.T, r)         # r[i, j] == r[j, i]
+        down = up & (r < p_down)
+        back = base & ~up & (r < p_up)
+        for i, j in zip(*np.nonzero(down)):
+            events.append(NetEvent(t, "link_down", int(i), int(j)))
+        for i, j in zip(*np.nonzero(back)):
+            events.append(NetEvent(t, "link_up", int(i), int(j)))
+        up = (up & ~down) | back
+    return NetworkSchedule.from_events(base, T, events)
+
+
+def _edge_producers_unported(name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{name} is not ported yet (ROADMAP.md, queue 1 item 7: the "
+        "edge-list plane)")
+
+
+def churn_schedule_edges(*args, **kwargs) -> NetworkSchedule:
+    """The edge-list churn producer (not ported yet)."""
+    raise _edge_producers_unported("churn_schedule_edges")
+
+
+def link_flap_schedule_edges(*args, **kwargs) -> NetworkSchedule:
+    """The edge-list link-flap producer (not ported yet)."""
+    raise _edge_producers_unported("link_flap_schedule_edges")
+
+
+def make_schedule(kind: str, adj: np.ndarray, T: int,
+                  rng: np.random.Generator, *, p_exit: float = 0.0,
+                  p_entry: float = 0.0, p_flap: float = 0.05,
+                  p_recover: float = 0.5,
+                  tau: int | None = None) -> NetworkSchedule:
+    """CLI dispatcher over the schedule producers: ``static``,
+    ``churn`` or ``flap``."""
     if kind == "static":
         return NetworkSchedule.constant(adj, T)
-    if kind in ("churn", "flap"):
-        raise NotImplementedError(
-            f"schedule {kind!r} is not ported yet (ROADMAP.md, queue 1 "
-            "item 8: dynamics and prediction)")
+    if kind == "churn":
+        return churn_schedule(adj, T, p_exit, p_entry, rng, tau=tau)
+    if kind == "flap":
+        return link_flap_schedule(adj, T, rng, p_down=p_flap, p_up=p_recover)
     raise ValueError(f"unknown schedule kind {kind!r}")

@@ -2,7 +2,13 @@
 
 The reference trains in full float32. On the card, cuDNN convolutions
 use TF32 unless told otherwise, so every resolved device also turns
-TF32 off for convolutions and matrix products.
+TF32 off for convolutions and matrix products. It also turns cuDNN off:
+cuDNN picks a convolution's engine by the workspace it can allocate, so
+the same CNN run gave different float32 results with the card's memory
+free and with it held, and SGD on the churn and flap schedules carries
+such a difference from about 1e-7 to 1e-2 in 20 rounds. PyTorch's own
+convolution (im2col and a cuBLAS product) gives the same bits whatever
+memory is free. The CNN is the port's only convolution.
 """
 from __future__ import annotations
 
@@ -10,7 +16,10 @@ import torch
 
 
 def set_f32_numerics() -> None:
-    """Full float32 for cuDNN convolutions and cuBLAS matrix products."""
+    """Full float32 for convolutions and cuBLAS matrix products, and
+    convolutions off cuDNN, so that their arithmetic does not depend on
+    the free device memory."""
+    torch.backends.cudnn.enabled = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 

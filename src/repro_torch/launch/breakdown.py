@@ -120,8 +120,7 @@ def run(argv=None) -> dict:
     device = resolve_device(args.device)
     pb = train.build_problem(args)
     t0 = time.perf_counter()
-    plan = train.solve_setting(args.setting, pb["traces"], pb["schedule"],
-                               pb["D"], device=device)
+    plan, _ = train.make_plan(args, pb, device)
     plan_s = time.perf_counter() - t0
     hierarchy = train.make_hierarchy(args, pb["cfg"])
 

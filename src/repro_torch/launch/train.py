@@ -6,6 +6,11 @@ devices, with the data-movement optimizer in the loop:
     python -m repro_torch.launch.train --mode fog --model cnn --n 10 \
         --T 100 --tau 10 --topology full --setting B --costs testbed
 
+A changing network: ``--churn P`` (devices exit and re-enter with
+probability P a round) or ``--schedule flap`` (links fail and recover),
+with ``--replan oracle|predict|once`` for what the planner sees; the
+plan is then realized against the true schedule.
+
 The flags and defaults are those of ``python -m repro.launch.train``,
 plus ``--device`` (``cuda`` by default; ``cpu`` runs the same path on
 the CPU, with the kernels' plain versions). Flags whose code is not
@@ -75,9 +80,6 @@ def solve_setting(setting: str, traces, adj, D, error_model="discard",
 def _check_ported(args) -> None:
     checks = [
         (args.mode == "lm", "--mode lm", 14, LM_TRAINING),
-        (args.schedule != "static" or args.churn or args.p_exit
-         or args.p_entry, "churn and flap schedules", 8,
-         "dynamics and prediction"),
         (args.faults != "none", f"--faults {args.faults}", 9,
          "faults and recovery"),
         (args.checkpoint or args.resume, "--checkpoint/--resume", 9,
@@ -91,24 +93,84 @@ def _check_ported(args) -> None:
             raise _unported(what, item, title)
 
 
+def schedule_kind(args) -> tuple[str, float, float]:
+    """The schedule the flags ask for and its churn rates: ``--churn``
+    is ``--schedule churn`` with p_exit = p_entry = CHURN (explicit
+    ``--p-exit``/``--p-entry`` win), and ``--p-exit``/``--p-entry`` on
+    the static schedule turn it into churn. Flap takes no churn rates."""
+    kind, p_exit, p_entry = args.schedule, args.p_exit, args.p_entry
+    if args.churn:
+        kind = "churn"
+        p_exit = p_exit or args.churn
+        p_entry = p_entry or args.churn
+    if kind == "static" and (p_exit or p_entry):
+        kind = "churn"
+    if kind == "flap" and (p_exit or p_entry):
+        raise SystemExit("--schedule flap does not model node churn; "
+                         "drop --p-exit/--p-entry/--churn or use "
+                         "--schedule churn")
+    return kind, p_exit, p_entry
+
+
 def build_problem(args) -> dict:
     """Everything the plan and the training start from, drawn in the
     reference's order from one ``np.random.default_rng(args.seed)``:
     dataset, config, cost traces, topology, streams, counts D and the
-    static schedule."""
+    network schedule."""
+    kind, p_exit, p_entry = schedule_kind(args)
     rng = np.random.default_rng(args.seed)
     data = make_image_dataset(n_train=args.n_train, n_test=args.n_test,
                               seed=args.seed)
     cfg = F.FedConfig(n=args.n, T=args.T, tau=args.tau, eta=args.eta,
-                      model=args.model, iid=not args.non_iid, seed=args.seed)
+                      model=args.model, iid=not args.non_iid, seed=args.seed,
+                      p_exit=p_exit, p_entry=p_entry)
     mk = testbed_like_costs if args.costs == "testbed" else synthetic_costs
     traces = mk(cfg.n, cfg.T, rng, f_err=args.f_err)
     adj = make_topology(args.topology, cfg.n, rng,
                         rho=args.rho, costs=traces.c_node.mean(0))
     streams = pl.poisson_streams(cfg.n, cfg.T, data[1], iid=cfg.iid, rng=rng)
+    D = pl.counts(streams)
+    schedule = make_schedule(kind, adj, cfg.T, rng, p_exit=p_exit,
+                             p_entry=p_entry, p_flap=args.p_flap,
+                             p_recover=args.p_recover, tau=cfg.tau)
     return {"data": data, "cfg": cfg, "traces": traces, "adj": adj,
-            "streams": streams, "D": pl.counts(streams),
-            "schedule": make_schedule("static", adj, cfg.T)}
+            "streams": streams, "D": D, "schedule": schedule,
+            "schedule_kind": kind}
+
+
+def resolve_replan(args, schedule) -> str:
+    """What the planner sees (``--replan``; ``--plan-once`` is
+    ``once``): on a static network every mode is ``oracle``."""
+    if args.plan_once and args.replan not in ("oracle", "once"):
+        raise SystemExit(f"--plan-once conflicts with --replan "
+                         f"{args.replan}; drop one of the two")
+    if schedule.static_adj is not None:
+        return "oracle"
+    return "once" if args.plan_once else args.replan
+
+
+def make_plan(args, pb: dict, device, timing: dict | None = None):
+    """The run's movement plan and its replan mode. The planner sees the
+    true schedule (``oracle``), the schedule predicted from the observed
+    history (``predict``) or the base graph (``once``); on a dynamic
+    network the plan is then realized against the true schedule. The
+    times of the three steps go into ``timing`` when given."""
+    schedule = pb["schedule"]
+    replan = resolve_replan(args, schedule)
+    t0 = time.perf_counter()
+    network = (schedule if replan == "oracle" else
+               est.predict_schedule(schedule) if replan == "predict"
+               else pb["adj"])
+    t1 = time.perf_counter()
+    plan = solve_setting(args.setting, pb["traces"], network, pb["D"],
+                         error_model=args.error_model, device=device)
+    t2 = time.perf_counter()
+    if schedule.static_adj is None:
+        plan = mv.realize_plan(plan, schedule)   # oracle greedy: a no-op
+    t3 = time.perf_counter()
+    if timing is not None:
+        timing.update(predict_s=t1 - t0, plan_s=t2 - t1, realize_s=t3 - t2)
+    return plan, replan
 
 
 def make_hierarchy(args, cfg) -> TierTree | None:
@@ -124,8 +186,8 @@ def make_hierarchy(args, cfg) -> TierTree | None:
 
 
 def run_fog(args) -> dict:
-    """The main path: costs → topology → streams → plan → routing →
-    training → plan cost. Prints the reference's summary JSON (plus the
+    """The main path: costs → topology → streams → schedule → plan
+    (→ realized on the true schedule) → routing → training → plan cost. Prints the reference's summary JSON (plus the
     device, pad size and phase times) and returns it with the plan and
     the full training history under ``"plan"`` and ``"history"``."""
     _check_ported(args)
@@ -134,25 +196,24 @@ def run_fog(args) -> dict:
     cfg, traces, schedule, D = pb["cfg"], pb["traces"], pb["schedule"], \
         pb["D"]
     hierarchy = make_hierarchy(args, cfg)
-    t0 = time.perf_counter()
-    plan = solve_setting(args.setting, traces, schedule, D,
-                         error_model=args.error_model, device=device)
+    timing: dict = {}
+    plan, replan = make_plan(args, pb, device, timing)
     t1 = time.perf_counter()
     engine = "scan" if args.engine == "auto" else args.engine
     hist = F.run_network_aware(cfg, pb["data"], traces, pb["adj"], plan,
                                streams=pb["streams"], schedule=schedule,
                                engine=engine, hierarchy=hierarchy,
                                device=device)
-    t2 = time.perf_counter()
+    timing["train_s"] = time.perf_counter() - t1
     cost = mv.plan_cost(plan, traces, D, error_model=args.error_model)
     out = {"mode": "fog", "setting": args.setting, "engine": engine,
-           "schedule": "static", "replan": "oracle",
+           "schedule": pb["schedule_kind"], "replan": replan,
            "n_events": len(schedule.events_in(0, cfg.T)),
            "final_acc": hist["test_acc"][-1] if hist["test_acc"] else None,
            "acc_curve": hist["test_acc"], "cost": cost,
            "sim_before": hist["sim_before"], "sim_after": hist["sim_after"],
            "device": str(device), "pad_size": hist["max_points"],
-           "timing": {"plan_s": t1 - t0, "train_s": t2 - t1}}
+           "timing": timing}
     if hierarchy is not None:
         out["engine"] = "hierarchical"
         out["hierarchy"] = hist["hierarchy"]
@@ -188,16 +249,24 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--p-exit", type=float, default=0.0)
     ap.add_argument("--p-entry", type=float, default=0.0)
     ap.add_argument("--schedule", default="static",
-                    choices=["static", "churn", "flap"])
-    ap.add_argument("--churn", type=float, default=0.0)
-    ap.add_argument("--p-flap", type=float, default=0.05)
-    ap.add_argument("--p-recover", type=float, default=0.5)
+                    choices=["static", "churn", "flap"],
+                    help="network schedule: static, node entry/exit "
+                         "churn, or seeded link flaps")
+    ap.add_argument("--churn", type=float, default=0.0,
+                    help="shorthand: --schedule churn with p_exit = "
+                         "p_entry = CHURN")
+    ap.add_argument("--p-flap", type=float, default=0.05,
+                    help="per-round link failure probability (flap)")
+    ap.add_argument("--p-recover", type=float, default=0.5,
+                    help="per-round failed-link recovery probability")
     ap.add_argument("--replan", default="oracle",
                     choices=["oracle", "predict", "once"],
-                    help="what the planner sees under a dynamic schedule; "
-                         "on the static schedule every mode plans on the "
-                         "true network")
-    ap.add_argument("--plan-once", action="store_true")
+                    help="what the planner sees under a dynamic schedule: "
+                         "the true schedule, the schedule predicted from "
+                         "the observed history, or the base graph; the "
+                         "plan is realized against the true schedule")
+    ap.add_argument("--plan-once", action="store_true",
+                    help="alias for --replan once")
     ap.add_argument("--tiers", default=None, metavar="SPEC")
     ap.add_argument("--engine", default="auto",
                     choices=["auto", "scan", "sharded", "batched",

@@ -52,12 +52,6 @@ def test_topology_bitwise(kind, seed):
     assert rr.random() == rg.random()
 
 
-@pytest.mark.parametrize("kind", ["churn", "flap"])
-def test_unported_schedules_raise(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.make_schedule(kind, tt.fully_connected(N), T)
-
-
 @pytest.mark.parametrize("seed", SEEDS)
 def test_schedule_static_and_full_match(seed):
     rng = np.random.default_rng(seed)
@@ -65,7 +59,7 @@ def test_schedule_static_and_full_match(seed):
     active = rng.random((T, N)) < 0.8
     stack = rng.random((T, N, N)) < 0.5
     pairs = [(rt.make_schedule("static", adj, T, rng),
-              tt.make_schedule("static", adj, T)),
+              tt.make_schedule("static", adj, T, rng)),
              (rs.NetworkSchedule.constant(adj, T, active=active),
               ts.NetworkSchedule.constant(adj, T, active=active)),
              (rs.as_schedule(stack, T), ts.as_schedule(stack, T))]

@@ -71,10 +71,8 @@ def test_cli_cost_equals_reference_cli(capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--setting", "C", "--churn", "0.1"], ["--setting", "E", "--faults",
-                                           "drop"],
+    ["--setting", "E", "--faults", "drop"],
     ["--error-model", "sqrt", "--engine", "batched"],
-    ["--schedule", "churn"], ["--churn", "0.1"], ["--schedule", "flap"],
     ["--faults", "drop"], ["--tiers", "2@4,1@8", "--faults", "crash"],
     ["--checkpoint", "x"],
     ["--resume", "x"], ["--sanitize"], ["--engine", "batched"],
