@@ -6,7 +6,7 @@
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; it
 imports no JAX. It builds every CUDA kernel of the fog and serving
 paths from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source,
-all started together), then runs fifteen phases and fails (exit 1, no
+all started together), then runs sixteen phases and fails (exit 1, no
 result line) if any of them fails:
 
 (a) the Theorem-3 kernel against its plain PyTorch version on the
@@ -142,7 +142,32 @@ result line) if any of them fails:
     the card and on the CPU, held as in (b) plus ``n_events`` and the
     tier fields; last, Table V at ``--quick`` on the card against the
     port on the CPU (costs and ``avg_active`` exactly, accuracies within
-    1e-2).
+    1e-2);
+(p) faults and recovery: (p1) the fog-scale CLI under ``--faults mixed
+    --fault-rate 0.1 --quorum 0.25``, every launch counter set to 0 just
+    before and read just after: one Theorem-3 launch, the fault summary
+    ``make_faults`` gives for the same seed, a finite guarded history,
+    its train time beside (c)'s; (p2) the tiered fog-scale CLI under the
+    same faults: exactly the clean path's segment launches
+    (``sum(tier_agg_level)·(1+4)``: the quorum stays on the card), and a
+    tier-1 reduction whose rows a drop or the guard zeroed held bitwise
+    to the plain version; (p3) at fog scale the clean run, an empty
+    FaultSchedule under the guard and quorum 0.5, and the mixed faults,
+    three times in turns (their train times: the guard's cost): the
+    no-op gives the clean history bit for bit and every run repeats its
+    own; (p4)
+    at fog scale, clean and under the mixed faults, a run checkpointed
+    and stopped at round 10 then resumed gives the uninterrupted history
+    bit for bit, with the save and restore times and the file's size;
+    (p5) cnn n=10 T=20 under mixed faults with a quorum, unguarded NaN
+    corruption, and tiers with mixed faults, card against CPU as in (b)
+    plus the fault fields exactly and NaN in the same places; (p6) the
+    fault-tolerance study (``launch.tables --only faults``) at
+    ``--quick`` on the card against the port on the CPU: the exact
+    claims true, ``quorum_skips_q0`` 0, the unguarded arm collapsed, and
+    ``quorum_skips_q60``, ``guard_within_2pp``, every fault summary and
+    cost equal to the CPU's; (p7) ``launch.serve --checkpoint`` then
+    ``--resume`` at the smoke config: the same tokens.
 
 The line before the last is the JSON list of kernels; the one before it
 the card's name and power limit; the last line is the result.
@@ -367,7 +392,7 @@ def phase_c_fog(torch, np, card, counters, cuda):
         raise AssertionError("fog-scale plan differs from the plain "
                              "version's plan on the card")
     log("(c) fog-scale plan equals the plain version's plan on the card")
-    return launches, pb, ins
+    return launches, pb, ins, tim["train_s"]
 
 
 SPIN_CYCLES = 1_000_000     # ~0.5 ms of the card's clock
@@ -504,7 +529,7 @@ def phase_d_timing(torch, og, ops, mv, c_state, cuda, card):
     fog-scale plan split into its parts."""
     from repro_torch.launch import train
 
-    launches, pb, fog_ins = c_state
+    launches, pb, fog_ins = c_state[:3]
     full = train.build_problem(train.parse_args(FULL_ARGV))
     inputs = {"random rho=0.1": fog_ins,
               "full": mv.device_inputs(full["traces"], full["schedule"],
@@ -1906,6 +1931,333 @@ def phase_o_table5(np, cuda, card):
         f"{[want[r]['acc'] for r in ('static', 'dynamic')]} [{card}]")
 
 
+FAULT_FLAGS = ["--faults", "mixed", "--fault-rate", "0.1", "--quorum",
+               "0.25"]
+FAULT_SHORT = [SHORT_ARGV + ["--faults", "mixed", "--fault-rate", "0.2",
+                             "--quorum", "0.4"],
+               SHORT_ARGV + ["--faults", "corrupt", "--fault-rate", "0.3",
+                             "--unguarded"],
+               TIERED_SHORT_ARGV + ["--faults", "mixed", "--fault-rate",
+                                    "0.2"]]
+RESUME_STOP = 10                 # rounds; two windows of the fog scale
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
+
+
+def _finite_history(np, hist):
+    return bool(np.isfinite(np.stack(hist["device_loss"])).all()
+                and np.isfinite(hist["test_loss"]).all()
+                and np.isfinite(np.stack(hist["H_agg"])).all())
+
+
+def _history_diff(np, a, b, keys=("device_loss", "test_loss", "test_acc",
+                               "H_agg", "agg_survivors", "agg_quorum_ok")):
+    """The keys of two histories equal bit for bit (NaN in the same
+    places); returns the keys that differ."""
+    return [k for k in keys if (k in a) != (k in b) or (
+        k in a and not np.array_equal(np.asarray(a[k], float),
+                                      np.asarray(b[k], float),
+                                      equal_nan=True))]
+
+
+def phase_p_fog(torch, np, card, counters, train_c_s):
+    """(p1) the fog-scale CLI under mixed faults: one Theorem-3 launch,
+    the fault summary of make_faults for the same seed, a finite
+    guarded history."""
+    from repro_torch.core import faults as fl
+    from repro_torch.launch import train
+
+    argv = FOG_ARGV + FAULT_FLAGS
+    for c in counters.values():
+        c.reset_launches()
+    out = train.main(argv)
+    launches = {name: c.launches for name, c in counters.items()}
+    args = train.parse_args(argv)
+    want = fl.make_faults("mixed", args.T, args.n, args.tau,
+                          rate=args.fault_rate, seed=args.seed + 7919,
+                          corrupt=args.corrupt_mode).summary()
+    hist = out["history"]
+    log(f"(p1) fog scale under --faults mixed --fault-rate 0.1 --quorum "
+        f"0.25: plan {out['timing']['plan_s']:.4f} s, train "
+        f"{out['timing']['train_s']:.3f} s (clean, (c): {train_c_s:.3f} s, "
+        f"the first mlp run of the process), fault_summary "
+        f"{out['fault_summary']}, quorum_skips {out['quorum_skips']}, "
+        f"survivors {hist['agg_survivors']}, final_acc "
+        f"{out['final_acc']}, kernel launches {launches} [{card}]")
+    if launches["offload_greedy"] != 1:
+        raise AssertionError(f"{launches['offload_greedy']} Theorem-3 "
+                             "launches on the faulted path, expected 1")
+    if out["fault_summary"] != want:
+        raise AssertionError(f"fault_summary {out['fault_summary']} != "
+                             f"make_faults' {want}")
+    if not _finite_history(np, hist):
+        raise AssertionError("guarded fog-scale history is not finite")
+    return out["timing"]["train_s"]
+
+
+def phase_p_tiered(torch, np, card, counters, ops, sr):
+    """(p2) the tiered fog-scale CLI under the same faults: the segment
+    launches of the clean path exactly (quorum decisions stay on the
+    card), and a tier-1 reduction with rows the faults zeroed held to
+    the kernel's plain version bit for bit."""
+    from repro_torch.core import faults as fl
+    from repro_torch.launch import train
+
+    argv = TIERED_FOG_ARGV + FAULT_FLAGS
+    args = train.parse_args(argv)
+    P_w2 = 200 * 10                      # the mlp's w2 leaf
+    kept = []
+    real_sum = ops.segment_sum
+
+    def keep_tier1_w2(data, segment_ids, *, num_segments, layout=None):
+        if data.shape[0] == args.n * P_w2:
+            kept.append((data.clone(), segment_ids, num_segments, layout))
+        return real_sum(data, segment_ids, num_segments=num_segments,
+                        layout=layout)
+
+    ops.segment_sum = keep_tier1_w2
+    try:
+        for c in counters.values():
+            c.reset_launches()
+        out = train.main(argv)
+        launches = {name: c.launches for name, c in counters.items()}
+    finally:
+        ops.segment_sum = real_sum
+    hist = out["history"]
+    want = sum(hist["tier_agg_level"]) * (1 + 4)
+    log(f"(p2) tiered fog scale under the same faults: train "
+        f"{out['timing']['train_s']:.3f} s, tier levels "
+        f"{hist['tier_agg_level']}, fault_summary {out['fault_summary']}, "
+        f"quorum_skips {out['quorum_skips']}, kernel launches {launches} "
+        f"(segment sums expected {want}, the clean path's) [{card}]")
+    if launches["segment_reduce"] != want:
+        raise AssertionError(f"{launches['segment_reduce']} segment "
+                             f"launches under faults, expected {want}")
+    if launches["offload_greedy"] != 1:
+        raise AssertionError("the tiered faulted plan did not launch the "
+                             "Theorem-3 kernel once")
+    if not _finite_history(np, hist):
+        raise AssertionError("guarded tiered history is not finite")
+    upl, cor = fl.make_faults(args.faults, args.T, args.n, args.tau,
+                              rate=args.fault_rate, seed=args.seed + 7919,
+                              corrupt=args.corrupt_mode).engine_arrays()
+    hit = None
+    for t, (data, ids, S, layout) in zip(hist["tier_agg_round"], kept):
+        bad = np.nonzero((upl[t] == 0) | ~np.isfinite(cor[t]))[0]
+        rows = data.reshape(args.n, P_w2)[torch.from_numpy(bad).to(
+            data.device)]
+        if len(bad) and bool((rows == 0).all()):
+            hit = (t, bad, data, ids, S, layout)
+            break
+    if hit is None:
+        raise AssertionError("no tier-1 reduction with fault-zeroed rows")
+    t, bad, data, ids, S, layout = hit
+    # the plain version on the CPU adds each segment's elements in
+    # ascending order, one at a time from +0: the kernel's order (on the
+    # card its index_add_ adds by atomics, in no fixed order)
+    got = sr.segment_sum(data, ids, S, layout=layout).cpu()
+    plain = sr.segment_sum_plain(data.cpu(), ids.cpu(), S)
+    if not torch.equal(got, plain):
+        raise AssertionError("segment kernel != plain on the guarded rows")
+    log(f"(p2) tier-1 w2 reduction of round {t} (E={data.shape[0]}, "
+        f"S={S}; rows of devices {bad.tolist()[:8]}"
+        f"{'...' if len(bad) > 8 else ''} ({len(bad)}) zeroed by a drop or "
+        f"the guard): kernel == plain (on the CPU) bitwise [{card}]")
+
+
+def _timed_run(torch, F, pb, plan, cuda, **kw):
+    """One fog-scale training run and its seconds on the host clock (the
+    history's read-back ends it). Each run takes a copy of the streams:
+    ``run_network_aware`` empties the collection of inactive (crashed)
+    devices in place."""
+    import copy
+
+    streams = copy.deepcopy(pb["streams"])
+    t0 = time.perf_counter()
+    hist = F.run_network_aware(pb["cfg"], pb["data"], pb["traces"],
+                               pb["adj"], plan, streams=streams,
+                               schedule=pb["schedule"], device=cuda, **kw)
+    return hist, time.perf_counter() - t0
+
+
+def phase_p_noop_resume(torch, np, card, cuda):
+    """(p3) an empty FaultSchedule under the guard and quorum 0.5 gives
+    the clean fog-scale history bit for bit (clean, no-op and mixed
+    faults run three times in turns, timed); (p4) checkpoint, stop at
+    round 10 and resume, clean and under mixed faults, bit for bit the
+    uninterrupted run; save and restore timed, the file's size."""
+    import os
+    import shutil
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core import faults as fl
+    from repro_torch.core import federated as F
+    from repro_torch.launch import train
+
+    args = train.parse_args(FOG_ARGV + FAULT_FLAGS)
+    pb = train.build_problem(args)
+    cfg = pb["cfg"]
+    clean_plan, _ = train.make_plan(args, pb, cuda)
+    faults = train.make_fault_schedule(args, cfg)
+    fplan, _ = train.make_plan(args, pb, cuda, faults=faults)
+    fkw = dict(faults=faults, guard=True, quorum=args.quorum)
+    runs = {"clean": (clean_plan, {}),
+            "guarded no-op": (clean_plan, dict(
+                faults=fl.FaultSchedule(cfg.T, cfg.n, cfg.tau), guard=True,
+                quorum=0.5)),
+            "mixed": (fplan, fkw)}
+    hists, secs = {}, {k: [] for k in runs}
+    for _ in range(3):                   # in turns, the guard's cost
+        for name, (plan, kw) in runs.items():
+            hist, sec = _timed_run(torch, F, pb, plan, cuda, **kw)
+            secs[name].append(round(sec, 4))
+            if name in hists and _history_diff(np, hists[name], hist):
+                raise AssertionError(f"{name} run does not repeat bitwise")
+            hists.setdefault(name, hist)
+    clean, noop, mixed = (hists[k] for k in runs)
+    diff = _history_diff(np, clean, noop, keys=("device_loss", "test_loss",
+                                                "test_acc", "H_agg"))
+    log(f"(p3) fog scale, empty FaultSchedule, guard on, quorum 0.5: "
+        f"history bitwise the clean run's: {not diff}; each run repeats "
+        f"bitwise; train s in turns: {secs} (mixed: guarded, quorum "
+        f"{args.quorum}, {mixed['fault_summary']}) [{card}]")
+    if diff:
+        raise AssertionError(f"clean no-op differs in {diff}")
+    times = {"save": [], "restore": []}
+    real = {"save": ckpt.save, "restore": ckpt.restore}
+
+    def timed(name):
+        def fn(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = real[name](*a, **kw)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            return res
+        return fn
+
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(CKPT_DIR / "fog.pt")
+    ckpt.save, ckpt.restore = timed("save"), timed("restore")
+    try:
+        for name in ("clean", "mixed"):
+            (plan, kw), whole = runs[name], hists[name]
+            times["save"].clear()
+            times["restore"].clear()
+            part, part_s = _timed_run(torch, F, pb, plan, cuda,
+                                      checkpoint_path=path,
+                                      stop_after=RESUME_STOP, **kw)
+            size = os.path.getsize(path)
+            res, res_s = _timed_run(torch, F, pb, plan, cuda, resume=path,
+                                    **kw)
+            diff = _history_diff(np, whole, res)
+            log(f"(p4) {name}: stopped at {part.get('stopped_at')} "
+                f"({part_s:.3f} s with {len(times['save'])} saves), "
+                f"resumed to T={cfg.T} ({res_s:.3f} s); resumed history "
+                f"bitwise the uninterrupted one: {not diff}; save s "
+                f"{[round(x, 4) for x in times['save']]}, restore s "
+                f"{[round(x, 4) for x in times['restore']]}, file {size} B "
+                f"[{card}]")
+            if part.get("stopped_at") != RESUME_STOP:
+                raise AssertionError(f"{name}: stopped at "
+                                     f"{part.get('stopped_at')}")
+            if diff:
+                raise AssertionError(f"{name}: resumed run differs from "
+                                     f"the uninterrupted one in {diff}")
+    finally:
+        ckpt.save, ckpt.restore = real["save"], real["restore"]
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+
+def phase_p_small(np, card):
+    """(p5) cnn n=10 T=20 under mixed faults with a quorum, unguarded
+    corruption, and tiers with mixed faults, card against CPU as in
+    (b) and (g), the fault fields exactly and NaN in the same places."""
+    from repro_torch.launch import train
+
+    for argv in FAULT_SHORT:
+        on_card = train.main(argv)
+        on_cpu = train.main(argv + ["--device", "cpu"])
+        dmax, amax = _compare_histories(np, on_card, on_cpu)
+        h, w = on_card["history"], on_cpu["history"]
+        for k in ("fault_summary", "quorum_skips"):
+            if on_card[k] != on_cpu[k]:
+                raise AssertionError(f"{k} differs")
+        for k in ("agg_survivors", "agg_quorum_ok", "tier_agg_round",
+                  "tier_agg_level"):
+            if h.get(k) != w.get(k):
+                raise AssertionError(f"{k} differs")
+        for k in ("device_loss", "test_loss"):
+            if not np.array_equal(np.isnan(np.asarray(h[k], float)),
+                                  np.isnan(np.asarray(w[k], float))):
+                raise AssertionError(f"NaN positions of {k} differ")
+        tag = ' '.join(argv[len(SHORT_ARGV):])
+        nan = int(np.isnan(np.asarray(h["test_loss"], float)).sum())
+        log(f"(p5) {tag} (cnn n=10 T=20) card vs CPU: cost, agg_round, "
+            f"H_agg, active, processed_counts, fault_summary "
+            f"{on_card['fault_summary']}, quorum_skips "
+            f"{on_card['quorum_skips']}, agg_survivors, agg_quorum_ok equal"
+            f", NaN in the same places ({nan} NaN test losses); max "
+            f"|device_loss diff| {dmax}, max |test_acc diff| {amax} "
+            f"[{card}]")
+
+
+def phase_p_study(np, cuda, card):
+    """(p6) the fault-tolerance study at --quick on the card against the
+    port on the CPU."""
+    from repro_torch.launch import tables
+
+    t0 = time.perf_counter()
+    got = tables.fault_tolerance(tables.QUICK, cuda)
+    card_s = time.perf_counter() - t0
+    want = tables.fault_tolerance(tables.QUICK, "cpu")
+    h, w = got["headline"], want["headline"]
+    if not (h["clean_noop_bitwise"] and h["resume_bitwise"]):
+        raise AssertionError(f"exact claims fail on the card: {h}")
+    if h["quorum_skips_q0"] != 0:
+        raise AssertionError("quorum 0 skipped an aggregation")
+    if not h["unguarded_near_random"]:
+        raise AssertionError("the unguarded arm did not collapse")
+    for k in ("quorum_skips_q60", "guard_within_2pp"):
+        if h[k] != w[k]:
+            raise AssertionError(f"{k} differs from the CPU's: {h[k]} vs "
+                                 f"{w[k]}")
+    for g, c in zip(got["rows"], want["rows"]):
+        for k in ("fault_summary", "quorum_skips", "cost_total",
+                  "avg_active"):
+            if g[k] != c[k]:
+                raise AssertionError(f"{g['arm']}: {k} differs")
+        if abs(g["acc"] - c["acc"]) > 1e-2:
+            raise AssertionError(f"{g['arm']}: accuracy differs by more "
+                                 "than 1e-2")
+    log(f"(p6) fault study --quick on the card ({card_s:.1f} s): "
+        f"{json.dumps(h)}; CPU: guard_within_2pp {w['guard_within_2pp']} "
+        f"(acc clean {w['acc_clean']}, guarded c10 {w['acc_guarded_c10']}),"
+        f" quorum_skips_q60 {w['quorum_skips_q60']}; fault summaries, "
+        f"quorum skips, costs equal; accuracies "
+        f"{[r['acc'] for r in got['rows']]} vs "
+        f"{[r['acc'] for r in want['rows']]} [{card}]")
+
+
+def phase_p_serve(card):
+    """(p7) serve --checkpoint, then --resume, at the smoke config on
+    the card: the same tokens."""
+    import shutil
+
+    from repro_torch.launch import serve
+
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(CKPT_DIR / "serve.pt")
+    try:
+        first = serve.main(["--arch", SERVE_ARCH, "--checkpoint", path])
+        again = serve.main(["--arch", SERVE_ARCH, "--resume", path])
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    if not again["resumed"] or again["sample"] != first["sample"]:
+        raise AssertionError("resumed serve gave other tokens")
+    log(f"(p7) serve {SERVE_ARCH} smoke --checkpoint then --resume on the "
+        f"card: tokens equal {again['sample']} [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -1948,6 +2300,7 @@ def main() -> int:
 
     def c():
         state["c"] = phase_c_fog(torch, np, card, counters, cuda)
+        state["c_train_s"] = state["c"][3]
 
     def d():
         k = kernels["offload_greedy"] = phase_d_timing(
@@ -2015,6 +2368,14 @@ def main() -> int:
         phase_o_small(torch, np, card)
         phase_o_table5(np, cuda, card)
 
+    def p():
+        phase_p_fog(torch, np, card, counters, state["c_train_s"])
+        phase_p_tiered(torch, np, card, counters, ops, sr)
+        phase_p_noop_resume(torch, np, card, cuda)
+        phase_p_small(np, card)
+        phase_p_study(np, cuda, card)
+        phase_p_serve(card)
+
     phases = [("a", lambda: phase_a_kernels(torch, og, cuda)),
               ("b", lambda: phase_b_defaults(torch, np, card, counters, cuda)),
               ("c", c), ("d", d),
@@ -2025,7 +2386,7 @@ def main() -> int:
               ("j", j), ("k", k_), ("l", l_),
               ("m", lambda: phase_m_smoke_configs(torch, np, card, counters,
                                                   cuda)),
-              ("n", n_), ("o", o)]
+              ("n", n_), ("o", o), ("p", p)]
     failed = []
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -21,6 +21,13 @@ per parameter leaf, through the segment-reduce kernel on the card).
 
 ``run_rounds_legacy`` is the per-round oracle: fresh host-padded
 batches every round and the history read back as it goes.
+
+All three take a :class:`repro_torch.core.faults.FaultSchedule`: crash
+outages join the activity, and every aggregation receives guarded
+uploads (``_guarded_uploads``: corrupt rows selected away with
+``torch.where``, never multiplied by a mask) and is quorum-gated. The
+scan engine can also checkpoint at window boundaries and resume bit for
+bit (``checkpoint_path``, ``resume``).
 """
 from __future__ import annotations
 
@@ -182,9 +189,63 @@ def _sync(W: dict, w_global: dict, active) -> dict:
             for k, p in W.items()}
 
 
+def _finite_mask(W: dict):
+    """1.0 where every parameter leaf of a device is finite — the
+    guarded-aggregation mask over the (n, ...) stack. All-finite inputs
+    give an all-ones mask."""
+    ok = None
+    for p in W.values():
+        fin = torch.isfinite(p.reshape(p.shape[0], -1)).all(dim=-1)
+        ok = fin if ok is None else ok & fin
+    return ok.to(torch.float32)
+
+
+def _guarded_uploads(W: dict, contributing, upl, cor, guard: bool):
+    """What the aggregator receives: device params times the per-link
+    corruption multiplier ``cor`` (the injection: a multiply, as a
+    lossy link applies it), missing uploads (``upl`` 0) out of the
+    contributing set, and with ``guard`` the non-finite updates out of
+    it too, their rows zeroed by ``torch.where`` before any reduction
+    (NaN·0 is NaN, so a mask multiply would not remove them). The H
+    total renormalizes over the survivors because the dropped devices
+    contribute no H. With identity views (upl == cor == 1) every step
+    multiplies by 1.0 or selects through an all-true mask, so the
+    result is bitwise the inputs."""
+    contributing = contributing * upl
+    Wu = {k: p * _bcast(cor, p) for k, p in W.items()}
+    if guard:
+        ok = _finite_mask(Wu)
+        contributing = contributing * ok
+        zero = torch.zeros((), dtype=torch.float32, device=ok.device)
+        Wu = {k: torch.where(_bcast(ok > 0, p), p, zero)
+              for k, p in Wu.items()}
+    return Wu, contributing
+
+
 def _evaluate(apply_fn, params, x, y):
     logits = apply_fn(params, x)
     return mm.ce_loss(logits, y), mm.accuracy(logits, y)
+
+
+def _stage_fault_ops(faults, T: int, n: int, tau: int, device):
+    """Validate a FaultSchedule against the run's (T, n, τ) and return
+    its (upload_ok, corrupt) views as (T, n) float32 on ``device``."""
+    if (faults.T, faults.n) != (T, n):
+        raise ValueError(f"fault schedule is (T={faults.T}, n={faults.n})"
+                         f" but the run is (T={T}, n={n})")
+    if faults.tau != tau:
+        raise ValueError(f"fault schedule has tau={faults.tau} but the "
+                         f"run aggregates every tau={tau}")
+    upl, cor = faults.engine_arrays()
+    return (torch.from_numpy(upl).to(device),
+            torch.from_numpy(cor).to(device))
+
+
+def _fault_activity(act_all, faults):
+    """The staged activity: crash outages ANDed into ``act_all``."""
+    if faults is None:
+        return act_all
+    return np.asarray(act_all, bool) & faults.activity_mask()
 
 
 class _Staged:
@@ -221,42 +282,181 @@ class _Staged:
         return self.x[self.idx[t]]
 
 
+def _history(T: int, n: int, device, faults: bool) -> dict:
+    """The per-round history buffers on the device, (T, ...) float32 as
+    the reference's checkpointed scan keeps them: device losses, test
+    loss and accuracy and H at the aggregation rounds (0 elsewhere),
+    and under faults the surviving uploads and the quorum flag."""
+    h = {"losses": torch.zeros((T, n), device=device),
+         "tl": torch.zeros(T, device=device),
+         "ta": torch.zeros(T, device=device),
+         "H_at": torch.zeros((T, n), device=device)}
+    if faults:
+        h["surv"] = torch.zeros(T, device=device)
+        h["qok"] = torch.ones(T, device=device)
+    return h
+
+
+class _ScanRound:
+    """One round of the scan engine (eq. 3 for every device; at an
+    aggregation round eq. (4), the sync and the evaluation), shared by
+    the whole-horizon run and the checkpointed one, so a run cut into
+    chunks performs the very same operations.
+
+    The carry is (W, wg, H, waiting); the history buffers are filled in
+    place. Under faults the aggregation is guarded and quorum-gated on
+    the device: ``qok`` stays a 0-d tensor, selected on with
+    ``torch.where``, never read by the host."""
+
+    def __init__(self, apply_fn, eta, st: _Staged, is_agg, hist, fo,
+                 guard: bool, quorum: float):
+        self.apply_fn, self.st, self.is_agg, self.hist = (apply_fn, st,
+                                                          is_agg, hist)
+        self.step = make_device_step(apply_fn, float(eta))
+        self.fo, self.guard, self.quorum = fo, guard, quorum
+
+    def __call__(self, t: int, carry):
+        W, wg, H, waiting = carry
+        st, hist = self.st, self.hist
+        a = st.act[t]
+        active = a * (1.0 - waiting)
+        W, hist["losses"][t] = self.step(W, st.batch(t), st.yb[t],
+                                         st.w[t], active)
+        H = H + st.cnt[t] * active
+        if not self.is_agg[t]:
+            return W, wg, H, waiting
+        if self.fo is None:
+            wg = aggregate(W, H, active, wg)
+            W = _sync(W, wg, a > 0.5)
+            hist["H_at"][t] = H
+            H = torch.zeros_like(H)
+            waiting = 1.0 - a
+        else:
+            Wu, contrib = _guarded_uploads(W, active, self.fo[0][t],
+                                           self.fo[1][t], self.guard)
+            surv = contrib.sum()
+            qok = surv >= self.quorum * active.sum()
+            new = aggregate(Wu, H, contrib, wg)
+            # quorum failed: the whole aggregation event is skipped —
+            # the previous global carries forward, no sync, and H keeps
+            # accumulating into the next window
+            wg = {k: torch.where(qok, new[k], old) for k, old in wg.items()}
+            W = _sync(W, wg, (a > 0.5) & qok)
+            hist["H_at"][t] = H
+            H = torch.where(qok, torch.zeros_like(H), H)
+            waiting = torch.where(qok, 1.0 - a, waiting)
+            hist["surv"][t] = surv
+            hist["qok"][t] = qok
+        hist["tl"][t], hist["ta"][t] = _evaluate(self.apply_fn, wg,
+                                                 st.x_te, st.y_te)
+        return W, wg, H, waiting
+
+
 def run_rounds_scan(apply_fn, params: dict, x_tr, y_tr, x_te, y_te,
                     processed, act_all, tau: int, eta: float,
-                    max_pts: int, *, device) -> dict:
+                    max_pts: int, *, device, faults=None,
+                    guard: bool = True, quorum: float = 0.0,
+                    checkpoint_path: str | None = None,
+                    checkpoint_every: int = 1, resume: str | None = None,
+                    stop_after: int | None = None) -> dict:
     """Train all T rounds on ``device``; returns history pieces
     (``device_loss``, ``test_loss``, ``test_acc``, ``agg_round``,
-    ``H_agg``) shaped as the reference's."""
-    st = _Staged(processed, act_all, x_tr, y_tr, x_te, y_te, max_pts,
-                 device)
-    T, n = st.T, st.n
-    is_agg = (np.arange(T) + 1) % tau == 0
-    agg_rounds = np.nonzero(is_agg)[0]
-    K = len(agg_rounds)
+    ``H_agg``) shaped as the reference's.
 
-    step = make_device_step(apply_fn, float(eta))
-    W = _stack(params, n)
-    wg = params
-    H = torch.zeros(n, device=device)
-    waiting = torch.zeros(n, device=device)
-    losses = torch.empty((T, n), device=device)
-    H_at = torch.empty((K, n), device=device)
-    evals = torch.empty((K, 2), device=device)
-    k = 0
+    ``faults`` — optional :class:`repro_torch.core.faults.
+    FaultSchedule`: crash outages are ANDed into the staged activity,
+    its (upload_ok, corrupt) views are staged on the device once, and
+    every aggregation is guarded (``guard``: non-finite uploads
+    dropped, H renormalized over the survivors) and quorum-gated
+    (``quorum``: a window whose surviving uploads fall below that
+    fraction of the active devices carries the previous global
+    forward); the history gains ``agg_survivors`` and
+    ``agg_quorum_ok``. ``faults=None`` runs the clean path.
+
+    ``checkpoint_path`` — snapshot the carry (params stack, global, H,
+    waiting), the (T, ...) history and the round index every
+    ``checkpoint_every`` aggregation windows (:mod:`repro_torch.
+    checkpoint.checkpoint`); ``resume`` continues such a snapshot, bit
+    for bit what an uninterrupted run gives on the same device.
+    ``stop_after`` (rounds; checkpointed runs only) ends the run at the
+    next window boundary at or after it and reports ``stopped_at``."""
+    fo = None
+    if faults is not None:
+        fo = _stage_fault_ops(faults, len(processed), len(processed[0]),
+                              tau, device)
+    st = _Staged(processed, _fault_activity(act_all, faults), x_tr, y_tr,
+                 x_te, y_te, max_pts, device)
+    T, n = st.T, st.n
+    guard_f = bool(guard) if fo is not None else False
+    quorum_f = float(quorum) if fo is not None else 0.0
+    is_agg = (np.arange(T) + 1) % tau == 0
+    hist = _history(T, n, device, fo is not None)
+    rnd = _ScanRound(apply_fn, eta, st, is_agg, hist, fo, guard_f,
+                     quorum_f)
+    carry = (_stack(params, n), params, torch.zeros(n, device=device),
+             torch.zeros(n, device=device))
+    if checkpoint_path is not None or resume is not None:
+        return _run_scan_checkpointed(
+            rnd, carry, T, n, tau, eta, guard_f, quorum_f,
+            checkpoint_path, checkpoint_every, resume, stop_after)
     for t in range(T):
-        active = st.act[t] * (1.0 - waiting)
-        W, losses[t] = step(W, st.batch(t), st.yb[t], st.w[t], active)
-        H = H + st.cnt[t] * active
-        if is_agg[t]:
-            wg = aggregate(W, H, active, wg)
-            W = _sync(W, wg, st.act[t] > 0.5)
-            H_at[k] = H
-            H = torch.zeros_like(H)
-            waiting = 1.0 - st.act[t]
-            evals[k, 0], evals[k, 1] = _evaluate(apply_fn, wg, st.x_te,
-                                                 st.y_te)
-            k += 1
-    return _read_back(losses, H_at, evals, agg_rounds)
+        carry = rnd(t, carry)
+    return _read_back(hist, np.nonzero(is_agg)[0], T)
+
+
+def _run_scan_checkpointed(rnd: _ScanRound, carry, T, n, tau, eta, guard,
+                           quorum, checkpoint_path, checkpoint_every,
+                           resume, stop_after) -> dict:
+    """The scan in chunks of ``checkpoint_every`` windows, the state
+    snapshotted at each chunk's end (see :func:`run_rounds_scan`). The
+    history is carried at its full (T, ...) shape in the snapshot so
+    that the restore template is fixed; ``round`` says how much of it
+    is real. The snapshot's copy to the host is the one
+    synchronisation checkpointing adds."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+
+    step = max(1, int(checkpoint_every)) * tau
+    hist = rnd.hist
+
+    def as_state(carry, rnd_idx):
+        W, wg, H, waiting = carry
+        return {"carry": {"W": W, "wg": wg, "H": H, "waiting": waiting},
+                "hist": hist,
+                "round": torch.tensor(rnd_idx, dtype=torch.int64)}
+
+    run_meta = {"kind": "fog-scan", "T": int(T), "n": int(n),
+                "tau": int(tau), "eta": float(eta),
+                "faults": rnd.fo is not None, "guard": bool(guard),
+                "quorum": float(quorum)}
+    start = 0
+    if resume is not None:
+        state, meta = ckpt.restore(resume, as_state(carry, 0))
+        for k, v in run_meta.items():
+            if meta.get(k) != v:
+                raise ValueError(
+                    f"checkpoint {resume!r} was written by a run with "
+                    f"{k}={meta.get(k)!r}; this run has {k}={v!r}")
+        start = int(state["round"])
+        c = state["carry"]
+        carry = (c["W"], c["wg"], c["H"], c["waiting"])
+        for k, v in state["hist"].items():
+            hist[k].copy_(v)
+    t0 = start
+    while t0 < T:
+        if stop_after is not None and t0 >= stop_after:
+            break
+        t1 = min(t0 + step, T)
+        for t in range(t0, t1):
+            carry = rnd(t, carry)
+        t0 = t1
+        if checkpoint_path is not None:
+            ckpt.save(checkpoint_path, as_state(carry, t0),
+                      metadata=run_meta)
+    agg = np.nonzero(rnd.is_agg[:t0])[0]
+    out = _read_back(hist, agg, t0)
+    if t0 < T:
+        out["stopped_at"] = int(t0)
+    return out
 
 
 # the tier segments of the last tree run, per device: the layouts of a
@@ -287,7 +487,8 @@ def tier_segments(tree, device, widths=()) -> list:
 def run_rounds_hierarchical(apply_fn, params: dict, x_tr, y_tr, x_te,
                             y_te, processed, act_all, tau: int,
                             eta: float, max_pts: int, *, tree,
-                            device) -> dict:
+                            device, faults=None, guard: bool = True,
+                            quorum: float = 0.0) -> dict:
     """Tier-aware training over a :class:`repro_torch.core.hierarchy.
     TierTree`: local SGD every round, and at each round whose index
     hits a tier period eq. (4) composes up the tree under cumulative H
@@ -304,6 +505,13 @@ def run_rounds_hierarchical(apply_fn, params: dict, x_tr, y_tr, x_te,
     aggregation. As in :func:`run_rounds_scan`, the round loop does not
     synchronise with the host, and the history is read back once.
 
+    ``faults`` ride as on the flat path: crash outages ANDed into the
+    activity, uploads guarded at the device tier (the tiers compose
+    from ``H * contrib``), and the quorum gating the whole event on
+    the device — a failed quorum leaves the global, every device and H
+    as they were, while the tier sums still run (their result is
+    selected away), so the kernel launches are the clean path's.
+
     An L=1 tree runs :func:`run_rounds_scan` itself."""
     if tau != tree.taus[0]:
         raise ValueError(f"run tau={tau} but the tier tree aggregates "
@@ -311,13 +519,16 @@ def run_rounds_hierarchical(apply_fn, params: dict, x_tr, y_tr, x_te,
     if tree.levels == 1:
         return run_rounds_scan(apply_fn, params, x_tr, y_tr, x_te, y_te,
                                processed, act_all, tau, eta, max_pts,
-                               device=device)
+                               device=device, faults=faults, guard=guard,
+                               quorum=quorum)
     T, n = len(processed), len(processed[0])
     if n != tree.n:
         raise ValueError(f"run has n={n} devices but the tree has "
                          f"n={tree.n}")
-    st = _Staged(processed, act_all, x_tr, y_tr, x_te, y_te, max_pts,
-                 device)
+    fo = None if faults is None else _stage_fault_ops(faults, T, n, tau,
+                                                      device)
+    st = _Staged(processed, _fault_activity(act_all, faults), x_tr, y_tr,
+                 x_te, y_te, max_pts, device)
     L = tree.levels
     lvl = tree.level_rounds(T)
     top = np.nonzero(lvl == L)[0]
@@ -330,76 +541,107 @@ def run_rounds_hierarchical(apply_fn, params: dict, x_tr, y_tr, x_te,
     wg = params
     H = torch.zeros(n, device=device)
     waiting = torch.zeros(n, device=device)
-    losses = torch.empty((T, n), device=device)
-    H_at = torch.empty((len(top), n), device=device)
-    evals = torch.empty((len(top), 2), device=device)
-    k = 0
+    hist = _history(T, n, device, fo is not None)
     for t in range(T):
         a = st.act[t]
         active = a * (1.0 - waiting)
-        W, losses[t] = step(W, st.batch(t), st.yb[t], st.w[t], active)
+        W, hist["losses"][t] = step(W, st.batch(t), st.yb[t], st.w[t],
+                                    active)
         H = H + st.cnt[t] * active
         lv = int(lvl[t])
         if lv == 0:
             continue
-        Wl, Hl = W, H * active
+        qok = None
+        if fo is None:
+            Wl, contrib = W, active
+        else:
+            Wl, contrib = _guarded_uploads(W, active, fo[0][t], fo[1][t],
+                                           guard)
+            surv = contrib.sum()
+            qok = surv >= quorum * active.sum()
+        Hl = H * contrib
         for seg in segs[:lv]:
             Wl, Hl = aggregate_tier(Wl, Hl, seg.group_ids, seg.num_groups,
                                     segments=seg)
         if lv == L:
             ok = Hl[0] > 0
+            if qok is not None:
+                ok = ok & qok
             wg = {key: torch.where(ok, Wl[key][0], old)
                   for key, old in wg.items()}
         src = anc[lv - 1]
         sync = (a > 0.5) & (Hl[src] > 0)
+        if qok is not None:
+            sync = sync & qok
         W = {key: torch.where(_bcast(sync, p), Wl[key][src], p)
              for key, p in W.items()}
-        waiting = 1.0 - a
+        waiting = (1.0 - a if qok is None
+                   else torch.where(qok, 1.0 - a, waiting))
         if lv == L:
-            H_at[k] = H
-            H = torch.zeros_like(H)
-            evals[k, 0], evals[k, 1] = _evaluate(apply_fn, wg, st.x_te,
-                                                 st.y_te)
-            k += 1
-    hist = _read_back(losses, H_at, evals, top)
+            hist["H_at"][t] = H
+            if qok is None:
+                H = torch.zeros_like(H)
+            else:
+                H = torch.where(qok, torch.zeros_like(H), H)
+                hist["surv"][t] = surv
+                hist["qok"][t] = qok
+            hist["tl"][t], hist["ta"][t] = _evaluate(apply_fn, wg,
+                                                     st.x_te, st.y_te)
+    out = _read_back(hist, top, T)
     is_agg = lvl > 0
-    hist["tier_agg_round"] = [int(t) for t in np.nonzero(is_agg)[0]]
-    hist["tier_agg_level"] = [int(v) for v in lvl[is_agg]]
-    return hist
+    out["tier_agg_round"] = [int(t) for t in np.nonzero(is_agg)[0]]
+    out["tier_agg_level"] = [int(v) for v in lvl[is_agg]]
+    return out
 
 
-def _read_back(losses, H_at, evals, agg_rounds) -> dict:
-    """The one read-back of a run — (T, n) losses, (K, n) H and (K, 2)
-    test loss and accuracy at the K recorded aggregation rounds — as
-    the reference's history pieces."""
-    rec = torch.cat([losses.reshape(-1), H_at.reshape(-1),
-                     evals.reshape(-1)]).cpu().numpy()
-    a, b = losses.numel(), losses.numel() + H_at.numel()
-    ev = rec[b:].reshape(evals.shape)
-    return {"device_loss": list(rec[:a].reshape(losses.shape)),
-            "test_loss": [float(v) for v in ev[:, 0]],
-            "test_acc": [float(v) for v in ev[:, 1]],
-            "agg_round": [int(t) for t in agg_rounds],
-            "H_agg": list(rec[a:b].reshape(H_at.shape))}
+def _read_back(hist: dict, agg_rounds, t_end: int) -> dict:
+    """The one read-back of a run: every (T, ...) history buffer in one
+    copy, as the reference's history pieces up to round ``t_end`` at
+    the recorded aggregation rounds ``agg_rounds``."""
+    keys = list(hist)
+    rec = torch.cat([hist[k].reshape(-1) for k in keys]).cpu().numpy()
+    h, off = {}, 0
+    for k in keys:
+        size = hist[k].numel()
+        h[k] = rec[off:off + size].reshape(hist[k].shape)
+        off += size
+    out = {"device_loss": list(h["losses"][:t_end]),
+           "test_loss": [float(v) for v in h["tl"][agg_rounds]],
+           "test_acc": [float(v) for v in h["ta"][agg_rounds]],
+           "agg_round": [int(t) for t in agg_rounds],
+           "H_agg": list(h["H_at"][agg_rounds])}
+    if "surv" in h:
+        out["agg_survivors"] = [float(v) for v in h["surv"][agg_rounds]]
+        out["agg_quorum_ok"] = [bool(v > 0) for v in h["qok"][agg_rounds]]
+    return out
 
 
 def run_rounds_legacy(apply_fn, params: dict, x_tr, y_tr, x_te, y_te,
                       processed, act_all, tau: int, eta: float,
-                      max_pts: int, *, device) -> dict:
+                      max_pts: int, *, device, faults=None,
+                      guard: bool = True, quorum: float = 0.0) -> dict:
     """The per-round loop (fresh host→device copies of the padded batch
     every round, H accumulated on the host in float64) — the numerical
-    oracle for ``run_rounds_scan``."""
+    oracle for ``run_rounds_scan``, under faults too: its quorum test
+    is the reference's host float64 ``surv >= quorum * expected``, and
+    a failed quorum records H without resetting it and leaves
+    ``waiting`` as it was."""
     T, n = len(processed), len(processed[0])
     W = _stack(params, n)
     w_global = params
     step = make_device_step(apply_fn, float(eta))
     x_te_dev = torch.from_numpy(x_te).to(device)
     y_te_dev = torch.from_numpy(y_te).to(device, torch.int64)
-    act_arr = np.asarray(act_all, bool)
+    act_arr = np.asarray(_fault_activity(act_all, faults), bool)
+    if faults is not None:
+        upl, cor = _stage_fault_ops(faults, T, n, tau, device)
     H = np.zeros(n)
     waiting = np.zeros(n, bool)
     out = {"device_loss": [], "test_loss": [], "test_acc": [],
            "agg_round": [], "H_agg": []}
+    if faults is not None:
+        out["agg_survivors"] = []
+        out["agg_quorum_ok"] = []
     for t in range(T):
         act = act_arr[t]
         xb, yb, wts = pl.pad_batches(processed[t], x_tr, y_tr, max_pts)
@@ -411,13 +653,33 @@ def run_rounds_legacy(apply_fn, params: dict, x_tr, y_tr, x_te, y_te,
         H += np.array([len(ix) for ix in processed[t]]) * (act & ~waiting)
         out["device_loss"].append(losses.cpu().numpy())
         if (t + 1) % tau == 0:
-            w_global = aggregate(W, torch.as_tensor(H, dtype=torch.float32,
-                                                    device=device),
-                                 contributing, w_global)
-            W = _sync(W, w_global, torch.as_tensor(act, device=device))
-            waiting = ~act      # whoever is out now waits for next sync
-            out["H_agg"].append(H.copy())
-            H[:] = 0.0
+            if faults is not None:
+                Wu, contrib = _guarded_uploads(W, contributing, upl[t],
+                                               cor[t], guard)
+                surv = float(contrib.sum())
+                expd = float(contributing.sum())
+                qok = surv >= quorum * expd
+                out["agg_survivors"].append(surv)
+                out["agg_quorum_ok"].append(bool(qok))
+                out["H_agg"].append(H.copy())
+                if qok:
+                    w_global = aggregate(
+                        Wu, torch.as_tensor(H, dtype=torch.float32,
+                                            device=device),
+                        contrib, w_global)
+                    W = _sync(W, w_global, torch.as_tensor(act,
+                                                           device=device))
+                    waiting = ~act
+                    H[:] = 0.0
+            else:
+                w_global = aggregate(
+                    W, torch.as_tensor(H, dtype=torch.float32,
+                                       device=device),
+                    contributing, w_global)
+                W = _sync(W, w_global, torch.as_tensor(act, device=device))
+                waiting = ~act  # whoever is out now waits for next sync
+                out["H_agg"].append(H.copy())
+                H[:] = 0.0
             tl, ta = _evaluate(apply_fn, w_global, x_te_dev, y_te_dev)
             out["agg_round"].append(t)
             out["test_loss"].append(float(tl))

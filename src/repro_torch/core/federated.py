@@ -57,6 +57,12 @@ def run_network_aware(cfg: FedConfig, data, traces: CostTraces,
                       schedule: NetworkSchedule | None = None,
                       params: dict | None = None,
                       hierarchy: TierTree | None = None,
+                      faults=None, guard: bool = True,
+                      quorum: float = 0.0,
+                      checkpoint_path: str | None = None,
+                      checkpoint_every: int = 1,
+                      resume: str | None = None,
+                      stop_after: int | None = None,
                       device=None) -> dict:
     """Train with a given movement plan. Returns the history dict.
 
@@ -70,6 +76,21 @@ def run_network_aware(cfg: FedConfig, data, traces: CostTraces,
     ``cfg.tau``; engines ``"auto"``, ``"scan"`` and ``"hierarchical"``
     then run it (an L=1 tree is the flat scan), and the history gains
     ``"hierarchy"``. ``device`` defaults to ``cuda``.
+
+    ``faults`` — optional :class:`repro_torch.core.faults.
+    FaultSchedule` (unannounced failures): crash outages stop data
+    collection and training like unplanned churn, and straggled,
+    dropped and corrupted uploads are injected inside the engine's
+    aggregation, guarded by ``guard`` (non-finite uploads dropped, H
+    renormalized over the survivors) and gated by ``quorum`` (windows
+    whose surviving-upload fraction falls below it carry the previous
+    global forward). The history gains ``fault_summary``,
+    ``agg_survivors`` and ``agg_quorum_ok``.
+
+    ``checkpoint_path``, ``checkpoint_every``, ``resume`` and
+    ``stop_after`` — window-boundary checkpointing of the scan engine
+    (see :func:`repro_torch.core.engine.run_rounds_scan`); other
+    engines refuse them.
     """
     device = resolve_device(device)
     if hierarchy is not None:
@@ -98,9 +119,20 @@ def run_network_aware(cfg: FedConfig, data, traces: CostTraces,
     if engine not in runners:
         raise ValueError(f"unknown engine {engine!r}; expected one of "
                          f"{sorted(runners)} or 'auto'")
+    engine_kw = {}
+    if faults is not None:
+        engine_kw = dict(faults=faults, guard=guard, quorum=quorum)
+    if (checkpoint_path is not None or resume is not None
+            or stop_after is not None):
+        if engine != "scan":
+            raise ValueError("checkpoint/resume is a scan-engine feature; "
+                             f"got engine={engine!r}")
+        engine_kw.update(checkpoint_path=checkpoint_path,
+                        checkpoint_every=checkpoint_every, resume=resume,
+                        stop_after=stop_after)
     x_tr, y_tr, x_te, y_te = data
     streams, processed, act_all, max_pts = _prepare_streams(
-        cfg, data, plan, streams, activity, schedule)
+        cfg, data, plan, streams, activity, schedule, faults)
 
     specs_fn, apply_fn = mm.MODELS[cfg.model]
     if params is None:
@@ -117,16 +149,19 @@ def run_network_aware(cfg: FedConfig, data, traces: CostTraces,
         hist["hierarchy"] = {"levels": hierarchy.levels,
                              "group_counts": list(hierarchy.group_counts),
                              "taus": list(hierarchy.taus)}
+    if faults is not None:
+        hist["fault_summary"] = faults.summary()
     hist.update(runners[engine](apply_fn, params, x_tr, y_tr, x_te, y_te,
                                 processed, act_all, cfg.tau, cfg.eta,
-                                max_pts, device=device))
+                                max_pts, device=device, **engine_kw))
     return hist
 
 
 def _prepare_streams(cfg: FedConfig, data, plan, streams, activity,
-                     schedule):
+                     schedule, faults=None):
     """Host-side data-plane prep: default streams, schedule→activity,
-    inactive-collection zeroing, movement routing, pad sizing."""
+    fault-outage masking, inactive-collection zeroing, movement
+    routing, pad sizing."""
     _, y_tr, _, _ = data
     rng = np.random.default_rng(cfg.seed)
     if streams is None:
@@ -139,6 +174,16 @@ def _prepare_streams(cfg: FedConfig, data, plan, streams, activity,
                 f"run is (T={cfg.T}, n={cfg.n})")
         if activity is None:
             activity = schedule.activity()
+    if faults is not None and faults.has_crashes:
+        # a crashed device stops collecting and training like a churned
+        # one, except that nobody announced it (no plan saw it coming)
+        if (faults.T, faults.n) != (cfg.T, cfg.n):
+            raise ValueError(
+                f"fault schedule is (T={faults.T}, n={faults.n}) but "
+                f"the run is (T={cfg.T}, n={cfg.n})")
+        base = (np.asarray(activity, bool) if activity is not None
+                else np.ones((cfg.T, cfg.n), bool))
+        activity = base & faults.activity_mask()
     if activity is not None:
         # inactive devices collect nothing (no-op for all-active masks)
         for t, i in zip(*np.nonzero(~np.asarray(activity, bool))):

@@ -4,8 +4,9 @@
     python -m repro_torch.launch.breakdown --prefill ARCH [--smoke]
         [--batch B] [--seq S] [--seed K] [--device D] [--reps N]
 
-The first form builds the problem, the plan and the ``--tiers`` tree
-(if any) as ``launch/train.py`` does, then times ``run_network_aware``.
+The first form builds the problem, the ``--faults`` schedule, the plan
+and the ``--tiers`` tree (if any) as ``launch/train.py`` does, then
+times ``run_network_aware``.
 The second draws ARCH's parameters (the full config unless ``--smoke``)
 on the device from the seed and times the serving prefill step
 (``launch/steps.make_prefill_step``) on B x S seeded prompts. Both time
@@ -120,7 +121,8 @@ def run(argv=None) -> dict:
     device = resolve_device(args.device)
     pb = train.build_problem(args)
     t0 = time.perf_counter()
-    plan, _ = train.make_plan(args, pb, device)
+    faults = train.make_fault_schedule(args, pb["cfg"])
+    plan, _ = train.make_plan(args, pb, device, faults=faults)
     plan_s = time.perf_counter() - t0
     hierarchy = train.make_hierarchy(args, pb["cfg"])
 
@@ -128,7 +130,8 @@ def run(argv=None) -> dict:
         F.run_network_aware(pb["cfg"], pb["data"], pb["traces"], pb["adj"],
                             plan, streams=pb["streams"],
                             schedule=pb["schedule"], hierarchy=hierarchy,
-                            device=device)
+                            device=device,
+                            **train.fault_kwargs(args, faults))
 
     out = _timed(fn, device, own.reps, own.top)
     return {"argv": rest, "T": args.T, "n": args.n, "model": args.model,

@@ -22,9 +22,15 @@ there). ``--only`` takes any of:
   planning once, plus the constant-schedule guard;
 * ``prediction`` — oracle, predicted and plan-once planners (and
   ``expected`` at the highest rates) on the true schedule, plus the
-  static guard.
+  static guard;
+* ``faults`` — the fault-tolerance study: guarded and unguarded
+  aggregation under corrupted uploads, quorum-gated sync under heavy
+  upload loss, mixed faults, and the two exactness claims (an empty
+  fault schedule under the guard is the clean run bit for bit, and a
+  run resumed from a mid-horizon checkpoint is the uninterrupted one).
 
-The sweeps of figs. 5 and 6 and the two dynamics studies build their
+The sweeps of figs. 5 and 6, the two dynamics studies and the fault
+study build their
 points as :func:`benchmarks.fog.make_scenario` does and train them one
 by one. The rows and headlines are printed as JSON, and written to
 ``--out`` when given; nothing is written under ``results/``, which
@@ -36,12 +42,15 @@ import argparse
 import dataclasses
 import functools
 import json
+import os
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 
 from repro_torch.core import estimator as est
+from repro_torch.core import faults as fl
 from repro_torch.core import federated as F
 from repro_torch.core import movement as mv
 from repro_torch.core import theory as th
@@ -155,7 +164,9 @@ class Scenario:
     true schedule, "predict" on the schedule predicted from the
     observed history, "expected" on the observed support with
     1/availability link prices, "once" on the base graph (True/False:
-    oracle/once)."""
+    oracle/once). ``faults`` (unannounced failures) are never visible
+    to the planner: crash outages enter at realization, upload faults
+    inside the engine's aggregation under ``guard`` and ``quorum``."""
 
     key: dict
     cfg: F.FedConfig
@@ -166,16 +177,25 @@ class Scenario:
     error_model: str = "sqrt"
     schedule: NetworkSchedule | None = None
     replan: bool | str = "oracle"
+    faults: fl.FaultSchedule | None = None
+    guard: bool = True
+    quorum: float = 0.0
 
 
 def make_scenario(scale: BenchScale, *, key=None, error_model="sqrt",
-                  dynamics=None, p_flap=0.05, replan="oracle",
-                  **draw) -> Scenario:
+                  dynamics=None, p_flap=0.05, replan="oracle", faults=None,
+                  fault_rate=0.0, guard=True, quorum=0.0,
+                  corrupt_mode="nan", **draw) -> Scenario:
     """Build one sweep point: :func:`_draw`'s problem (``draw`` takes its
     keywords), then the schedule from the same generator. ``dynamics``:
     None (churn when ``p_exit``/``p_entry`` are set, else static),
     "churn" or "flap" (links fail w.p. ``p_flap`` and recover w.p.
-    0.5 a round)."""
+    0.5 a round). ``faults``/``fault_rate``: a
+    :class:`~repro_torch.core.faults.FaultSchedule` or a
+    :func:`~repro_torch.core.faults.make_faults` kind drawn at that rate
+    from a generator of its own (seed + 7919), so a faulted point
+    shares streams, costs and topology with its clean twin;
+    ``guard``/``quorum``/``corrupt_mode`` configure the engine side."""
     rng, cfg, traces, adj, streams, D = _draw(scale, **draw)
     if dynamics is None:
         dynamics = "churn" if (cfg.p_exit or cfg.p_entry) else "static"
@@ -186,9 +206,14 @@ def make_scenario(scale: BenchScale, *, key=None, error_model="sqrt",
     elif dynamics == "flap":
         schedule = link_flap_schedule(adj, scale.T, rng, p_down=p_flap,
                                       p_up=0.5)
+    if not isinstance(faults, fl.FaultSchedule):
+        faults = fl.make_faults(faults, scale.T, cfg.n, scale.tau,
+                                rate=fault_rate, seed=cfg.seed + 7919,
+                                corrupt=corrupt_mode)
     return Scenario(key=dict(key or {}), cfg=cfg, traces=traces, adj=adj,
                     D=D, streams=streams, error_model=error_model,
-                    schedule=schedule, replan=replan)
+                    schedule=schedule, replan=replan, faults=faults,
+                    guard=guard, quorum=quorum)
 
 
 def replan_mode(replan) -> str:
@@ -233,7 +258,8 @@ def solve_scenario_plans(scenarios: list[Scenario], *, iters=400, seed=0,
     """Plans for a sweep: Theorem-3 plans point by point, convex plans
     in one ``solve_convex_batched`` call per (T, n, error model) group
     (every point from the same ``seed``'s z0). Every plan with a
-    schedule is then realized against it."""
+    schedule is then realized against it, with the point's crash
+    outages composed in where it has any."""
     device = resolve_device(device)
     trs = [_plan_traces(sc) for sc in scenarios]
     nets = [_plan_network(sc) for sc in scenarios]
@@ -250,18 +276,27 @@ def solve_scenario_plans(scenarios: list[Scenario], *, iters=400, seed=0,
                 [scenarios[b].D for b in idxs], error_model=em,
                 iters=iters, seeds=seed, device=device)):
             plans[b] = p
-    return [p if sc.schedule is None else mv.realize_plan(p, sc.schedule)
-            for p, sc in zip(plans, scenarios)]
+    for b, sc in enumerate(scenarios):
+        if sc.faults is not None and sc.faults.has_crashes:
+            plans[b] = mv.realize_plan(
+                plans[b], sc.faults.compose(sc.schedule, adj=sc.adj))
+        elif sc.schedule is not None:
+            plans[b] = mv.realize_plan(plans[b], sc.schedule)
+    return plans
 
 
 def run_scenarios(scenarios: list[Scenario], scale: BenchScale, *,
-                  train=True, iters=400, seed=0, device=None) -> list[dict]:
-    """Solve, cost and (with ``train``) train every point, one by one on
-    the scan engine. Rows: the point's key, setting, cost and, trained,
-    accuracy, curves, label similarity and mean active devices."""
+                  train=True, iters=400, seed=0, device=None,
+                  plans=None) -> list[dict]:
+    """Solve (unless ``plans`` are given), cost and (with ``train``)
+    train every point, one by one on the scan engine. Rows: the point's
+    key, setting, cost and, trained, accuracy, curves, label similarity
+    and mean active devices, and under faults the fault summary and the
+    aggregations the quorum skipped."""
     device = resolve_device(device)
-    plans = solve_scenario_plans(scenarios, iters=iters, seed=seed,
-                                 device=device)
+    if plans is None:
+        plans = solve_scenario_plans(scenarios, iters=iters, seed=seed,
+                                     device=device)
     data = dataset(scale.n_train, scale.n_test)
     rows = []
     for sc, plan in zip(scenarios, plans):
@@ -270,9 +305,15 @@ def run_scenarios(scenarios: list[Scenario], scale: BenchScale, *,
                                     error_model=sc.error_model),
                "engine": "scan"}
         if train:
-            out.update(_trained(F.run_network_aware(
+            hist = F.run_network_aware(
                 sc.cfg, data, sc.traces, sc.adj, plan, streams=sc.streams,
-                schedule=sc.schedule, device=device)))
+                schedule=sc.schedule, faults=sc.faults, guard=sc.guard,
+                quorum=sc.quorum, device=device)
+            out.update(_trained(hist))
+            if sc.faults is not None:
+                out["fault_summary"] = sc.faults.summary()
+                out["quorum_skips"] = int(sum(
+                    not ok for ok in hist["agg_quorum_ok"]))
         rows.append(out)
     return rows
 
@@ -669,13 +710,96 @@ def network_prediction(scale: BenchScale, device=None) -> dict:
     return {"rows": rows, "headline": headline}
 
 
+def _bitwise(a: dict, b: dict, keys=("test_acc", "test_loss")) -> bool:
+    """Two histories equal bit for bit in ``keys`` and ``device_loss``."""
+    return bool(all(a[k] == b[k] for k in keys)
+                and all(np.array_equal(x, y) for x, y in
+                        zip(a["device_loss"], b["device_loss"])))
+
+
+FAULT_ARMS = (("clean", {}),
+              ("corrupt10_guarded", dict(faults="corrupt", fault_rate=0.10)),
+              ("corrupt10_unguarded", dict(faults="corrupt", fault_rate=0.10,
+                                           guard=False)),
+              ("corrupt30_guarded", dict(faults="corrupt", fault_rate=0.30)),
+              ("drop50_q0", dict(faults="drop", fault_rate=0.50)),
+              ("drop50_q60", dict(faults="drop", fault_rate=0.50,
+                                  quorum=0.60)),
+              ("mixed10_guarded", dict(faults="mixed", fault_rate=0.10,
+                                       quorum=0.25)))
+
+
+def fault_tolerance(scale: BenchScale, device=None) -> dict:
+    """The fault-tolerance study (``benchmarks.run.fault_tolerance``):
+    accuracy and cost of guarded against unguarded aggregation under
+    corrupted uploads, quorum-gated sync under heavy upload loss and a
+    mixed arm, seed 7, Theorem-3 plans; plus its two exactness claims —
+    an empty FaultSchedule with the guard on and quorum 0.5 gives the
+    clean run bit for bit, and a run checkpointed and stopped at the
+    mid-horizon window boundary, then resumed, gives the uninterrupted
+    run bit for bit. The horizon is floored at T = 60, as the
+    reference's study does: fault statistics need windows."""
+    device = resolve_device(device)
+    scale = dataclasses.replace(scale, T=max(scale.T, 60))
+    scenarios = [make_scenario(scale, key={"arm": arm},
+                               error_model="discard", seed=7, **kw)
+                 for arm, kw in FAULT_ARMS]
+    plans = solve_scenario_plans(scenarios, iters=300, seed=0,
+                                 device=device)
+    full = run_scenarios(scenarios, scale, plans=plans, device=device)
+    rows = [{"arm": r["arm"], "acc": r["acc"],
+             "avg_active": r["avg_active"],
+             "cost_total": r["cost"]["total"],
+             "fault_summary": r.get("fault_summary"),
+             "quorum_skips": r.get("quorum_skips")} for r in full]
+
+    data = dataset(scale.n_train, scale.n_test)
+    sc0 = scenarios[0]
+
+    def run0(**kw):
+        return F.run_network_aware(sc0.cfg, data, sc0.traces, sc0.adj,
+                                   plans[0], streams=sc0.streams,
+                                   engine="scan", device=device, **kw)
+
+    clean = run0()
+    noop = run0(faults=fl.FaultSchedule(scale.T, sc0.cfg.n, scale.tau),
+                guard=True, quorum=0.5)
+    clean_noop_bitwise = bool(
+        _bitwise(clean, noop)
+        and np.array_equal(np.asarray(clean["H_agg"]),
+                           np.asarray(noop["H_agg"])))
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck.pt")
+        half = (scale.T // 2 // scale.tau) * scale.tau or scale.tau
+        part = run0(checkpoint_path=ck, stop_after=half)
+        res = run0(resume=ck)
+        resume_bitwise = bool(part.get("stopped_at") == half
+                              and _bitwise(res, clean))
+
+    by = {r["arm"]: r for r in rows}
+    acc_clean = by["clean"]["acc"]
+    return {"rows": rows, "headline": {
+        "acc_clean": acc_clean,
+        "acc_guarded_c10": by["corrupt10_guarded"]["acc"],
+        "acc_unguarded_c10": by["corrupt10_unguarded"]["acc"],
+        "acc_guarded_c30": by["corrupt30_guarded"]["acc"],
+        "guard_within_2pp": bool(
+            by["corrupt10_guarded"]["acc"] >= acc_clean - 0.02),
+        "unguarded_near_random": bool(
+            by["corrupt10_unguarded"]["acc"] <= 0.2),
+        "quorum_skips_q0": by["drop50_q0"]["quorum_skips"],
+        "quorum_skips_q60": by["drop50_q60"]["quorum_skips"],
+        "clean_noop_bitwise": clean_noop_bitwise,
+        "resume_bitwise": resume_bitwise}}
+
+
 TABLES = {"table2": table2_accuracy, "table3": table3_settings,
           "table4": table4_error_costs, "table5": table5_dynamics,
           "fig5": fig5_nodes, "fig6": fig6_connectivity,
           "fig7": fig7_aggregation, "fig8": fig8_topologies,
           "fig9": fig9_exit, "fig10": fig10_entry,
           "thm5": thm5_value_of_offloading, "dynamics": network_dynamics,
-          "prediction": network_prediction}
+          "prediction": network_prediction, "faults": fault_tolerance}
 
 
 def main(argv=None) -> dict:

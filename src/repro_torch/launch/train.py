@@ -11,6 +11,12 @@ probability P a round) or ``--schedule flap`` (links fail and recover),
 with ``--replan oracle|predict|once`` for what the planner sees; the
 plan is then realized against the true schedule.
 
+Unannounced failures: ``--faults straggle|drop|crash|corrupt|mixed`` at
+``--fault-rate`` (``--corrupt-mode nan|inf|scale``), aggregated through
+the guard (``--unguarded`` turns it off) and gated by ``--quorum``;
+``--checkpoint PATH`` snapshots the scan engine at every window
+boundary and ``--resume PATH`` continues such a snapshot bit for bit.
+
 The flags and defaults are those of ``python -m repro.launch.train``,
 plus ``--device`` (``cuda`` by default; ``cpu`` runs the same path on
 the CPU, with the kernels' plain versions). Flags whose code is not
@@ -25,6 +31,7 @@ import time
 import numpy as np
 
 from repro_torch.core import estimator as est
+from repro_torch.core import faults as fl
 from repro_torch.core import federated as F
 from repro_torch.core import movement as mv
 from repro_torch.core.costs import (synthetic_costs, testbed_like_costs,
@@ -80,10 +87,6 @@ def solve_setting(setting: str, traces, adj, D, error_model="discard",
 def _check_ported(args) -> None:
     checks = [
         (args.mode == "lm", "--mode lm", 14, LM_TRAINING),
-        (args.faults != "none", f"--faults {args.faults}", 9,
-         "faults and recovery"),
-        (args.checkpoint or args.resume, "--checkpoint/--resume", 9,
-         "faults and recovery"),
         (args.engine == "batched", "--engine batched", 11, "sweep engine"),
         (args.engine == "sharded", "--engine sharded", 12, "multi-GPU"),
         (args.sanitize, "--sanitize", 13, "tooling"),
@@ -149,12 +152,31 @@ def resolve_replan(args, schedule) -> str:
     return "once" if args.plan_once else args.replan
 
 
-def make_plan(args, pb: dict, device, timing: dict | None = None):
+def make_fault_schedule(args, cfg) -> fl.FaultSchedule | None:
+    """The ``--faults`` schedule, from its own generator (``--seed`` +
+    7919) so that streams, costs and topology are those of the clean
+    run; None when no fault can fire."""
+    return fl.make_faults(args.faults, cfg.T, cfg.n, cfg.tau,
+                          rate=args.fault_rate, seed=args.seed + 7919,
+                          corrupt=args.corrupt_mode)
+
+
+def fault_kwargs(args, faults) -> dict:
+    """The fault and checkpoint keywords of ``run_network_aware``."""
+    return dict(faults=faults, guard=not args.unguarded,
+                quorum=args.quorum, checkpoint_path=args.checkpoint,
+                resume=args.resume)
+
+
+def make_plan(args, pb: dict, device, timing: dict | None = None,
+              faults: fl.FaultSchedule | None = None):
     """The run's movement plan and its replan mode. The planner sees the
     true schedule (``oracle``), the schedule predicted from the observed
     history (``predict``) or the base graph (``once``); on a dynamic
-    network the plan is then realized against the true schedule. The
-    times of the three steps go into ``timing`` when given."""
+    network the plan is then realized against the true schedule. Crash
+    ``faults`` are never visible to the planner: with them the plan is
+    realized against the true schedule with the outages composed in.
+    The times of the three steps go into ``timing`` when given."""
     schedule = pb["schedule"]
     replan = resolve_replan(args, schedule)
     t0 = time.perf_counter()
@@ -165,7 +187,11 @@ def make_plan(args, pb: dict, device, timing: dict | None = None):
     plan = solve_setting(args.setting, pb["traces"], network, pb["D"],
                          error_model=args.error_model, device=device)
     t2 = time.perf_counter()
-    if schedule.static_adj is None:
+    dynamic = schedule.static_adj is None
+    if faults is not None and faults.has_crashes:
+        plan = mv.realize_plan(plan, faults.compose(
+            schedule if dynamic else None, adj=pb["adj"]))
+    elif dynamic:
         plan = mv.realize_plan(plan, schedule)   # oracle greedy: a no-op
     t3 = time.perf_counter()
     if timing is not None:
@@ -196,14 +222,15 @@ def run_fog(args) -> dict:
     cfg, traces, schedule, D = pb["cfg"], pb["traces"], pb["schedule"], \
         pb["D"]
     hierarchy = make_hierarchy(args, cfg)
+    faults = make_fault_schedule(args, cfg)
     timing: dict = {}
-    plan, replan = make_plan(args, pb, device, timing)
+    plan, replan = make_plan(args, pb, device, timing, faults)
     t1 = time.perf_counter()
     engine = "scan" if args.engine == "auto" else args.engine
     hist = F.run_network_aware(cfg, pb["data"], traces, pb["adj"], plan,
                                streams=pb["streams"], schedule=schedule,
                                engine=engine, hierarchy=hierarchy,
-                               device=device)
+                               device=device, **fault_kwargs(args, faults))
     timing["train_s"] = time.perf_counter() - t1
     cost = mv.plan_cost(plan, traces, D, error_model=args.error_model)
     out = {"mode": "fog", "setting": args.setting, "engine": engine,
@@ -217,6 +244,10 @@ def run_fog(args) -> dict:
     if hierarchy is not None:
         out["engine"] = "hierarchical"
         out["hierarchy"] = hist["hierarchy"]
+    if faults is not None:
+        out["fault_summary"] = hist["fault_summary"]
+        out["quorum_skips"] = int(sum(
+            not ok for ok in hist.get("agg_quorum_ok", [])))
     print(json.dumps(out, default=float, indent=2))
     return {**out, "plan": plan, "history": hist}
 

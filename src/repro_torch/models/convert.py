@@ -1,6 +1,7 @@
 """Carry the reference's parameters across to the port's layouts.
 
-:func:`params_from_jax` is for the paper's MNIST models,
+:func:`params_from_jax` is for the paper's MNIST models (and
+:func:`scan_state_from_jax` for a scan-engine checkpoint of them),
 :func:`lm_params_from_jax` for the model zoo.
 
 The reference CNN (``repro.models.mnist``) is NHWC with HWIO kernels and
@@ -47,3 +48,33 @@ def lm_params_from_jax(tree, *, device=None):
     if np.issubdtype(a.dtype, np.floating):
         a = a.astype(np.float32)
     return torch.from_numpy(np.array(a, order="C")).to(device)
+
+
+def scan_state_from_jax(state: dict, *, device=None) -> dict:
+    """A reference scan-engine checkpoint state (``repro.checkpoint.
+    checkpoint.restore`` of a ``run_network_aware(checkpoint_path=…)``
+    snapshot: ``{"carry": {"W", "wg", "H", "waiting"}, "hist": {...},
+    "round"}`` as numpy) -> the port's state, which
+    ``repro_torch.checkpoint.checkpoint.save`` writes and the port's
+    ``run_network_aware(resume=…)`` continues. The W stack is carried
+    across device by device and the global model through
+    :func:`params_from_jax`; H, waiting, the history and the round
+    index as they are."""
+    carry = state["carry"]
+    W = {k: np.asarray(v) for k, v in carry["W"].items()}
+    n = next(iter(W.values())).shape[0]
+    rows = [params_from_jax({k: v[i] for k, v in W.items()}, device=device)
+            for i in range(n)]
+    Wt = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a, order="C")).to(device)
+
+    return {"carry": {"W": Wt,
+                      "wg": params_from_jax(
+                          {k: np.asarray(v) for k, v in carry["wg"].items()},
+                          device=device),
+                      "H": tensor(carry["H"]),
+                      "waiting": tensor(carry["waiting"])},
+            "hist": {k: tensor(v) for k, v in state["hist"].items()},
+            "round": torch.tensor(int(state["round"]), dtype=torch.int64)}

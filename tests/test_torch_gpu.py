@@ -428,3 +428,124 @@ def test_new_kernels_reject_what_they_cannot_take(cuda):
                     torch.zeros(1, 128, 129, device=cuda))
     with pytest.raises(TypeError):
         sd.ssd_scan(x.bfloat16(), a, Bm, Bm)
+
+
+# ---------------------------------------------------------------------------
+# faults and recovery on the card
+# ---------------------------------------------------------------------------
+
+
+def _fog_run(device, tmp=None, **kw):
+    """mlp, n=6, T=12, τ=4 on ``device``, from seed 0's weights."""
+    from repro_torch.core import federated as F
+    from repro_torch.data import pipeline as pl
+    from repro_torch.data.synthetic import make_image_dataset
+
+    n, T = 6, 12
+    data = make_image_dataset(n_train=1200, n_test=400, seed=0)
+    rng = np.random.default_rng(0)
+    traces = costs.synthetic_costs(n, T, rng)
+    adj = topology.fully_connected(n)
+    streams = pl.poisson_streams(n, T, data[1], rng=rng)
+    plan = movement.greedy_linear(traces, adj, backend="numpy")
+    cfg = F.FedConfig(n=n, T=T, tau=4, eta=0.05, model="mlp", seed=0)
+    return F.run_network_aware(cfg, data, traces, adj, plan,
+                               streams=streams, device=device, **kw)
+
+
+def _fault_schedule(kind="mixed", rate=0.4, corrupt="nan"):
+    from repro_torch.core import faults as fl
+
+    return fl.make_faults(kind, 12, 6, 4, rate=rate, seed=3,
+                          corrupt=corrupt)
+
+
+def _bitwise(a, b):
+    for k in ("device_loss", "test_loss", "test_acc", "H_agg"):
+        assert np.array_equal(np.asarray(a[k]), np.asarray(b[k]),
+                              equal_nan=True), k
+    assert a.get("agg_quorum_ok") == b.get("agg_quorum_ok")
+    assert a.get("agg_survivors") == b.get("agg_survivors")
+
+
+def test_guarded_uploads_on_card_equal_cpu(cuda):
+    g = torch.Generator().manual_seed(5)
+    W = {"w": torch.randn(5, 7, 3, generator=g),
+         "b": torch.randn(5, 3, generator=g)}
+    W["w"][1, 2, 0] = float("nan")
+    contrib = torch.tensor([1.0, 1.0, 0.0, 1.0, 1.0])
+    upl = torch.tensor([1.0, 0.0, 1.0, 1.0, 1.0])
+    for payload in (float("nan"), float("inf"), -10.0):
+        cor = torch.tensor([1.0, 1.0, 1.0, 1.0, payload])
+        for guard in (True, False):
+            want = eng._guarded_uploads(W, contrib, upl, cor, guard)
+            got = eng._guarded_uploads(
+                {k: v.to(cuda) for k, v in W.items()}, contrib.to(cuda),
+                upl.to(cuda), cor.to(cuda), guard)
+            assert torch.equal(got[1].cpu(), want[1])
+            for k in W:
+                assert torch.equal(got[0][k].cpu().nan_to_num(7.0),
+                                   want[0][k].nan_to_num(7.0))
+                assert torch.equal(got[0][k].cpu().isnan(),
+                                   want[0][k].isnan())
+
+
+@pytest.mark.parametrize("engine", ["scan", "legacy"])
+def test_quorum_and_guard_on_card_match_cpu(cuda, engine):
+    fs = _fault_schedule()
+    got = _fog_run(cuda, engine=engine, faults=fs, quorum=0.5)
+    want = _fog_run("cpu", engine=engine, faults=fs, quorum=0.5)
+    assert got["agg_quorum_ok"] == want["agg_quorum_ok"]
+    assert got["agg_survivors"] == want["agg_survivors"]
+    np.testing.assert_array_equal(np.stack(got["H_agg"]),
+                                  np.stack(want["H_agg"]))
+    np.testing.assert_allclose(np.stack(got["device_loss"]),
+                               np.stack(want["device_loss"]),
+                               rtol=2e-3, atol=1e-4)
+
+
+def test_unguarded_nan_on_card_in_the_cpu_places(cuda):
+    fs = _fault_schedule("corrupt", 0.3)
+    got = _fog_run(cuda, faults=fs, guard=False)
+    want = _fog_run("cpu", faults=fs, guard=False)
+    for k in ("device_loss", "test_loss"):
+        assert np.array_equal(np.isnan(np.asarray(got[k], float)),
+                              np.isnan(np.asarray(want[k], float))), k
+    assert np.isnan(got["test_loss"][-1])
+
+
+def test_clean_noop_bitwise_on_card(cuda):
+    from repro_torch.core import faults as fl
+
+    clean = _fog_run(cuda)
+    noop = _fog_run(cuda, faults=fl.FaultSchedule(12, 6, 4), quorum=0.5)
+    _bitwise(clean, {**noop, "agg_quorum_ok": None,
+                     "agg_survivors": None})
+
+
+@pytest.mark.parametrize("faulted", [False, True])
+def test_chunked_and_resumed_runs_bitwise_on_card(cuda, tmp_path, faulted):
+    kw = dict(faults=_fault_schedule(), quorum=0.25) if faulted else {}
+    full = _fog_run(cuda, **kw)
+    ck = str(tmp_path / "ck.pt")
+    _bitwise(full, _fog_run(cuda, checkpoint_path=ck, **kw))
+    part = _fog_run(cuda, checkpoint_path=ck, stop_after=4, **kw)
+    assert part["stopped_at"] == 4
+    _bitwise(full, _fog_run(cuda, resume=ck, **kw))
+
+
+def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    from repro_torch.checkpoint import checkpoint as ckpt
+
+    tree = {"a": torch.arange(6.0, device=cuda).reshape(2, 3),
+            "b": [torch.ones(4, dtype=torch.bfloat16, device=cuda)],
+            "c": torch.zeros(2)}
+    path = str(tmp_path / "ck.pt")
+    ckpt.save(path, tree, {"k": 1})
+    out, meta = ckpt.restore(path, tree)
+    assert out["a"].device == tree["a"].device and out["c"].device.type \
+        == "cpu"
+    assert torch.equal(out["a"], tree["a"])
+    assert torch.equal(out["b"][0].view(torch.int16),
+                       tree["b"][0].view(torch.int16))
+    assert meta["k"] == 1

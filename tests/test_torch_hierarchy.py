@@ -290,7 +290,7 @@ def test_cli_tiers_matches_reference_cli(capsys):
 
 @pytest.mark.parametrize("flags,match", [
     (["--tiers", "4@4,1@8"], "must equal --tau"),
-    (["--tiers", "4@2,1@4", "--faults", "drop"], "queue 1 item 9"),
+    (["--tiers", "4@2,1@4", "--checkpoint", "x"], "scan-engine feature"),
     (["--tiers", "4@2,2@4"], "root"),
 ])
 def test_cli_tiers_errors(flags, match):

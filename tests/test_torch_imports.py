@@ -1,6 +1,7 @@
-"""The port imports neither JAX nor the reference package: every module
-of ``src/repro_torch`` must import in a fresh interpreter in which
-``import jax`` and ``import repro`` fail."""
+"""The port imports neither JAX nor the reference package, nor msgpack
+(the machine with the card has none): every module of
+``src/repro_torch`` must import in a fresh interpreter in which
+``import jax``, ``import repro`` and ``import msgpack`` fail."""
 import os
 import subprocess
 import sys
@@ -16,7 +17,7 @@ MODULES = sorted(
 
 PROBE = """
 import importlib, sys
-for name in ("jax", "jaxlib", "repro"):
+for name in ("jax", "jaxlib", "repro", "msgpack"):
     sys.modules[name] = None            # any import of them now fails
 failed = []
 for mod in sys.argv[1:]:
@@ -25,7 +26,7 @@ for mod in sys.argv[1:]:
     except Exception as e:
         failed.append(f"{mod}: {type(e).__name__}: {e}")
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "repro")
+                if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack")
                 and sys.modules[m] is not None)
 print("\\n".join(failed + [f"loaded {m}" for m in loaded]))
 """
@@ -34,6 +35,7 @@ print("\\n".join(failed + [f"loaded {m}" for m in loaded]))
 def test_modules_found():
     assert "repro_torch.core.schedule" in MODULES
     assert "repro_torch.launch.tables" in MODULES
+    assert "repro_torch.checkpoint.checkpoint" in MODULES
     assert len(MODULES) > 40
 
 
@@ -46,7 +48,7 @@ def test_every_module_imports_without_jax_or_repro():
     assert out.stdout.strip() == "", out.stdout
 
 
-@pytest.mark.parametrize("blocked", ["jax", "repro"])
+@pytest.mark.parametrize("blocked", ["jax", "repro", "msgpack"])
 def test_probe_catches_an_import(blocked, tmp_path):
     """The probe fails a module that imports a blocked package."""
     (tmp_path / "leaky.py").write_text(f"import {blocked}\n")

@@ -320,16 +320,20 @@ def test_unported_families_raise(arch):
         T.decode_step({}, {}, {"tokens": toks}, 0, cfg)
 
 
-def test_serve_cli_on_cpu(capsys):
+def test_serve_cli_on_cpu(capsys, tmp_path):
     out = serve.main(["--device", "cpu", "--arch", "zamba2-7b", "--gen",
                       "4", "--batch", "2"])
     assert out["config"] == "smoke" and out["device"] == "cpu"
     assert out["generated_shape"] == [2, 20]
     assert '"decode_tokens_per_s"' in capsys.readouterr().out
     assert serve.parse_args(["--full"]).full
-    for flag in (["--checkpoint", "x"], ["--resume", "x"]):
-        with pytest.raises(SystemExit, match="item 9"):
-            serve.main(["--device", "cpu", *flag])
+    ck = str(tmp_path / "serve.pt")
+    first = serve.main(["--device", "cpu", "--arch", "zamba2-7b", "--gen",
+                        "4", "--batch", "2", "--checkpoint", ck])
+    again = serve.main(["--device", "cpu", "--arch", "zamba2-7b", "--gen",
+                        "4", "--batch", "2", "--resume", ck])
+    assert again["resumed"] and again["sample"] == first["sample"] \
+        == out["sample"]
 
 
 def test_train_lm_mode_names_the_training_slice():

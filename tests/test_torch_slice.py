@@ -71,12 +71,13 @@ def test_cli_cost_equals_reference_cli(capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--setting", "E", "--faults", "drop"],
+    ["--setting", "E", "--sanitize"],
     ["--error-model", "sqrt", "--engine", "batched"],
-    ["--faults", "drop"], ["--tiers", "2@4,1@8", "--faults", "crash"],
-    ["--checkpoint", "x"],
-    ["--resume", "x"], ["--sanitize"], ["--engine", "batched"],
-    ["--engine", "sharded"], ["--mode", "lm"],
+    ["--faults", "drop", "--engine", "batched"],
+    ["--tiers", "2@4,1@8", "--faults", "crash", "--engine", "sharded"],
+    ["--checkpoint", "x", "--sanitize"],
+    ["--resume", "x", "--engine", "batched"], ["--sanitize"],
+    ["--engine", "batched"], ["--engine", "sharded"], ["--mode", "lm"],
 ])
 def test_cli_unported_flags_name_their_roadmap_item(flags):
     with pytest.raises(SystemExit, match="ROADMAP.md, queue 1 item"):
