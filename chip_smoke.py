@@ -6,8 +6,8 @@
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; it
 imports no JAX. It builds every CUDA kernel of the fog and serving
 paths from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source,
-all started together), then runs sixteen phases and fails (exit 1, no
-result line) if any of them fails:
+all started together), then runs seventeen phases and fails (exit 1,
+no result line) if any of them fails:
 
 (a) the Theorem-3 kernel against its plain PyTorch version on the
     card, at a sweep of shapes plus tie and isolated-row cases, rows
@@ -167,7 +167,27 @@ result line) if any of them fails:
     claims true, ``quorum_skips_q0`` 0, the unguarded arm collapsed, and
     ``quorum_skips_q60``, ``guard_within_2pp``, every fault summary and
     cost equal to the CPU's; (p7) ``launch.serve --checkpoint`` then
-    ``--resume`` at the smoke config: the same tokens.
+    ``--resume`` at the smoke config: the same tokens;
+(q) the sparse O(E) plane at fog scale: (q1) ``launch.tables``'
+    ``sparse_scale`` at full size, every launch counter set to 0 just
+    before and read just after: plan rows at n = 1024, 10,240 and
+    102,400, the n = 1024 sparse plan equal to the dense numpy plan and
+    to the Theorem-3 kernel's (one launch), predictions equal, the
+    5× floor, then the T = 50, n = 102,400 churn run on flat streams
+    under the tracemalloc no-(n, n) guard, the card's peak memory below
+    a float32 (n, n) array, ``active`` equal to the schedule's and
+    every ``H_agg`` equal to a float32 replay on the host; (q2)
+    ``counts_flat`` of its 5.12 M samples through the segment-reduce
+    kernel (one launch) equal to ``np.bincount`` and to the plain
+    version, and ``plan_cost`` on it within 1e-12 of the CPU's; (q3)
+    ``hier_scale`` at full size, counters as in (q1): no movement edge
+    across a gateway, exactly 3 segment launches per tier aggregation
+    (51), the tier-1 ``w`` reduction bitwise its plain version on the
+    CPU, histories replayed as in (q1), the L = 1 tree bitwise the flat
+    scan on the card; both new kernel-2 sites timed beside their plain
+    version, ``index_add_`` and their byte bound (the ``sites`` of the
+    segment_reduce entry); (q4) n = 2048, T = 20 flat-stream scan and
+    tiered runs on the card against the CPU, held as in (b).
 
 The line before the last is the JSON list of kernels; the one before it
 the card's name and power limit; the last line is the result.
@@ -2258,6 +2278,291 @@ def phase_p_serve(card):
         f"card: tokens equal {again['sample']} [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# (q) the sparse O(E) plane at fog scale
+# ---------------------------------------------------------------------------
+
+SCALE_N, SCALE_T = 102_400, 50
+SMALL_SCALE_N, SMALL_SCALE_T = 2048, 20
+
+
+def _replay_H(np, hist, sync_rounds, reset_rounds):
+    """H at each reset round, replayed in float32 on the host from the
+    run's activity and processed counts: each round adds counts ×
+    active (active = activity × (1 − waiting)); a sync round sets
+    waiting to 1 − activity, a reset round records H and zeroes it.
+    Sums of small integers, so exact."""
+    act = np.stack(hist["active"]).astype(np.float32)
+    cnt = np.stack(hist["processed_counts"]).astype(np.float32)
+    H = np.zeros(act.shape[1], np.float32)
+    waiting = np.zeros_like(H)
+    out = []
+    for t in range(act.shape[0]):
+        H = H + cnt[t] * (act[t] * (np.float32(1) - waiting))
+        if t in sync_rounds:
+            waiting = np.float32(1) - act[t]
+        if t in reset_rounds:
+            out.append(H)
+            H = np.zeros_like(H)
+    return out
+
+
+def _check_scale_history(np, keep, hist, tau, tiers=None):
+    """A fog-scale history against what the host can recompute: the
+    activity is the schedule's, the processed counts the flat stream's
+    census after masking and routing, every H weight the float32 replay
+    of :func:`_replay_H` bit for bit, the aggregation rounds the τ (or
+    tier) rounds, and every loss finite."""
+    sched, flat = keep["schedule"], keep["streams"]
+    T, n = flat.T, flat.n
+    if not np.array_equal(np.stack(hist["active"]), sched.activity()):
+        raise AssertionError("active != schedule.activity()")
+    cnt = np.stack(hist["processed_counts"])
+    if cnt.shape != (T, n) or int(cnt.sum()) > flat.idx.shape[0]:
+        raise AssertionError("processed_counts malformed")
+    if tiers is None:
+        sync = reset = {t for t in range(T) if (t + 1) % tau == 0}
+    else:
+        lvl = tiers.level_rounds(T)
+        sync = set(np.nonzero(lvl > 0)[0].tolist())
+        reset = set(np.nonzero(lvl == tiers.levels)[0].tolist())
+    if hist["agg_round"] != sorted(reset):
+        raise AssertionError(f"agg_round {hist['agg_round']}")
+    want = _replay_H(np, hist, sync, reset)
+    if not np.array_equal(np.stack(hist["H_agg"]), np.stack(want)):
+        raise AssertionError("H_agg differs from the host replay")
+    if not _finite_history(np, hist):
+        raise AssertionError("fog-scale history is not finite")
+    return float(np.stack(want).sum())
+
+
+def phase_q_sparse(torch, np, card, counters, cuda):
+    """(q1) sparse_scale at full size."""
+    from repro_torch.launch import tables as tb
+
+    keep = {}
+    for c in counters.values():
+        c.reset_launches()
+    out = tb.sparse_scale(tb.DEFAULT, cuda, keep=keep)
+    launches = {name: c.launches for name, c in counters.items()}
+    tr, hd = out["train"], out["headline"]
+    for r in out["rows"]:
+        log(f"(q1) sparse plan n={r['n']} T={r['T']}: {r['edges']} plan "
+            f"edges, {r['sparse_s']:.4f} s, tracemalloc peak "
+            f"{r['sparse_peak_bytes']} B ({r['peak_over_nn']:.4f} n²) "
+            f"[{card}]")
+    do = out["dense_oracle"]
+    log(f"(q1) n={do['n']}: sparse {do['sparse_s']:.4f} s, dense numpy "
+        f"oracle {do['dense_s']:.4f} s ({hd['plan_speedup_vs_dense']:.2f}x);"
+        f" plans identical {hd['plans_identical']}, kernel-1 plan identical"
+        f" {hd['kernel_plan_identical']}, predictions identical "
+        f"{hd['predictions_identical']} [{card}]")
+    log(f"(q1) train n={tr['n']} T={tr['T']} tau={tr['tau']}: "
+        f"{tr['samples']} samples, P {tr['max_points']}, "
+        f"{tr['train_s']:.3f} s (parts {tr['parts']}), tracemalloc peak "
+        f"{tr['train_peak_bytes']} B ({hd['train_peak_over_nn']:.4f} n²), "
+        f"max_memory_allocated {tr['device_peak_bytes']} B, final_acc "
+        f"{tr['final_acc']}, launches {launches} [{card}]")
+    if (tr["n"], tr["T"]) != (SCALE_N, SCALE_T):
+        raise AssertionError(f"trained n={tr['n']} T={tr['T']}")
+    if not (hd["plans_identical"] and hd["kernel_plan_identical"]
+            and hd["predictions_identical"]
+            and hd["no_dense_nn_materialized"]):
+        raise AssertionError(f"sparse_scale headline {hd}")
+    if launches["offload_greedy"] != 1:
+        raise AssertionError(f"{launches['offload_greedy']} Theorem-3 "
+                             "launches; the n=1024 kernel plan makes one")
+    if tr["device_peak_bytes"] >= 4 * SCALE_N ** 2:
+        raise AssertionError("the card held a float32 (n, n) array's worth")
+    h_total = _check_scale_history(np, keep, keep["hist"], tr["tau"])
+    log(f"(q1) history: active == schedule, H_agg == host replay bit for "
+        f"bit (ΣH {h_total}), agg rounds {keep['hist']['agg_round']}, "
+        f"finite [{card}]")
+    return keep
+
+
+def _segment_site(torch, np, sr, name, d, ids, S, layout, launches, flush):
+    """Kernel 2 timed at one launch site of (q), beside its plain
+    version, ``index_add_`` and its byte bound."""
+    def kernel_sum(d, ids, S):
+        return sr.segment_sum(d, ids, S, layout=layout)
+
+    idx64 = ids.long()
+
+    def library_sum(d, ids, S):
+        return torch.zeros(S, device=d.device).index_add_(0, idx64, d)
+
+    args = (d, ids, S)
+    E = d.shape[0]
+    # the function's bytes: data and ids read once, the sums written
+    # once; the kernel also reads its offsets, 4(S + 1) bytes
+    nbytes = 4 * E + 4 * E + 4 * S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, E / F32_OPS_PER_S
+    return {"site": name, "shape": {"E": int(E), "S": int(S)},
+            "launches": launches,
+            "ms": _time_ms(torch, kernel_sum, args, flush),
+            "plain_ms": _time_ms(torch, sr.segment_sum_plain, args, flush),
+            "library_ms": _time_ms(torch, library_sum, args, flush),
+            "layout_ms": _time_ms(torch, sr.segment_layout, (ids, S), flush,
+                                  reps=10),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "kernel_read_bound_ms": 1e3 * (nbytes + 4 * (S + 1))
+            / HBM_BYTES_PER_S}
+
+
+def phase_q_counts(torch, np, card, sr, keep, cuda):
+    """(q2) counts_flat through kernel 2, exactly; plan_cost on it."""
+    from repro_torch.core import movement as mv
+    from repro_torch.data import pipeline as pl
+
+    flat = keep["streams"]
+    T, n = flat.T, flat.n
+    sr.reset_launches()
+    D = pl.counts_flat(flat)
+    launches = sr.launches
+    key = flat.cell_key()
+    want = np.bincount(key, minlength=T * n).reshape(T, n)
+    ids = torch.from_numpy(key.astype(np.int32)).to(cuda)
+    ones = torch.ones(key.shape[0], device=cuda)
+    plain = sr.segment_sum_plain(ones, ids, T * n).cpu().numpy()
+    ok = {"launches == 1": launches == 1,
+          "== np.bincount": np.array_equal(D, want.astype(np.float64)),
+          "== plain": np.array_equal(D, plain.astype(np.float64)
+                                     .reshape(T, n)),
+          "float64 (T, n)": D.dtype == np.float64 and D.shape == (T, n)}
+    cost = mv.plan_cost(keep["plan"], keep["costs"], D)
+    cost_cpu = mv.plan_cost(keep["plan"], keep["costs"],
+                            pl.counts_flat(flat, "cpu"))
+    worst = max(abs(cost[k] - cost_cpu[k]) / max(abs(cost_cpu[k]), 1e-300)
+                for k in cost)
+    ok["plan_cost within 1e-12"] = worst <= 1e-12
+    site = _segment_site(torch, np, sr, "counts_flat", ones, ids, T * n,
+                         sr.segment_layout(ids, T * n), launches,
+                         flush_buffer(torch, cuda))
+    log(f"(q2) counts_flat of {key.shape[0]} samples into T·n = {T * n} "
+        f"cells: {ok}; plan_cost rel diff {worst}; unit cost "
+        f"{cost['unit']}; kernel {site['ms']} ms (bound "
+        f"{site['bound_ms']} ms by {site['bound_by']}, kernel reads "
+        f"{site['kernel_read_bound_ms']} ms), plain {site['plain_ms']} ms, "
+        f"index_add_ {site['library_ms']} ms, layout build "
+        f"{site['layout_ms']} ms [{card}]")
+    if not all(ok.values()):
+        raise AssertionError(f"counts_flat on the card: {ok}")
+    return site
+
+
+def phase_q_hier(torch, np, card, counters, ops, sr, cuda):
+    """(q3) hier_scale at full size; the tier-1 w reduction bitwise its
+    plain version (on the CPU, where it adds in element order)."""
+    from repro_torch.launch import tables as tb
+
+    biggest = {}
+    real_sum = ops.segment_sum
+
+    def keep_biggest(data, segment_ids, *, num_segments, layout=None):
+        if data.shape[0] > biggest.get("E", -1):
+            biggest.update(E=data.shape[0], data=data, ids=segment_ids,
+                           S=num_segments, layout=layout)
+        return real_sum(data, segment_ids, num_segments=num_segments,
+                        layout=layout)
+
+    keep = {}
+    ops.segment_sum = keep_biggest
+    try:
+        for c in counters.values():
+            c.reset_launches()
+        out = tb.hier_scale(tb.DEFAULT, cuda, keep=keep)
+        launches = {name: c.launches for name, c in counters.items()}
+    finally:
+        ops.segment_sum = real_sum
+    tr, hd = out["train"], out["headline"]
+    lv = tr["tier_agg_level"]
+    want = sum(lv) * 3                      # H_g, w and b per tier
+    log(f"(q3) hier_scale n={tr['n']} T={tr['T']} tiers "
+        f"{out['tiers']['group_counts']} taus {out['tiers']['taus']}: P "
+        f"{tr['max_points']}, tier segments built in "
+        f"{tr['tier_segments_s']:.3f} s, hier {tr['hier_s']:.3f} s, flat "
+        f"plan {tr['flat_plan_s']:.3f} s, flat {tr['flat_s']:.3f} s, "
+        f"cross-gateway edges {hd['cross_gateway_edges']}, cross/flat "
+        f"bytes {hd['cross_over_flat']}, tracemalloc peaks "
+        f"{out['peaks_bytes']}, max_memory_allocated "
+        f"{out['device_peak_bytes']}, tier events {len(lv)} (Σlevel "
+        f"{sum(lv)}), kernel launches {launches}, expected {want} "
+        f"[{card}]")
+    if (tr["n"], tr["T"]) != (SCALE_N, SCALE_T):
+        raise AssertionError(f"trained n={tr['n']} T={tr['T']}")
+    if hd["cross_gateway_edges"] != 0 or not hd["l1_collapse_bitwise"]:
+        raise AssertionError(f"hier_scale headline {hd}")
+    if launches["segment_reduce"] != want or tr["segment_launches"] != want:
+        raise AssertionError(f"{launches['segment_reduce']} segment "
+                             f"launches, expected {want}")
+    tree = keep["tree"]
+    h_total = _check_scale_history(np, keep, keep["hist"], 5, tiers=tree)
+    _check_scale_history(np, keep, keep["hist_flat"], 5)
+    d, ids, S, layout = (biggest[k] for k in ("data", "ids", "S", "layout"))
+    got = sr.segment_sum(d, ids, S, layout=layout).cpu().numpy()
+    plain = sr.segment_sum_plain(d.cpu(), ids.cpu(), S).numpy()
+    if not _same_bits(np, got, plain):
+        raise AssertionError("tier-1 w sum != its plain version bitwise")
+    site = _segment_site(torch, np, sr, "aggregate_tier tier-1 w", d, ids,
+                         S, layout, launches["segment_reduce"],
+                         flush_buffer(torch, cuda))
+    log(f"(q3) histories: active, agg rounds, H_agg == host replay bit "
+        f"for bit (ΣH {h_total}); tier-1 w reduction (E={biggest['E']}, "
+        f"S={S}) == plain version on the CPU bit for bit; L=1 tree == flat "
+        f"scan on the card; kernel {site['ms']} ms (bound "
+        f"{site['bound_ms']} ms by {site['bound_by']}, kernel reads "
+        f"{site['kernel_read_bound_ms']} ms), plain {site['plain_ms']} ms, "
+        f"index_add_ {site['library_ms']} ms, layout build "
+        f"{site['layout_ms']} ms [{card}]")
+    return site
+
+
+def phase_q_small(np, card, cuda):
+    """(q4) the flat-stream scan and tiered engines at n=2048, T=20, on
+    the card against the CPU."""
+    from repro_torch.core import federated as F
+    from repro_torch.core import hierarchy as hr
+    from repro_torch.core import movement as mv
+    from repro_torch.core import topology as topo
+    from repro_torch.core.costs import synthetic_edge_costs
+    from repro_torch.data import pipeline as pl
+    from repro_torch.launch import tables as tb
+
+    n, T = SMALL_SCALE_N, SMALL_SCALE_T
+    data, _ = tb._scale_data()
+    src, dst = topo.random_sparse_edges(n, 8, np.random.default_rng(2))
+    sched = topo.churn_schedule_edges(n, src, dst, T, 0.05, 0.2,
+                                      np.random.default_rng(7), tau=5)
+    etr = synthetic_edge_costs(n, T, src, dst, np.random.default_rng(1))
+    plan = mv.realize_plan(mv.greedy_linear(etr, sched), sched)
+    flat = pl.poisson_streams_flat(n, T, data[1],
+                                   rng=np.random.default_rng(3),
+                                   mean_per_round=2.0)
+    cfg = F.FedConfig(n=n, T=T, tau=5, eta=0.1, model="linear", seed=0)
+    tree = hr.TierTree.balanced(n, (20, 2, 1), (5, 10, 20))
+    for label, hierarchy in (("flat scan", None), ("tiered", tree)):
+        runs = [F.run_network_aware(cfg, data, etr, None, plan,
+                                    streams=flat, schedule=sched,
+                                    hierarchy=hierarchy, device=dev)
+                for dev in (cuda, "cpu")]
+        # flat streams give processed_counts as (n,) count arrays
+        dmax, amax = _compare_histories(np, *(
+            {"history": {**h, "processed_counts": np.stack(
+                h["processed_counts"]).tolist()}, "cost": None}
+            for h in runs))
+        if hierarchy is not None:
+            for k in ("tier_agg_round", "tier_agg_level"):
+                if runs[0][k] != runs[1][k]:
+                    raise AssertionError(f"{k} differs")
+        log(f"(q4) {label} n={n} T={T} on flat streams, card vs CPU: "
+            f"agg_round, H_agg, active, processed_counts equal; max "
+            f"|device_loss diff| {dmax}, max |test_acc diff| {amax} "
+            f"[{card}]")
+
+
+
 def main() -> int:
     import torch
 
@@ -2368,6 +2673,14 @@ def main() -> int:
         phase_o_small(torch, np, card)
         phase_o_table5(np, cuda, card)
 
+    def q():
+        keep = phase_q_sparse(torch, np, card, counters, cuda)
+        sites = [phase_q_counts(torch, np, card, sr, keep, cuda)]
+        del keep
+        sites.append(phase_q_hier(torch, np, card, counters, ops, sr, cuda))
+        kernels["segment_reduce"]["sites"] = sites
+        phase_q_small(np, card, cuda)
+
     def p():
         phase_p_fog(torch, np, card, counters, state["c_train_s"])
         phase_p_tiered(torch, np, card, counters, ops, sr)
@@ -2386,7 +2699,7 @@ def main() -> int:
               ("j", j), ("k", k_), ("l", l_),
               ("m", lambda: phase_m_smoke_configs(torch, np, card, counters,
                                                   cuda)),
-              ("n", n_), ("o", o), ("p", p)]
+              ("n", n_), ("o", o), ("p", p), ("q", q)]
     failed = []
     for name, fn in phases:
         t0 = time.perf_counter()

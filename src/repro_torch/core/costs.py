@@ -9,6 +9,10 @@ so the same seed gives bitwise-equal traces:
 * ``testbed_like``  — correlated traces emulating the paper's Raspberry-Pi
   measurements: a latent "device quality" factor shared by compute and
   link speed, plus AR(1) temporal noise, scaled to [0, 1].
+
+:class:`EdgeCostTraces` holds the same traces over a static link
+support in O(T·(n+E)) memory, for device counts where (T, n, n) link
+arrays do not fit.
 """
 from __future__ import annotations
 
@@ -41,6 +45,108 @@ class CostTraces:
     @property
     def n(self) -> int:
         return self.c_node.shape[1]
+
+
+@dataclasses.dataclass
+class EdgeCostTraces:
+    """Sparse O(E) cost traces over a static link support (the sparse
+    analogue of :class:`CostTraces` for device counts where (T, n, n)
+    link arrays are unaffordable).
+
+    c_node (T, n)   per-datapoint processing cost c_i(t)
+    f_err  (T, n)   error cost weight f_i(t)
+    cap_node (T, n) node capacity C_i(t)
+    indptr (n+1,), indices (E,)  CSR of the link support, lex-sorted
+                    by (src, dst) — the same ordering
+                    ``NetworkSchedule.union_csr`` uses
+    c_link (T, E)   per-edge offload cost c_ij(t)
+    cap_link (T, E) per-edge capacity C_ij(t)
+    """
+
+    c_node: np.ndarray
+    f_err: np.ndarray
+    cap_node: np.ndarray
+    indptr: np.ndarray
+    indices: np.ndarray
+    c_link: np.ndarray
+    cap_link: np.ndarray
+
+    @property
+    def T(self) -> int:
+        return self.c_node.shape[0]
+
+    @property
+    def n(self) -> int:
+        return self.c_node.shape[1]
+
+    @property
+    def E(self) -> int:
+        return self.indices.shape[0]
+
+    @property
+    def src(self) -> np.ndarray:
+        """Expanded (E,) source array (cached)."""
+        s = getattr(self, "_src_cache", None)
+        if s is None:
+            s = np.repeat(np.arange(self.n, dtype=np.int64),
+                          np.diff(self.indptr))
+            self._src_cache = s
+        return s
+
+    def edge_ids(self, src, dst) -> np.ndarray:
+        """Positions of directed edges (src[k], dst[k]) in the support
+        (−1 where the edge is not in the support)."""
+        keys = getattr(self, "_key_cache", None)
+        if keys is None:
+            keys = self.src * np.int64(self.n) + self.indices
+            self._key_cache = keys
+        q = (np.asarray(src, np.int64) * np.int64(self.n)
+             + np.asarray(dst, np.int64))
+        pos = np.searchsorted(keys, q)
+        out = np.full(q.shape, -1, np.int64)
+        inb = pos < keys.size
+        hit = np.zeros(q.shape, bool)
+        hit[inb] = keys[pos[inb]] == q[inb]
+        out[hit] = pos[hit]
+        return out
+
+
+def edge_costs_from_dense(traces: CostTraces, src, dst) -> EdgeCostTraces:
+    """Gather dense (T, n, n) link costs onto an edge support — the
+    small-n bridge that makes sparse-vs-dense solver equivalence exact
+    (same float values, same lex edge order)."""
+    n = traces.n
+    src = np.asarray(src, np.int64).ravel()
+    dst = np.asarray(dst, np.int64).ravel()
+    keys = np.unique(src * np.int64(n) + dst)
+    s, d = keys // n, keys % n
+    indptr = np.searchsorted(s, np.arange(n + 1, dtype=np.int64))
+    return EdgeCostTraces(
+        c_node=traces.c_node, f_err=traces.f_err,
+        cap_node=traces.cap_node, indptr=indptr, indices=d,
+        c_link=traces.c_link[:, s, d],
+        cap_link=traces.cap_link[:, s, d],
+    )
+
+
+def synthetic_edge_costs(n: int, T: int, src, dst,
+                         rng: np.random.Generator, *, f_err: float = 0.7,
+                         cap: float = np.inf) -> EdgeCostTraces:
+    """Sparse analogue of :func:`synthetic_costs`: U(0,1) node costs and
+    one U(0,1) cost stream per support edge — O(T·(n+E)) memory."""
+    src = np.asarray(src, np.int64).ravel()
+    dst = np.asarray(dst, np.int64).ravel()
+    keys = np.unique(src * np.int64(n) + dst)
+    s, d = keys // n, keys % n
+    indptr = np.searchsorted(s, np.arange(n + 1, dtype=np.int64))
+    return EdgeCostTraces(
+        c_node=rng.random((T, n)),
+        f_err=np.full((T, n), f_err),
+        cap_node=np.full((T, n), cap),
+        indptr=indptr, indices=d,
+        c_link=rng.random((T, keys.size)),
+        cap_link=np.full((T, keys.size), cap),
+    )
 
 
 def _ar1(rng, T, shape, phi=0.9, sigma=0.1):

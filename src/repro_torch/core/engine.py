@@ -28,6 +28,10 @@ uploads (``_guarded_uploads``: corrupt rows selected away with
 ``torch.where``, never multiplied by a mask) and is quorum-gated. The
 scan engine can also checkpoint at window boundaries and resume bit for
 bit (``checkpoint_path``, ``resume``).
+
+The scan and hierarchical engines take the processed streams as
+per-cell lists or as a :class:`repro_torch.data.pipeline.FlatStreams`
+(T and n from the stream, staged by the flat ``stage_rounds``).
 """
 from __future__ import annotations
 
@@ -241,6 +245,13 @@ def _stage_fault_ops(faults, T: int, n: int, tau: int, device):
             torch.from_numpy(cor).to(device))
 
 
+def _dims(processed) -> tuple[int, int]:
+    """(T, n) of per-cell lists or a :class:`pipeline.FlatStreams`."""
+    if isinstance(processed, pl.FlatStreams):
+        return processed.T, processed.n
+    return len(processed), len(processed[0])
+
+
 def _fault_activity(act_all, faults):
     """The staged activity: crash outages ANDed into ``act_all``."""
     if faults is None:
@@ -258,7 +269,7 @@ class _Staged:
 
     def __init__(self, processed, act_all, x_tr, y_tr, x_te, y_te,
                  max_pts: int, device):
-        self.T, self.n = len(processed), len(processed[0])
+        self.T, self.n = _dims(processed)
         idx, yb, wts, counts = pl.stage_rounds(processed, y_tr, max_pts)
 
         def up(a, dtype=None):
@@ -382,8 +393,7 @@ def run_rounds_scan(apply_fn, params: dict, x_tr, y_tr, x_te, y_te,
     next window boundary at or after it and reports ``stopped_at``."""
     fo = None
     if faults is not None:
-        fo = _stage_fault_ops(faults, len(processed), len(processed[0]),
-                              tau, device)
+        fo = _stage_fault_ops(faults, *_dims(processed), tau, device)
     st = _Staged(processed, _fault_activity(act_all, faults), x_tr, y_tr,
                  x_te, y_te, max_pts, device)
     T, n = st.T, st.n
@@ -521,7 +531,7 @@ def run_rounds_hierarchical(apply_fn, params: dict, x_tr, y_tr, x_te,
                                processed, act_all, tau, eta, max_pts,
                                device=device, faults=faults, guard=guard,
                                quorum=quorum)
-    T, n = len(processed), len(processed[0])
+    T, n = _dims(processed)
     if n != tree.n:
         raise ValueError(f"run has n={n} devices but the tree has "
                          f"n={tree.n}")

@@ -14,8 +14,7 @@ predicted schedule to plan against, while execution, costing and
 ``movement.realize_plan`` confront the plan with the true schedule.
 
 A copy of :mod:`repro.core.estimator` with the same arithmetic, so the
-same inputs give bitwise-equal estimates. Edge cost traces (the
-edge-list plane) are not ported yet.
+same inputs give bitwise-equal estimates.
 """
 from __future__ import annotations
 
@@ -24,7 +23,7 @@ import dataclasses
 import numpy as np
 
 from repro_torch.core import schedule as _schedule_mod
-from repro_torch.core.costs import CostTraces
+from repro_torch.core.costs import CostTraces, EdgeCostTraces
 from repro_torch.core.schedule import NetworkSchedule
 
 
@@ -120,10 +119,11 @@ def window_link_rates_edges(schedule: NetworkSchedule,
     indptr, indices = sched.union_csr()
     esrc = np.repeat(np.arange(sched.n, dtype=np.int64), np.diff(indptr))
     bounds = window_bounds(sched.T, L)
+    live = sched.live_matrix()
     rates = np.zeros((len(bounds), indices.size))
     for w, (a, b) in enumerate(bounds):
-        for t in range(a, b):
-            rates[w, sched.edge_ids_at(t)] += 1.0
+        # the count of live rounds: integers, exact in float64
+        rates[w] = live[a:b].sum(0)
         rates[w] /= max(b - a, 1)
     return esrc, indices, rates
 
@@ -168,13 +168,15 @@ def predict_schedule(observed: NetworkSchedule, L: int = DEFAULT_WINDOWS,
         a, b = bounds[w]
         active[a:b] = act_rates[w - 1] >= cut
     if observed.storage == "edgelist":
+        # window edge sets as masks over the union support (window 0:
+        # the round-0 truth, edges_at(0))
         esrc, edst, link_rates = window_link_rates_edges(observed, L)
-        edge_sets = [observed.edges_at(0)]
+        keeps = [observed.live_matrix()[0]]
         for w in range(1, len(bounds)):
-            keep = link_rates[w - 1] >= cut
-            edge_sets.append((esrc[keep], edst[keep]))
-        return NetworkSchedule.piecewise_edges(observed.n, edge_sets,
-                                               bounds, active=active)
+            keeps.append(link_rates[w - 1] >= cut)
+        return NetworkSchedule.piecewise_support(observed.n, esrc, edst,
+                                                 keeps, bounds,
+                                                 active=active)
     link_rates = window_link_rates(observed, L)
     adjs = [np.array(observed.adj_at(0), dtype=bool, copy=True)]
     for w in range(1, len(bounds)):
@@ -182,19 +184,32 @@ def predict_schedule(observed: NetworkSchedule, L: int = DEFAULT_WINDOWS,
     return NetworkSchedule.piecewise(adjs, bounds, active=active)
 
 
-def expected_cost_traces(traces: CostTraces, observed: NetworkSchedule,
+def expected_cost_traces(traces: CostTraces | EdgeCostTraces,
+                         observed: NetworkSchedule,
                          L: int = DEFAULT_WINDOWS, *,
-                         floor: float = 0.05) -> CostTraces:
+                         floor: float = 0.05
+                         ) -> CostTraces | EdgeCostTraces:
     """Availability-weighted link costs for ``mode="expected"``
     planning: within window l ≥ 1 every link's ``c_link`` is scaled by
     1 / max(previous-window availability, ``floor``), the expected cost
     per delivered datapoint under a per-window Bernoulli link model;
-    links never observed keep their cost. Dense traces only."""
-    if not isinstance(traces, CostTraces):
-        raise NotImplementedError(
-            "expected_cost_traces on edge cost traces is not ported yet "
-            "(ROADMAP.md, queue 1 item 7: the edge-list plane)")
+    links never observed keep their cost. Dense :class:`CostTraces`
+    scale (T, n, n); :class:`EdgeCostTraces` scale (T, E), the rates
+    mapped onto the trace support through ``edge_ids``."""
     bounds = window_bounds(observed.T, L)
+    if isinstance(traces, EdgeCostTraces):
+        esrc, edst, rates = window_link_rates_edges(observed, L)
+        eids = traces.edge_ids(esrc, edst)
+        hit = eids >= 0
+        c_link = np.array(traces.c_link, copy=True)
+        for w in range(1, len(bounds)):
+            scale = np.ones(traces.E)
+            r = rates[w - 1][hit]
+            scale[eids[hit]] = np.where(
+                r > 0.0, 1.0 / np.maximum(r, floor), 1.0)
+            a, b = bounds[w]
+            c_link[a:b] *= scale[None, :]
+        return dataclasses.replace(traces, c_link=c_link)
     rates = window_link_rates(observed, L)
     c_link = np.array(traces.c_link, copy=True)
     for w in range(1, len(bounds)):

@@ -51,7 +51,8 @@ _UNPORTED_ENGINES = {"batched": "queue 1 item 11 (sweep engine)",
 
 def run_network_aware(cfg: FedConfig, data, traces: CostTraces,
                       adj: np.ndarray | None, plan: mv.MovementPlan,
-                      streams: pl.FogStreams | None = None,
+                      streams: pl.FogStreams | pl.FlatStreams | None
+                      = None,
                       activity: np.ndarray | None = None,
                       engine: str = "scan",
                       schedule: NetworkSchedule | None = None,
@@ -91,6 +92,11 @@ def run_network_aware(cfg: FedConfig, data, traces: CostTraces,
     ``stop_after`` — window-boundary checkpointing of the scan engine
     (see :func:`repro_torch.core.engine.run_rounds_scan`); other
     engines refuse them.
+
+    ``streams`` may be a :class:`repro_torch.data.pipeline.FlatStreams`
+    (the sparse staging path for 10⁵ devices: masking, routing and
+    staging as array operations over the sample table); the scan and
+    hierarchical engines take it, the legacy engine refuses it.
     """
     device = resolve_device(device)
     if hierarchy is not None:
@@ -119,6 +125,10 @@ def run_network_aware(cfg: FedConfig, data, traces: CostTraces,
     if engine not in runners:
         raise ValueError(f"unknown engine {engine!r}; expected one of "
                          f"{sorted(runners)} or 'auto'")
+    if (isinstance(streams, pl.FlatStreams)
+            and engine not in ("scan", "hierarchical")):
+        raise ValueError("FlatStreams sparse staging is a scan-engine "
+                         f"feature; got engine={engine!r}")
     engine_kw = {}
     if faults is not None:
         engine_kw = dict(faults=faults, guard=guard, quorum=quorum)
@@ -161,7 +171,9 @@ def _prepare_streams(cfg: FedConfig, data, plan, streams, activity,
                      schedule, faults=None):
     """Host-side data-plane prep: default streams, schedule→activity,
     fault-outage masking, inactive-collection zeroing, movement
-    routing, pad sizing."""
+    routing, pad sizing. A :class:`FlatStreams` is masked by one gather
+    and routed by :func:`pipeline.apply_movement_flat`: nothing O(n²)
+    on the way to the engine."""
     _, y_tr, _, _ = data
     rng = np.random.default_rng(cfg.seed)
     if streams is None:
@@ -184,11 +196,22 @@ def _prepare_streams(cfg: FedConfig, data, plan, streams, activity,
         base = (np.asarray(activity, bool) if activity is not None
                 else np.ones((cfg.T, cfg.n), bool))
         activity = base & faults.activity_mask()
-    if activity is not None:
-        # inactive devices collect nothing (no-op for all-active masks)
-        for t, i in zip(*np.nonzero(~np.asarray(activity, bool))):
-            streams.collected[t][i] = np.empty(0, np.int64)
-    processed = pl.apply_movement(streams, plan, rng)
+    if isinstance(streams, pl.FlatStreams):
+        if activity is not None:
+            act = np.asarray(activity, bool)
+            keep = act[streams.t, streams.dev]
+            streams = pl.FlatStreams(t=streams.t[keep],
+                                     dev=streams.dev[keep],
+                                     idx=streams.idx[keep],
+                                     n=streams.n, T=streams.T)
+        processed = pl.apply_movement_flat(streams, plan, rng)
+    else:
+        if activity is not None:
+            # inactive devices collect nothing (no-op for all-active
+            # masks)
+            for t, i in zip(*np.nonzero(~np.asarray(activity, bool))):
+                streams.collected[t][i] = np.empty(0, np.int64)
+        processed = pl.apply_movement(streams, plan, rng)
     max_pts = pl.pad_size(processed, cfg.max_points)
     act_all = (np.asarray(activity, bool) if activity is not None
                else np.ones((cfg.T, cfg.n), bool))
@@ -198,9 +221,17 @@ def _prepare_streams(cfg: FedConfig, data, plan, streams, activity,
 def _history_base(cfg: FedConfig, y_tr, streams, processed,
                   act_all) -> dict:
     """History skeleton: rounds, Fig. 4b label-similarity diagnostics,
-    activity masks and processed counts (the engine fills the rest)."""
-    hist = {"round": list(range(cfg.T))}
+    activity masks and processed counts (the engine fills the rest).
+    On flat streams the O(n²) label similarities are ``None``: a
+    small-n figure, skipped at fog scale."""
+    hist = {"round": list(range(cfg.T)), "sim_before": None,
+            "sim_after": None}
     hist["active"] = [act_all[t].copy() for t in range(cfg.T)]
+    if isinstance(processed, pl.FlatStreams):
+        cnt = np.bincount(processed.cell_key(),
+                          minlength=cfg.T * cfg.n).reshape(cfg.T, cfg.n)
+        hist["processed_counts"] = [row for row in cnt]
+        return hist
     col_labels = [np.concatenate([y_tr[ix] for row in streams.collected
                                   for ix in [row[i]]] or [np.empty(0, int)])
                   for i in range(cfg.n)]

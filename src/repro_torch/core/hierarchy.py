@@ -11,10 +11,11 @@ composes the tiers bottom-up inside one round.
 
 :func:`intra_tier_edges` is the support the movement plane may use
 (data never crosses a gateway boundary), and :func:`tier_traffic`
-counts the parameter bytes each tier moves. Restricting the sparse
-cost plane and schedules to a tier (``restrict_traces``,
-``restrict_schedule``, ``solve_tier_movement``) needs the edge-list
-plane, which is not ported yet (ROADMAP.md, queue 1 item 7).
+counts the parameter bytes each tier moves. :func:`restrict_traces`
+and :func:`restrict_schedule` drop every edge that crosses a gateway
+boundary from the sparse cost plane and the schedule, so the edge
+solvers route data strictly within a tier; :func:`solve_tier_movement`
+is the one-call wrapper. All of it is O(n + E) numpy: no (n, n) array.
 """
 from __future__ import annotations
 
@@ -22,6 +23,10 @@ import dataclasses
 import hashlib
 
 import numpy as np
+
+from repro_torch.core import movement as mv
+from repro_torch.core.costs import EdgeCostTraces
+from repro_torch.core.schedule import NetworkSchedule
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -159,6 +164,67 @@ def intra_tier_edges(tree: TierTree, src, dst) -> np.ndarray:
     src = np.asarray(src, np.int64).ravel()
     dst = np.asarray(dst, np.int64).ravel()
     return g[src] == g[dst]
+
+
+def restrict_traces(tree: TierTree, etraces: EdgeCostTraces
+                    ) -> EdgeCostTraces:
+    """Drop every CSR column whose edge crosses a gateway boundary.
+    Node-wise streams (c_node, f_err, cap_node) pass through untouched;
+    link streams keep only intra-tier columns. O(E) — the dense (n, n)
+    cost plane is never built."""
+    keep = intra_tier_edges(tree, etraces.src, etraces.indices)
+    src_kept = etraces.src[keep]
+    indptr = np.searchsorted(src_kept, np.arange(tree.n + 1,
+                                                 dtype=np.int64))
+    return EdgeCostTraces(
+        c_node=etraces.c_node, f_err=etraces.f_err,
+        cap_node=etraces.cap_node, indptr=indptr,
+        indices=etraces.indices[keep], c_link=etraces.c_link[:, keep],
+        cap_link=etraces.cap_link[:, keep])
+
+
+def restrict_schedule(tree: TierTree, sched: NetworkSchedule
+                      ) -> NetworkSchedule:
+    """The schedule each tier's solver sees: same rounds, same activity
+    trace (churn is a device property, not a tier property), but every
+    cross-gateway link removed from both the round-0 support and the
+    event stream. Dense-mode schedules are converted with
+    ``to_edgelist()`` first (bitwise replay), so the result is always
+    an O(E) edge-list schedule."""
+    s = sched.to_edgelist()
+    base_keep = intra_tier_edges(tree, s._esrc, s._edst) & s._up0
+    src0, dst0 = s._esrc[base_keep], s._edst[base_keep]
+    events = ()
+    if s._ev_t is not None and s._ev_t.size:
+        es, ed = s._esrc[s._ev_eids], s._edst[s._ev_eids]
+        ek = intra_tier_edges(tree, es, ed)
+        events = (s._ev_t[ek], es[ek], ed[ek],
+                  np.asarray(s._ev_up, bool)[ek])
+    return NetworkSchedule.edgelist(
+        s.n, s.T, src0, dst0, events=events, active=s._active,
+        mask_inactive=s._mask, initial_active=s._initial_active)
+
+
+def solve_tier_movement(tree: TierTree, etraces: EdgeCostTraces,
+                        schedule, *, D: np.ndarray | None = None,
+                        realize: bool = True,
+                        device=None) -> mv.MovementPlan:
+    """Movement solved strictly WITHIN tiers: restrict the cost plane
+    and the schedule to intra-gateway links, run the sparse greedy
+    solver, optionally capacity-repair against ``D``, and realize the
+    plan against the (restricted) true schedule. Every edge of the
+    returned plan has both endpoints under one gateway. ``device`` is
+    where the repair's top-k runs (``cuda`` by default)."""
+    tr = restrict_traces(tree, etraces)
+    sched = (restrict_schedule(tree, schedule)
+             if isinstance(schedule, NetworkSchedule)
+             else restrict_schedule(tree, NetworkSchedule.constant(
+                 np.asarray(schedule, bool), etraces.c_node.shape[0])))
+    plan = mv.greedy_linear(tr, sched)
+    if D is not None:
+        plan = mv.repair_capacities_edges(plan, tr, sched, D,
+                                          device=device)
+    return mv.realize_plan(plan, sched) if realize else plan
 
 
 def tier_traffic(tree: TierTree, param_count: int, *,

@@ -11,12 +11,16 @@ graph support (eq. 7); node/link capacities (eq. 9).
   f_i(t)} with k = argmin_j c_ij(t)+c_j(t+1) over out-neighbours. Two
   backends: vectorized numpy (a bitwise copy of the reference's) and the
   device path through ``kernels.ops.greedy_edges_batched`` (the CUDA
-  kernel on the card).
+  kernel on the card). On :class:`EdgeCostTraces` the rule runs as
+  ``greedy_linear_edges``, an O(T·E) segment min over the link support
+  in numpy, bitwise the dense rule on the same costs.
 * ``realize_plan`` — a plan confronted with the network that happened:
   shares over links that are down, or toward receivers gone at the
   arrival round, are lost to the discard vector.
 * ``repair_capacities`` — Theorem 6's local repair of capacity
-  violations, host numpy with the reference's arithmetic order.
+  violations, host numpy with the reference's arithmetic order;
+  ``repair_capacities_edges`` streams edge dicts and tries each
+  spill's next-best neighbours (``kernels.ops.topk_neighbors``) first.
 * ``solve_convex`` / ``solve_convex_batched`` — the general convex
   program (Lemma 1) by a masked softmax over [s | r] and Adam, in plain
   PyTorch on the device; capacities enter as quadratic hinge penalties.
@@ -33,7 +37,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.costs import CostTraces
+from repro_torch.core.costs import CostTraces, EdgeCostTraces
 from repro_torch.core.schedule import as_schedule
 from repro_torch.device import resolve_device
 
@@ -238,8 +242,11 @@ def greedy_linear(traces: CostTraces, adj, *, backend: str = "auto",
     "cuda" (the device path in float32 on ``device``: the CUDA kernel on
     a card, its plain PyTorch version with ``device="cpu"``), or "auto"
     (the device path when ``device`` is CUDA and n ≥ KERNEL_MIN_N, numpy
-    otherwise). ``device`` defaults to ``cuda``.
+    otherwise). ``device`` defaults to ``cuda``. :class:`EdgeCostTraces`
+    go to :func:`greedy_linear_edges` (numpy, whatever the backend).
     """
+    if isinstance(traces, EdgeCostTraces):
+        return greedy_linear_edges(traces, adj)
     T, n = traces.c_node.shape
     sched = as_schedule(adj, T)
     if backend == "auto":
@@ -278,6 +285,92 @@ def greedy_linear(traces: CostTraces, adj, *, backend: str = "auto",
         off_cost[t] = buf[dg, k[t]]
     choice = np.argmin(
         np.stack([traces.c_node, off_cost, traces.f_err]), axis=0)
+    return _plan_from_choice(choice, k)
+
+
+def _support_live(etraces: EdgeCostTraces, sched) -> np.ndarray:
+    """(T, E) liveness of the cost-support edges under the schedule —
+    the sparse replacement for per-round dense adjacency rows. O(T·E)
+    bool; edge-list schedules never touch a dense view, dense-mode
+    schedules fall back to ``adj_at`` gathers (small-n equivalence)."""
+    T, n = etraces.c_node.shape
+    live = np.zeros((T, etraces.E), bool)
+    if getattr(sched, "storage", None) == "edgelist":
+        iu, idx = sched.union_csr()
+        if np.array_equal(iu, etraces.indptr) and \
+                np.array_equal(idx, etraces.indices):
+            return sched.live_matrix().copy()  # the same support
+        usrc = np.repeat(np.arange(n, dtype=np.int64), np.diff(iu))
+        umap = etraces.edge_ids(usrc, idx)   # union eid -> support eid
+        on = umap >= 0
+        live[:, umap[on]] = sched.live_matrix()[:, on]
+    else:
+        esrc = etraces.src
+        for t in range(T):
+            a = np.asarray(sched.adj_at(t), bool)
+            live[t] = a[esrc, etraces.indices]
+    return live
+
+
+def _segment_min_csr(eff: np.ndarray, indptr: np.ndarray,
+                     esrc: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """First-occurrence segment min over CSR rows: per-row minimum of
+    ``eff`` and the edge id achieving it (−1 for rows with no finite
+    entry). First-min tie-breaking in lex (dst) order — exactly
+    ``argmin`` over a dense row restricted to the support."""
+    n = indptr.shape[0] - 1
+    E = eff.shape[0]
+    rowmin = np.full(n, np.inf)
+    rowarg = np.full(n, -1, np.int64)
+    if E == 0:
+        return rowmin, rowarg
+    starts = np.minimum(indptr[:-1], E - 1)
+    mins = np.minimum.reduceat(eff, starts)
+    nonempty = indptr[:-1] < indptr[1:]
+    rowmin[nonempty] = mins[nonempty]
+    finite = np.isfinite(rowmin)
+    # first edge per row attaining the min: candidates ascend, and a
+    # finite row holds one, so it is the first candidate at or after
+    # the row's start (the reference's np.unique over their rows)
+    cand = np.nonzero(np.isfinite(eff) & (eff == rowmin[esrc]))[0]
+    at = np.searchsorted(cand, indptr[:-1][finite])
+    rowarg[finite] = cand[at]
+    rowmin[~finite] = np.inf
+    return rowmin, rowarg
+
+
+def greedy_linear_edges(etraces: EdgeCostTraces, adj) -> MovementPlan:
+    """Theorem 3 greedy on the sparse edge support — O(T·E) end to end.
+
+    The per-round candidate reduction is a first-occurrence segment min
+    over the support CSR instead of a dense (n, n) argmin, so the plan
+    is bitwise-equal to ``greedy_linear`` on the gathered dense costs
+    (same float arithmetic, same lex tie-breaking) while never touching
+    an (n, n) array. Receiver-aware exactly like the dense path:
+    devices inactive at the arrival round t+1 leave round t's candidate
+    set."""
+    T, n = etraces.c_node.shape
+    sched = as_schedule(adj, T)
+    indices, indptr, esrc = etraces.indices, etraces.indptr, etraces.src
+    act = sched.activity()
+    recv = act[1:] if not act.all() else None
+    notself = esrc != indices
+    live_all = _support_live(etraces, sched)
+    c_next = np.concatenate([etraces.c_node[1:], etraces.c_node[-1:]])
+    k = np.zeros((T, n), np.int64)
+    off_cost = np.full((T, n), np.inf)   # T-1: no off-horizon offloading
+    eff = np.empty(etraces.E)
+    dead = ~(live_all[:T - 1] & notself)
+    if recv is not None:                 # receiver gone at arrival t+1
+        dead |= ~recv[:, indices]
+    for t in range(T - 1):
+        np.add(etraces.c_link[t], c_next[t][indices], out=eff)
+        np.putmask(eff, dead[t], np.inf)
+        rowmin, rowarg = _segment_min_csr(eff, indptr, esrc)
+        off_cost[t] = rowmin
+        k[t] = np.where(rowarg >= 0, indices[np.maximum(rowarg, 0)], 0)
+    choice = np.argmin(
+        np.stack([etraces.c_node, off_cost, etraces.f_err]), axis=0)
     return _plan_from_choice(choice, k)
 
 
@@ -544,6 +637,176 @@ def repair_capacities_loop(plan: MovementPlan, traces: CostTraces,
     return MovementPlan(s=s, r=r)
 
 
+def repair_capacities_edges(plan: MovementPlan,
+                            traces: CostTraces | EdgeCostTraces,
+                            adj, D: np.ndarray, *, k: int = 4,
+                            device=None) -> MovementPlan:
+    """Edge-native capacity repair with next-best offload fallbacks.
+
+    Streams the sparse plan round by round as (src, dst, qty) edge
+    dicts plus O(n) aggregates — no dense per-round (n, n) scratch is
+    ever rebuilt. Violation handling differs from the Theorem-6 oracle
+    rule (:func:`repair_capacities` / ``repair_capacities_dense``) in
+    one way: when a transfer overruns a link or receiver capacity, the
+    spilled share first tries the source's next-cheapest feasible
+    neighbors — the k-best min-plus candidates from
+    ``kernels.ops.topk_neighbors`` — respecting both link and receiver
+    headroom, before falling back to the oracle's local-process /
+    discard rule. Saturated-but-connected networks therefore keep more
+    data in play instead of discarding it. Feasible plans pass through
+    bitwise unchanged. The top-k runs on ``device`` (``cuda`` by
+    default), and only at the first spill; the rest is host numpy.
+    """
+    T, n = plan.r.shape
+    sched = as_schedule(adj, T)
+    kk = max(1, min(k, n - 1))
+    sparse_costs = isinstance(traces, EdgeCostTraces)
+    topk: tuple | None = None
+
+    def _topk():
+        """k-best min-plus candidates, solved lazily on the first spill:
+        feasible plans pass through without paying the device transfer
+        or the top-k. Dense CostTraces run the batched (T,n,n)
+        solve (no asymptotic memory added); EdgeCostTraces run the CSR
+        variant on (T, E) costs + schedule liveness — no dense
+        adjacency view is ever requested, so edge-list schedules repair
+        above the dense size guard."""
+        nonlocal topk
+        if topk is None:
+            from repro_torch.kernels import ops
+
+            dev = resolve_device(device)
+            c_next = np.concatenate([traces.c_node[1:],
+                                     traces.c_node[-1:]])
+
+            def f32(a):
+                return torch.from_numpy(
+                    np.ascontiguousarray(a, np.float32)).to(dev)
+
+            if sparse_costs:
+                live = _support_live(traces, sched)
+                live &= traces.src != traces.indices
+                cc, cd = ops.topk_neighbors_csr(
+                    f32(traces.c_link), f32(c_next), traces.indptr,
+                    traces.indices, torch.from_numpy(live).to(dev), k=kk)
+            else:
+                cc, cd = ops.topk_neighbors(
+                    f32(traces.c_link), f32(c_next),
+                    torch.from_numpy(np.ascontiguousarray(
+                        sched.adj_view())).to(dev), k=kk)
+            topk = (cc.cpu().numpy(), cd.cpu().numpy())
+        return topk
+
+    diag0 = plan.diag()                  # pre-repair s_ii one round ahead
+    r = plan.r.copy()
+    arrivals = np.zeros(n)
+    ts, srcs, dsts, qtys = [], [], [], []
+    for t in range(T):
+        src, dst, qty = plan.round_edges(t)
+        share: dict[tuple[int, int], float] = {}
+        for i, j, q in zip(src, dst, qty):
+            share[(int(i), int(j))] = share.get((int(i), int(j)), 0.0) \
+                + float(q)
+        Dt = D[t]
+        cap_link_t = traces.cap_link[t]
+        if sparse_costs:
+            def _cl(i, j):
+                """Per-edge link capacity (0 for off-support pairs)."""
+                eid = traces.edge_ids([i], [j])[0]
+                return float(cap_link_t[eid]) if eid >= 0 else 0.0
+        else:
+            def _cl(i, j):
+                return cap_link_t[i, j]
+        local_next = diag0[t + 1] * D[t + 1] if t + 1 < T else None
+        inc = np.zeros(n)
+        for (i, j), q in share.items():
+            if i != j:
+                inc[j] += q * Dt[i]
+
+        def _place(i, frac):
+            """Route a spilled fraction of D_i(t): next-best neighbors
+            (link + receiver headroom), then local, then discard."""
+            if t + 1 < T:
+                cand_cost, cand = _topk()
+                for c in range(kk):
+                    if frac <= 1e-12:
+                        return
+                    cost = cand_cost[t, i, c]
+                    j2 = int(cand[t, i, c])
+                    if not np.isfinite(cost) or j2 < 0:
+                        break            # ascending order: rest invalid
+                    cur_q = share.get((i, j2), 0.0)
+                    head = min(
+                        _cl(i, j2) - cur_q * Dt[i],
+                        traces.cap_node[t + 1, j2] - local_next[j2]
+                        - inc[j2])
+                    put = min(frac, head / max(Dt[i], 1e-12))
+                    if put <= 1e-12:
+                        continue
+                    share[(i, j2)] = cur_q + put
+                    inc[j2] += put * Dt[i]
+                    frac -= put
+            if frac > 1e-12:             # oracle fallback (_revert rule)
+                cap_left = traces.cap_node[t, i] - (
+                    share.get((i, i), 0.0) * Dt[i] + arrivals[i])
+                if (traces.c_node[t, i] <= traces.f_err[t, i]
+                        and cap_left >= frac * Dt[i]):
+                    share[(i, i)] = share.get((i, i), 0.0) + frac
+                else:
+                    r[t, i] += frac
+
+        # (1) link capacities (snapshot the keys; re-read quantities —
+        # _place may have grown an edge processed later in the sweep)
+        for i, j in sorted(k_ for k_ in share if k_[0] != k_[1]):
+            q = share[(i, j)]
+            if q > 0.0 and q * Dt[i] > _cl(i, j):
+                spill = q - _cl(i, j) / max(Dt[i], 1e-12)
+                share[(i, j)] = q - spill
+                inc[j] -= spill * Dt[i]
+                _place(i, spill)
+        # (2) receiver node capacities at t+1 (arrivals processed then)
+        if t + 1 < T:
+            for j in range(n):
+                excess = inc[j] + local_next[j] - traces.cap_node[t + 1, j]
+                if excess <= 1e-9:
+                    continue
+                for i, j_ in sorted(k_ for k_ in share
+                                    if k_[1] == j and k_[0] != j):
+                    if excess <= 1e-12:
+                        break
+                    q = share[(i, j)]
+                    if q <= 0.0:
+                        continue
+                    cut = min(q * Dt[i], excess)
+                    spill = cut / max(Dt[i], 1e-12)
+                    share[(i, j)] = q - spill
+                    inc[j] -= cut
+                    excess -= cut
+                    _place(i, spill)
+        # (3) own node capacity at t for s_ii
+        for i in range(n):
+            loc = share.get((i, i), 0.0)
+            over = loc * Dt[i] + arrivals[i] - traces.cap_node[t, i]
+            if over > 1e-9:
+                cut = min(loc * Dt[i], max(over, 0.0))
+                spill = cut / max(Dt[i], 1e-12)
+                share[(i, i)] = loc - spill
+                r[t, i] += spill
+
+        arrivals[:] = 0.0                # repaired round feeds t+1
+        for (i, j), q in share.items():
+            if i != j and q > 0.0:
+                arrivals[j] += q * Dt[i]
+        items = sorted((ij, q) for ij, q in share.items() if q > 0.0)
+        ts.append(np.full(len(items), t, np.int64))
+        srcs.append(np.array([ij[0] for ij, _ in items], np.int64))
+        dsts.append(np.array([ij[1] for ij, _ in items], np.int64))
+        qtys.append(np.array([q for _, q in items], np.float64))
+    edges = PlanEdges(t=np.concatenate(ts), src=np.concatenate(srcs),
+                      dst=np.concatenate(dsts), qty=np.concatenate(qtys))
+    return MovementPlan(r=r, edges=edges, n=n)
+
+
 # ---------------------------------------------------------------------------
 # General convex solver (1/sqrt error cost, Lemma 1) on the device
 # ---------------------------------------------------------------------------
@@ -724,7 +987,8 @@ def theorem4_closed_form(c: np.ndarray, c_server: float, c_t: float,
     return np.clip(r, 0.0, 1.0), np.clip(s, 0.0, 1.0)
 
 
-def plan_cost(plan: MovementPlan, traces: CostTraces, D: np.ndarray, *,
+def plan_cost(plan: MovementPlan, traces: CostTraces | EdgeCostTraces,
+              D: np.ndarray, *,
               error_model: str = "discard", gamma: float = 1.0) -> dict:
     """Objective decomposition on the sparse plan: the transfer term and
     moved-rate reduce over realized edges only."""
@@ -733,7 +997,13 @@ def plan_cost(plan: MovementPlan, traces: CostTraces, D: np.ndarray, *,
     off = e.src != e.dst
     te, se, de, qe = e.t[off], e.src[off], e.dst[off], e.qty[off]
     proc = float(np.sum(G * traces.c_node))
-    trans = float(np.sum(qe * D[te, se] * traces.c_link[te, se, de]))
+    if isinstance(traces, EdgeCostTraces):
+        eids = traces.edge_ids(se, de)       # plan edges live on support
+        c_edge = np.where(eids >= 0,
+                          traces.c_link[te, np.maximum(eids, 0)], 0.0)
+        trans = float(np.sum(qe * D[te, se] * c_edge))
+    else:
+        trans = float(np.sum(qe * D[te, se] * traces.c_link[te, se, de]))
     if error_model == "sqrt":
         disc = float(np.sum(traces.f_err * gamma / np.sqrt(G + 1e-3)))
     elif error_model == "neg_G":

@@ -62,6 +62,14 @@ def _edge_keys(src, dst, n: int) -> np.ndarray:
             + np.asarray(dst, np.int64))
 
 
+def _unique_keys(keys: np.ndarray) -> np.ndarray:
+    """``np.unique(keys)``, without the sort when the keys are already
+    strictly increasing (edge lists cut from a lex-sorted support)."""
+    if keys.size < 2 or bool((keys[1:] > keys[:-1]).all()):
+        return keys
+    return np.unique(keys)
+
+
 @dataclasses.dataclass(frozen=True, order=True)
 class NetEvent:
     """One network change, effective from round ``t`` onward.
@@ -186,9 +194,12 @@ class NetworkSchedule:
         self._mask_buf: np.ndarray | None = None
         self._ones_row: np.ndarray | None = None
         self._events_cache: list[NetEvent] | None = None
-        # edge-replay cursor (edgelist mode)
+        # edge-replay cursor (edgelist mode); every round's liveness and
+        # the union's edge keys, kept once computed
         self._eup: np.ndarray | None = None
         self._eptr = 0
+        self._live_all: np.ndarray | None = None
+        self._ukeys: np.ndarray | None = None
 
     # -- constructors ---------------------------------------------------
 
@@ -284,7 +295,7 @@ class NetworkSchedule:
         if src.size and (src.min() < 0 or src.max() >= n
                          or dst.min() < 0 or dst.max() >= n):
             raise ValueError("edge endpoint outside [0, n)")
-        base_keys = np.unique(_edge_keys(src, dst, n))
+        base_keys = _unique_keys(_edge_keys(src, dst, n))
         arr_events = (isinstance(events, tuple) and len(events) == 4
                       and not isinstance(events[0], NetEvent))
         if arr_events:
@@ -324,32 +335,61 @@ class NetworkSchedule:
         """Sparse analogue of :meth:`piecewise`: per-window ``(src,
         dst)`` edge lists, stored as window-0 edges plus boundary link
         events derived from edge-set diffs — O(E) memory, never (n, n).
-        This is the storage of predicted schedules at scale."""
+        This is the storage of predicted schedules at scale. The sets
+        become keep masks over their sorted union (see
+        :meth:`piecewise_support`)."""
         if len(edge_sets) != len(bounds) or not bounds:
             raise ValueError(f"{len(edge_sets)} window edge sets for "
                              f"{len(bounds)} bounds")
-        T = int(bounds[-1][1])
-        prev_s, prev_d = (np.asarray(a, np.int64).ravel()
-                          for a in edge_sets[0])
-        prev_keys = np.unique(_edge_keys(prev_s, prev_d, n))
-        ev_t, ev_key, ev_up = [], [], []
-        for (a, _), (s, d) in zip(bounds[1:], edge_sets[1:]):
-            cur_keys = np.unique(_edge_keys(np.asarray(s, np.int64).ravel(),
-                                            np.asarray(d, np.int64).ravel(),
-                                            n))
-            up = np.setdiff1d(cur_keys, prev_keys, assume_unique=True)
-            down = np.setdiff1d(prev_keys, cur_keys, assume_unique=True)
+        keys = [_edge_keys(np.asarray(s, np.int64).ravel(),
+                           np.asarray(d, np.int64).ravel(), n)
+                for s, d in edge_sets]
+        support = np.unique(np.concatenate(keys))
+        keeps = [np.isin(support, k) for k in keys]
+        return cls.piecewise_support(n, support // n, support % n, keeps,
+                                     bounds, active=active)
+
+    @classmethod
+    def piecewise_support(cls, n: int, src, dst, keeps, bounds, *,
+                          active=None) -> "NetworkSchedule":
+        """:meth:`piecewise_edges` of the edge sets ``(src[k], dst[k])``
+        for each window's keep mask ``k`` over one lex-sorted support
+        ``(src, dst)`` without duplicates: window l's events are the
+        links its mask turns on (``link_up``) and off (``link_down``)
+        against window l−1's, in support order."""
+        if len(keeps) != len(bounds) or not bounds:
+            raise ValueError(f"{len(keeps)} window edge sets for "
+                             f"{len(bounds)} bounds")
+        src = np.asarray(src, np.int64)
+        dst = np.asarray(dst, np.int64)
+        if src.size and (min(src.min(), dst.min()) < 0
+                         or max(src.max(), dst.max()) >= n):
+            raise ValueError("edge endpoint outside [0, n)")
+        keeps = [np.asarray(k, bool) for k in keeps]
+        prev = keeps[0]
+        ev_t, ev_i, ev_up = [], [], []
+        for (a, _), keep in zip(bounds[1:], keeps[1:]):
+            up = np.nonzero(keep & ~prev)[0]
+            down = np.nonzero(prev & ~keep)[0]
             ev_t += [np.full(up.size, a, np.int64),
                      np.full(down.size, a, np.int64)]
-            ev_key += [up, down]
+            ev_i += [up, down]
             ev_up += [np.ones(up.size, bool), np.zeros(down.size, bool)]
-            prev_keys = cur_keys
-        t_arr = np.concatenate(ev_t) if ev_t else np.empty(0, np.int64)
-        k_arr = np.concatenate(ev_key) if ev_key else np.empty(0, np.int64)
-        u_arr = np.concatenate(ev_up) if ev_up else np.empty(0, bool)
-        return cls.edgelist(n, T, prev_s, prev_d,
-                            events=(t_arr, k_arr // n, k_arr % n, u_arr),
-                            active=active)
+            prev = keep
+        idx = np.concatenate(ev_i) if ev_i else np.empty(0, np.int64)
+        # the stored support: every link some window keeps, in support
+        # order (what edgelist() derives from the keys)
+        union = np.logical_or.reduce(keeps)
+        usrc = src[union]
+        return cls(int(bounds[-1][1]), n,
+                   edge_csr=(np.searchsorted(usrc, np.arange(n + 1)),
+                             dst[union], keeps[0][union]),
+                   edge_events=(np.concatenate(ev_t) if ev_t
+                                else np.empty(0, np.int64),
+                                src[idx], dst[idx],
+                                np.concatenate(ev_up) if ev_up
+                                else np.empty(0, bool)),
+                   active=active)
 
     def to_edgelist(self) -> "NetworkSchedule":
         """Convert any storage mode to edge-list storage with bitwise-
@@ -537,6 +577,22 @@ class NetworkSchedule:
                 return up & row[self._esrc] & row[self._edst]
         return up
 
+    def live_matrix(self) -> np.ndarray:
+        """(T, E) liveness of every union edge at every round (the
+        rows :meth:`edge_ids_at` reads), edge-list storage only;
+        computed in one forward sweep at the first call and kept
+        (T·E bytes). Read-only."""
+        if self._eindptr is None:
+            raise TypeError("live_matrix requires edge-list storage "
+                            "(see to_edgelist)")
+        if self._live_all is None:
+            live = np.empty((self.T, self._edst.size), bool)
+            for t in range(self.T):
+                live[t] = self._live_mask(t)
+            live.flags.writeable = False
+            self._live_all = live
+        return self._live_all
+
     def edges_at(self, t: int) -> tuple[np.ndarray, np.ndarray]:
         """The directed ``(src, dst)`` edge arrays of round t, lex-
         sorted by (src, dst). O(E) for edge-list schedules; dense modes
@@ -587,15 +643,22 @@ class NetworkSchedule:
         src = np.asarray(src, np.int64)
         dst = np.asarray(dst, np.int64)
         if self._eindptr is not None:
-            es, ed = self.edges_at(t)
-            if es.size == 0:
-                return np.zeros(src.shape, bool)
-            keys = _edge_keys(es, ed, self.n)
+            # look the links up in the union support, then in round t's
+            # liveness: the same answer as a search of edges_at(t)
+            if not 0 <= t < self.T:
+                raise IndexError(f"round {t} outside horizon "
+                                 f"[0, {self.T})")
+            if self._ukeys is None:
+                self._ukeys = _edge_keys(self._esrc, self._edst, self.n)
+            keys = self._ukeys
+            out = np.zeros(src.shape, bool)
+            if keys.size == 0:
+                return out
             q = _edge_keys(src, dst, self.n)
             pos = np.searchsorted(keys, q)
             inb = pos < keys.size
-            out = np.zeros(q.shape, bool)
-            out[inb] = keys[pos[inb]] == q[inb]
+            inb[inb] = keys[pos[inb]] == q[inb]
+            out[inb] = self.live_matrix()[t][pos[inb]]
             return out
         a = np.asarray(self.adj_at(t), bool)
         return a[src, dst]

@@ -6,7 +6,8 @@ server is implicit (every device reaches it for parameters, never for
 data). Dynamics: at each round, active devices exit w.p. ``p_exit`` and
 inactive devices re-enter w.p. ``p_entry`` (paper §V-E), and links flap
 down and back up. A copy of :mod:`repro.core.topology` with the same rng
-stepping; the edge-list producers are not ported yet.
+stepping. The ``_edges`` producers take ``(src, dst)`` edge arrays and
+build no (n, n) array, for device counts of 10⁵ and more.
 """
 from __future__ import annotations
 
@@ -79,6 +80,33 @@ def scale_free(n: int, m: int, rng: np.random.Generator) -> np.ndarray:
         deg[i] += len(np.atleast_1d(targets))
         deg[targets] += 1
     return adj
+
+
+def ring_lattice_edges(n: int, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """Symmetric k-regular ring lattice as ``(src, dst)`` edge arrays —
+    O(n·k) memory, never (n, n). The deterministic backbone for
+    sparse-plane benches at n=10⁵⁺."""
+    k = max(2, min(k - (k % 2), n - 1))
+    i = np.repeat(np.arange(n, dtype=np.int64), k)
+    offs = np.concatenate([np.arange(1, k // 2 + 1, dtype=np.int64),
+                           -np.arange(1, k // 2 + 1, dtype=np.int64)])
+    j = (i + np.tile(offs, n)) % n
+    keys = np.unique(i * np.int64(n) + j)
+    return keys // n, keys % n
+
+
+def random_sparse_edges(n: int, deg: int, rng: np.random.Generator
+                        ) -> tuple[np.ndarray, np.ndarray]:
+    """Symmetric random graph with expected out-degree ~``deg`` as
+    ``(src, dst)`` edge arrays — the O(E) analogue of
+    :func:`random_graph` for device counts where an (n, n) mask is
+    unaffordable. Self-loops excluded; both directions present."""
+    src = np.repeat(np.arange(n, dtype=np.int64), deg)
+    dst = (src + rng.integers(1, n, size=src.size)) % n
+    s = np.concatenate([src, dst])
+    d = np.concatenate([dst, src])
+    keys = np.unique(s * np.int64(n) + d)
+    return keys // n, keys % n
 
 
 def make_topology(kind: str, n: int, rng: np.random.Generator, *,
@@ -169,20 +197,97 @@ def link_flap_schedule(adj: np.ndarray, T: int, rng: np.random.Generator,
     return NetworkSchedule.from_events(base, T, events)
 
 
-def _edge_producers_unported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name} is not ported yet (ROADMAP.md, queue 1 item 7: the "
-        "edge-list plane)")
+def _tier_stream(rng: np.random.Generator,
+                 node_offset: int) -> np.random.Generator:
+    """Decorrelate per-tier schedule draws from ONE seed source:
+    ``node_offset == 0`` returns ``rng`` untouched (bitwise-stable flat
+    behavior), a nonzero offset consumes one draw from ``rng`` as
+    entropy and spawns an independent child stream keyed by the
+    offset. Two tiers built from the same seed with different offsets
+    therefore churn/flap DIFFERENT edges, while the same (seed,
+    offset) pair stays reproducible."""
+    if not node_offset:
+        return rng
+    seq = np.random.SeedSequence(entropy=int(rng.integers(2 ** 63)),
+                                 spawn_key=(int(node_offset),))
+    return np.random.default_rng(seq)
 
 
-def churn_schedule_edges(*args, **kwargs) -> NetworkSchedule:
-    """The edge-list churn producer (not ported yet)."""
-    raise _edge_producers_unported("churn_schedule_edges")
+def churn_schedule_edges(n: int, src, dst, T: int, p_exit: float,
+                         p_entry: float, rng: np.random.Generator, *,
+                         tau: int | None = None,
+                         node_offset: int = 0) -> NetworkSchedule:
+    """Sparse producer for node churn: identical :class:`ChurnProcess`
+    rng stepping to :func:`churn_schedule` (same seed ⇒ bitwise-equal
+    activity trace), but the topology enters as ``(src, dst)`` edge
+    arrays and the result is an edge-list schedule — no dense mask is
+    ever built, so this is the producer for n=10⁵⁺ scenarios.
+
+    ``node_offset`` — tier/subset decorrelation: per-tier schedules
+    drawn from one seed used to share the rng stream (two tiers with
+    the same seed churned IDENTICAL node patterns); pass each tier's
+    first node id (or any distinct int) to draw an independent stream
+    per tier. ``0`` preserves the historical stream bitwise."""
+    proc = ChurnProcess(n, p_exit, p_entry, _tier_stream(rng, node_offset))
+    rows = []
+    for t in range(T):
+        rows.append(proc.step())
+        if tau and (t + 1) % tau == 0:
+            proc.sync()
+    return NetworkSchedule.edgelist(n, T, src, dst, active=np.stack(rows),
+                                    mask_inactive=True,
+                                    initial_active=np.ones(n, bool))
 
 
-def link_flap_schedule_edges(*args, **kwargs) -> NetworkSchedule:
-    """The edge-list link-flap producer (not ported yet)."""
-    raise _edge_producers_unported("link_flap_schedule_edges")
+def link_flap_schedule_edges(n: int, src, dst, T: int,
+                             rng: np.random.Generator, *,
+                             p_down: float = 0.05,
+                             p_up: float = 0.5,
+                             node_offset: int = 0) -> NetworkSchedule:
+    """Sparse producer for link flap: one uniform draw per UNORDERED
+    base pair per round (O(T·E), never an (n, n) draw), both directions
+    of a pair flapping together, emitted as edge-delta link events on
+    an edge-list schedule. Seeded and deterministic; the rng stream
+    differs from the dense :func:`link_flap_schedule` (which burns an
+    (n, n) draw per round) — equivalence suites compare replay
+    semantics via ``to_edgelist``, not producer rng.
+
+    ``node_offset`` — see :func:`churn_schedule_edges`: distinct
+    offsets decorrelate per-tier flap streams drawn from one seed;
+    ``0`` preserves the historical stream bitwise."""
+    rng = _tier_stream(rng, node_offset)
+    src = np.asarray(src, np.int64).ravel()
+    dst = np.asarray(dst, np.int64).ravel()
+    keys = np.unique(src * np.int64(n) + dst)
+    es, ed = keys // n, keys % n
+    # unordered pairs + which directions each pair carries
+    pair_keys = np.unique(np.minimum(es, ed) * np.int64(n)
+                          + np.maximum(es, ed))
+    pa, pb = pair_keys // n, pair_keys % n
+    fwd = np.isin(pa * np.int64(n) + pb, keys)   # (a, b) in base
+    rev = np.isin(pb * np.int64(n) + pa, keys)   # (b, a) in base
+    up = np.ones(pair_keys.size, bool)
+    events: list[NetEvent] = []
+    for t in range(1, T):
+        r = rng.random(pair_keys.size)
+        down = up & (r < p_down)
+        back = ~up & (r < p_up)
+        for p in np.nonzero(down)[0]:
+            if fwd[p]:
+                events.append(NetEvent(t, "link_down", int(pa[p]),
+                                       int(pb[p])))
+            if rev[p]:
+                events.append(NetEvent(t, "link_down", int(pb[p]),
+                                       int(pa[p])))
+        for p in np.nonzero(back)[0]:
+            if fwd[p]:
+                events.append(NetEvent(t, "link_up", int(pa[p]),
+                                       int(pb[p])))
+            if rev[p]:
+                events.append(NetEvent(t, "link_up", int(pb[p]),
+                                       int(pa[p])))
+        up = (up & ~down) | back
+    return NetworkSchedule.edgelist(n, T, es, ed, events=events)
 
 
 def make_schedule(kind: str, adj: np.ndarray, T: int,

@@ -6,6 +6,7 @@ is no ``use_pallas`` switch and no fallback from one to the other.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import segment_reduce as sr
@@ -84,3 +85,63 @@ def ssd(xdt, a, Bm, Cm, *, chunk=128):
     (B,H,S,P), Bm/Cm (B,S,N) float32 or bfloat16, a (B,H,S) float32 ->
     y (B,H,S,P) float32."""
     return ssd_scan(xdt, a, Bm, Cm, chunk=chunk)
+
+
+def topk_neighbors(c_link, c_next, adj, *, k=2):
+    """Top-k cheapest offload targets per (t, i): masked min-plus over
+    out-neighbours of c_link (T,n,n) + c_next (T,n) under adj (T,n,n)
+    bool, returned as (costs (T,n,k'), dst (T,n,k')) in ascending cost
+    order with k' = min(k, n). Equal costs keep the lower j first (a
+    stable sort, as the reference's ``lax.top_k``; ``torch.topk`` does
+    not order ties on the card). Rows with fewer than k' live
+    neighbours are padded with (inf, -1). Plain PyTorch on the tensors'
+    device."""
+    T, n = c_next.shape
+    kk = min(k, n)
+    eye = torch.eye(n, dtype=torch.bool, device=c_next.device)
+    eff = torch.where(adj & ~eye[None], c_link + c_next[:, None, :],
+                      torch.tensor(float("inf"), device=c_next.device))
+    return _stable_topk(eff, None, kk)
+
+
+def _stable_topk(eff, cols, k):
+    """The k smallest of each last-axis row of ``eff``, lowest position
+    first among equals; their column (``cols`` gathered at the
+    position, or the position itself when ``cols`` is None) where
+    finite, -1 elsewhere."""
+    cost, pos = torch.sort(eff, dim=-1, stable=True)
+    cost, pos = cost[..., :k], pos[..., :k]
+    dst = pos if cols is None else torch.gather(cols, -1, pos)
+    return cost, torch.where(torch.isfinite(cost), dst,
+                             torch.full_like(dst, -1))
+
+
+def topk_neighbors_csr(c_link_e, c_next, indptr, indices, live, *, k=2):
+    """The O(E) form of :func:`topk_neighbors` for edge cost traces:
+    ``c_link_e`` (T, E) per-edge costs over the lex-sorted support
+    (numpy ``indptr``/``indices``), ``live`` (T, E) bool per-round edge
+    liveness; ``c_link_e``, ``c_next`` (T, n) and ``live`` are tensors
+    on one device. Returns (costs (T,n,k'), dst (T,n,k')) with k' =
+    min(k, max degree), ascending, padded with (inf, -1): the dense
+    variant's selection and tie order on the gathered costs (support
+    order is dst order). The (n, maxdeg) padded edge-id table is built
+    on the host."""
+    indptr = np.asarray(indptr)
+    deg = np.diff(indptr)
+    n = deg.shape[0]
+    E = int(indptr[-1])
+    maxdeg = max(int(deg.max()) if n else 0, 1)
+    pad = np.full((n, maxdeg), -1, np.int64)
+    slot = np.arange(maxdeg)[None, :] < deg[:, None]
+    pad[slot] = np.arange(E)
+    dev = c_link_e.device
+    pad = torch.from_numpy(pad).to(dev)
+    indices = torch.as_tensor(np.asarray(indices, np.int64)).to(dev)
+    safe = pad.clamp(min=0)
+    dstp = indices[safe]                              # (n, maxdeg)
+    eff = c_link_e[:, safe] + c_next[:, dstp]         # (T, n, maxdeg)
+    valid = (pad >= 0)[None] & live[:, safe]
+    eff = torch.where(valid, eff, torch.tensor(float("inf"), device=dev))
+    T = c_next.shape[0]
+    return _stable_topk(eff, dstp[None].expand(T, n, maxdeg),
+                        min(k, maxdeg))

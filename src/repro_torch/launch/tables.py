@@ -27,7 +27,14 @@ there). ``--only`` takes any of:
   aggregation under corrupted uploads, quorum-gated sync under heavy
   upload loss, mixed faults, and the two exactness claims (an empty
   fault schedule under the guard is the clean run bit for bit, and a
-  run resumed from a mid-horizon checkpoint is the uninterrupted one).
+  run resumed from a mid-horizon checkpoint is the uninterrupted one);
+* ``sparse_scale`` — the O(E) network plane at fog scale: edge-list
+  churn planning at n = 1024, 10,240 and 102,400 against the dense
+  oracle, then a T = 50 churn run of 102,400 devices on flat streams,
+  under a no-(n, n) guard (``--max-n`` caps n);
+* ``hier_scale`` — the same 102,400 devices under a 3-tier tree with
+  movement kept within gateways, against the flat plane, and the L = 1
+  tree bitwise the flat scan.
 
 The sweeps of figs. 5 and 6, the two dynamics studies and the fault
 study build their
@@ -42,6 +49,7 @@ import argparse
 import dataclasses
 import functools
 import json
+import math
 import os
 import tempfile
 import time
@@ -49,12 +57,18 @@ from pathlib import Path
 
 import numpy as np
 
+import torch
+
+from repro_torch.core import engine as eng
 from repro_torch.core import estimator as est
 from repro_torch.core import faults as fl
 from repro_torch.core import federated as F
+from repro_torch.core import hierarchy as hr
 from repro_torch.core import movement as mv
 from repro_torch.core import theory as th
-from repro_torch.core.costs import (synthetic_costs, testbed_like_costs,
+from repro_torch.core import topology as topo
+from repro_torch.core.costs import (CostTraces, synthetic_costs,
+                                    synthetic_edge_costs, testbed_like_costs,
                                     with_capacity)
 from repro_torch.core.schedule import NetworkSchedule
 from repro_torch.core.topology import (churn_schedule, fully_connected,
@@ -62,8 +76,10 @@ from repro_torch.core.topology import (churn_schedule, fully_connected,
                                        scale_free)
 from repro_torch.data import pipeline as pl
 from repro_torch.data.synthetic import make_image_dataset
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
+from repro_torch.kernels import segment_reduce as sr
 from repro_torch.launch.train import solve_setting
+from repro_torch.models import mnist as mm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +89,9 @@ class BenchScale:
     T: int = 40
     tau: int = 5
     eta: float = 0.1
+    # cap on the device count of sparse_scale and hier_scale (0 = their
+    # full n = 102,400)
+    max_n: int = 0
 
 
 QUICK = BenchScale(n_train=8_000, n_test=2_000, T=20, tau=5)
@@ -793,13 +812,380 @@ def fault_tolerance(scale: BenchScale, device=None) -> dict:
         "resume_bitwise": resume_bitwise}}
 
 
+# ---------------------------------------------------------------------------
+# The sparse O(E) plane at fog scale (benchmarks.run's sparse_scale and
+# hier_scale, composed from the port's functions)
+# ---------------------------------------------------------------------------
+
+SCALE_SIZES = (1024, 10_240, 102_400)
+SCALE_T_PLAN, SCALE_DEG, SCALE_T_TRAIN = 16, 8, 50
+
+
+def _scale_sizes(scale: BenchScale) -> list[int]:
+    if not scale.max_n:
+        return list(SCALE_SIZES)
+    return [n for n in SCALE_SIZES if n <= scale.max_n] or [scale.max_n]
+
+
+def _scale_data():
+    """The scale benches' random 4096/512-image dataset and the
+    generator after it (the support is drawn from it next)."""
+    rng = np.random.default_rng(0)
+    x_tr = rng.random((4096, 28, 28)).astype(np.float32)
+    y_tr = rng.integers(0, 10, 4096)
+    x_te = rng.random((512, 28, 28)).astype(np.float32)
+    y_te = rng.integers(0, 10, 512)
+    return (x_tr, y_tr, x_te, y_te), rng
+
+
+def _dense_floor(n: int) -> int:
+    """The smallest dense (n, n) numpy array: bool at fog scale,
+    float64 below 32,768 devices."""
+    return n * n * (1 if n >= 32_768 else 8)
+
+
+def _reset_peak(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _device_peak(device):
+    """``torch.cuda.max_memory_allocated`` since the last
+    :func:`_reset_peak` on a card, None on the CPU."""
+    if device.type != "cuda":
+        return None
+    return int(torch.cuda.max_memory_allocated(device))
+
+
+def _check_device_peak(tag: str, peak, n: int) -> None:
+    """The card never holds a float32 (n, n) array's worth of memory."""
+    if peak is not None and n >= 8_192:
+        assert peak < 4 * n * n, (
+            f"{tag}: the card's peak {peak} bytes >= {4 * n * n}, the "
+            f"size of a float32 (n={n})² array")
+
+
+def sparse_scale(scale: BenchScale, device=None, *,
+                 keep: dict | None = None) -> dict:
+    """The sparse O(E) network plane at fog scale: (a) edge-list churn
+    schedule, per-edge costs, the O(E) Theorem-3 rule, realization and
+    the window-rate prediction at n ∈ {1024, 10,240, 102,400} (capped
+    by ``scale.max_n``), with the dense numpy oracle at the smallest n:
+    the plans equal (and the plan of the kernel-1 backend on a card),
+    the predictions equal, the sparse path at least 5× faster; (b) a
+    T = 50 churn run at the largest n on flat streams through the scan
+    engine, under the tracemalloc guard that no numpy (n, n) array was
+    made (asserted from 8192 devices), and on a card under the guard
+    that its peak stays below a float32 (n, n) array. ``keep``, when
+    given, receives the run's schedule, costs, plan, streams and
+    history, for a caller that checks them further."""
+    import tracemalloc
+
+    device = resolve_device(device)
+    sizes = _scale_sizes(scale)
+    T_PLAN, DEG = SCALE_T_PLAN, SCALE_DEG
+
+    def sparse_plan(n, with_mem=False):
+        rng = np.random.default_rng(0)
+        src, dst = topo.random_sparse_edges(n, DEG, rng)
+        sched = topo.churn_schedule_edges(
+            n, src, dst, T_PLAN, 0.05, 0.2, np.random.default_rng(7))
+        etr = synthetic_edge_costs(n, T_PLAN, src, dst,
+                                   np.random.default_rng(1))
+        if with_mem:
+            tracemalloc.start()
+        t = time.perf_counter()
+        plan = mv.realize_plan(mv.greedy_linear(etr, sched), sched)
+        pred = est.predict_schedule(sched)
+        wall = time.perf_counter() - t
+        peak = None
+        if with_mem:
+            _, peak = tracemalloc.get_traced_memory()
+            tracemalloc.stop()
+        return plan, pred, wall, peak, (src, dst, etr)
+
+    rows = []
+    for n in sizes:
+        plan, pred, wall, peak, _ = sparse_plan(n, with_mem=True)
+        rows.append({"n": n, "T": T_PLAN, "edges": len(plan.edges),
+                     "sparse_s": wall, "sparse_peak_bytes": peak,
+                     "dense_tensor_bytes": T_PLAN * n * n * 8,
+                     "peak_over_nn": peak / (n * n)})
+
+    # the dense oracle at the smallest n: the same support, costs
+    # (per-edge streams scattered onto (T, n, n)) and churn seed
+    n0 = sizes[0]
+    plan_s, pred_s, sparse_s, _, (src, dst, etr) = sparse_plan(n0)
+    A = np.zeros((n0, n0), bool)
+    A[src, dst] = True
+    c_link = np.zeros((T_PLAN, n0, n0))
+    c_link[:, etr.src, etr.indices] = etr.c_link
+    tr = CostTraces(c_node=etr.c_node, c_link=c_link, f_err=etr.f_err,
+                    cap_node=etr.cap_node,
+                    cap_link=np.full((T_PLAN, n0, n0), np.inf))
+    sched_d = churn_schedule(A, T_PLAN, 0.05, 0.2, np.random.default_rng(7))
+    t = time.perf_counter()
+    plan_d = mv.realize_plan(mv.greedy_linear(tr, sched_d, backend="numpy"),
+                             sched_d)
+    pred_d = est.predict_schedule(sched_d)
+    dense_s = time.perf_counter() - t
+    # the device backend (kernel 1 on a card from n = 256, numpy on the
+    # CPU) plans the same network: equal plans, not timed
+    plan_k = mv.realize_plan(mv.greedy_linear(tr, sched_d, device=device),
+                             sched_d)
+    identical = bool(mv.plans_equal(plan_s, plan_d))
+    kernel_identical = bool(mv.plans_equal(plan_k, plan_d))
+    pred_match = all(
+        np.array_equal(a, b) for t_ in range(T_PLAN)
+        for a, b in zip(pred_s.edges_at(t_), pred_d.edges_at(t_)))
+    speedup = dense_s / max(sparse_s, 1e-12)
+    assert identical, "sparse plan diverged from the dense oracle"
+    assert kernel_identical, "the device backend's plan diverged from numpy"
+    assert pred_match, "sparse prediction diverged from the dense oracle"
+    assert speedup >= 5.0, (
+        f"sparse planning only {speedup:.1f}x faster than the dense "
+        f"oracle at n={n0} (acceptance floor is 5x)")
+
+    # end to end at the largest n: T = 50 churn on flat streams; the
+    # traced numpy peak would hold any (n, n) array made on the way
+    n_big, T_tr, tau = sizes[-1], SCALE_T_TRAIN, 10
+    data, rng = _scale_data()
+    src, dst = topo.random_sparse_edges(n_big, DEG, rng)
+    _reset_peak(device)
+    parts = {}
+    tracemalloc.start()
+    t = t_all = time.perf_counter()
+    sched = topo.churn_schedule_edges(
+        n_big, src, dst, T_tr, 0.05, 0.2, np.random.default_rng(7))
+    parts["schedule_s"], t = time.perf_counter() - t, time.perf_counter()
+    etr = synthetic_edge_costs(n_big, T_tr, src, dst,
+                               np.random.default_rng(1))
+    parts["costs_s"], t = time.perf_counter() - t, time.perf_counter()
+    plan = mv.realize_plan(mv.greedy_linear(etr, sched), sched)
+    parts["plan_s"], t = time.perf_counter() - t, time.perf_counter()
+    flat = pl.poisson_streams_flat(n_big, T_tr, data[1],
+                                   rng=np.random.default_rng(3),
+                                   mean_per_round=1.0)
+    parts["streams_s"], t = time.perf_counter() - t, time.perf_counter()
+    cfg = F.FedConfig(n=n_big, T=T_tr, tau=tau, eta=0.1, model="linear",
+                      seed=0)
+    hist = F.run_network_aware(cfg, data, etr, None, plan, streams=flat,
+                               schedule=sched, engine="scan", device=device)
+    synchronize(device)
+    parts["run_s"] = time.perf_counter() - t
+    train_s = time.perf_counter() - t_all
+    _, train_peak = tracemalloc.get_traced_memory()
+    tracemalloc.stop()
+    dev_peak = _device_peak(device)
+    dense_floor = _dense_floor(n_big)
+    no_dense = bool(train_peak < dense_floor)
+    if n_big >= 8_192:
+        assert no_dense, (
+            f"end-to-end peak {train_peak} bytes >= {dense_floor} — a "
+            f"dense (n={n_big})² array fits under the traced peak")
+    _check_device_peak("sparse_scale train", dev_peak, n_big)
+    if keep is not None:
+        keep.update(schedule=sched, costs=etr, plan=plan, streams=flat,
+                    hist=hist, data=data)
+    return {
+        "rows": rows,
+        "dense_oracle": {"n": n0, "dense_s": dense_s, "sparse_s": sparse_s},
+        "train": {"n": n_big, "T": T_tr, "tau": tau,
+                  "samples": int(flat.idx.shape[0]),
+                  "max_points": hist["max_points"],
+                  "train_s": train_s, "parts": parts,
+                  "train_peak_bytes": train_peak,
+                  "device_peak_bytes": dev_peak,
+                  "nn_bytes": n_big * n_big,
+                  "test_acc": hist["test_acc"],
+                  "final_acc": hist["test_acc"][-1]},
+        "headline": {
+            "n_max": sizes[-1],
+            "plan_speedup_vs_dense": speedup,
+            "plans_identical": identical,
+            "kernel_plan_identical": kernel_identical,
+            "predictions_identical": bool(pred_match),
+            "train_n": n_big,
+            "train_s": train_s,
+            "train_peak_over_nn": train_peak / (n_big * n_big),
+            "no_dense_nn_materialized": no_dense,
+            "final_acc": hist["test_acc"][-1]}}
+
+
+def hier_scale(scale: BenchScale, device=None, *,
+                keep: dict | None = None) -> dict:
+    """Tiered aggregation at fog scale: a 3-tier tree (n/100 gateways,
+    n/3200 regions, one cloud; τ = 5, 10, 20) over n = 102,400 devices
+    (capped by ``scale.max_n``) trains a T = 50 churn run on flat
+    streams, with movement solved within tier-1 gateways and eq. (4)
+    composed up the tree through the segment-reduce kernel on a card,
+    against the flat plane at the same τ_0. The tracemalloc no-(n, n)
+    guard holds at every build phase and both trainings (from 8192
+    devices), no movement edge crosses a gateway, the cross-tier bytes
+    lie below the flat plane's (from 10,240 devices), and an L = 1
+    tree is the flat scan bit for bit. The tiers' segment layouts are
+    built before the timed run (``tier_segments_s``). ``keep`` as in
+    :func:`sparse_scale`, with both histories and the tree."""
+    import tracemalloc
+
+    device = resolve_device(device)
+    n_big = min(SCALE_SIZES[-1], scale.max_n or SCALE_SIZES[-1])
+    T_tr, DEG = SCALE_T_TRAIN, SCALE_DEG
+    taus = (5, 10, 20)
+    g1, g2 = max(2, n_big // 100), max(1, n_big // 3200)
+    tree = hr.TierTree.balanced(n_big, (g1, g2, 1), taus)
+    dense_floor = _dense_floor(n_big)
+    peaks = {}
+
+    def guarded(tag, fn):
+        tracemalloc.start()
+        out = fn()
+        _, pk = tracemalloc.get_traced_memory()
+        tracemalloc.stop()
+        peaks[tag] = pk
+        if n_big >= 8_192:
+            assert pk < dense_floor, (
+                f"{tag}: peak {pk} bytes >= {dense_floor} — a dense "
+                f"(n={n_big})² array fits under the traced peak")
+        return out
+
+    data, rng = _scale_data()
+    src, dst = topo.random_sparse_edges(n_big, DEG, rng)
+    sched = guarded("tier1_schedule", lambda: topo.churn_schedule_edges(
+        n_big, src, dst, T_tr, 0.05, 0.2, np.random.default_rng(7),
+        tau=taus[0], node_offset=1))
+    etr = guarded("tier1_costs", lambda: synthetic_edge_costs(
+        n_big, T_tr, src, dst, np.random.default_rng(1)))
+    plan_h = guarded("tier1_movement", lambda: hr.solve_tier_movement(
+        tree, etr, sched, device=device))
+    e = plan_h.edges
+    off = e.src != e.dst
+    cross = int((tree.parents[0][e.src[off]]
+                 != tree.parents[0][e.dst[off]]).sum())
+    assert cross == 0, f"{cross} movement edges cross a gateway boundary"
+    anc = tree.ancestors()
+    for lv in range(2, tree.levels + 1):
+        guarded(f"tier{lv}_staging",
+                lambda lv=lv: np.bincount(
+                    anc[lv - 1], minlength=tree.group_counts[lv - 1]))
+    widths = [math.prod(shape)
+              for shape in mm.MODELS["linear"][0]().values()]
+    traffic = guarded("tier_traffic",
+                      lambda: hr.tier_traffic(tree, sum(widths)))
+    if n_big >= 10_240:
+        assert (traffic["cross_tier_bytes_per_window"]
+                < traffic["flat_bytes_per_window"]), traffic
+
+    flat = pl.poisson_streams_flat(n_big, T_tr, data[1],
+                                   rng=np.random.default_rng(3),
+                                   mean_per_round=1.0)
+    cfg = F.FedConfig(n=n_big, T=T_tr, tau=taus[0], eta=0.1,
+                      model="linear", seed=0)
+    t = time.perf_counter()
+    eng.tier_segments(tree, device, widths)
+    synchronize(device)
+    seg_s = time.perf_counter() - t
+
+    _reset_peak(device)
+    launches0 = sr.launches
+    t = time.perf_counter()
+    hist_h = guarded("train_hier", lambda: F.run_network_aware(
+        cfg, data, etr, None, plan_h, streams=flat, schedule=sched,
+        engine="scan", hierarchy=tree, device=device))
+    synchronize(device)
+    hier_s = time.perf_counter() - t
+    seg_launches = sr.launches - launches0
+    peak_h = _device_peak(device)
+    _check_device_peak("hier_scale train_hier", peak_h, n_big)
+
+    # the flat plane at the same τ_0: movement over the full support,
+    # every upload to one server each window
+    t = time.perf_counter()
+    plan_f = guarded("flat_movement", lambda: mv.realize_plan(
+        mv.greedy_linear(etr, sched), sched))
+    flat_plan_s = time.perf_counter() - t
+    _reset_peak(device)
+    t = time.perf_counter()
+    hist_f = guarded("train_flat", lambda: F.run_network_aware(
+        cfg, data, etr, None, plan_f, streams=flat, schedule=sched,
+        engine="scan", device=device))
+    synchronize(device)
+    flat_s = time.perf_counter() - t
+    peak_f = _device_peak(device)
+    _check_device_peak("hier_scale train_flat", peak_f, n_big)
+
+    l1_bitwise = l1_collapse_bitwise(data, taus[0], device)
+    assert l1_bitwise, "L=1 TierTree diverged from the flat scan"
+
+    if keep is not None:
+        keep.update(schedule=sched, costs=etr, plan=plan_h, streams=flat,
+                    hist=hist_h, hist_flat=hist_f, tree=tree, data=data)
+    peak_all = max(peaks.values())
+    return {
+        "tiers": {"group_counts": list(tree.group_counts),
+                  "taus": list(tree.taus),
+                  "widest_bucket": tree.widest_bucket,
+                  "mesh_axes": {"data": 1}},
+        "traffic": traffic,
+        "peaks_bytes": peaks,
+        "device_peak_bytes": {"train_hier": peak_h, "train_flat": peak_f},
+        "train": {"n": n_big, "T": T_tr,
+                  "samples": int(flat.idx.shape[0]),
+                  "max_points": hist_h["max_points"],
+                  "tier_segments_s": seg_s, "hier_s": hier_s,
+                  "flat_plan_s": flat_plan_s, "flat_s": flat_s,
+                  "segment_launches": seg_launches,
+                  "tier_agg_level": hist_h["tier_agg_level"],
+                  "acc_hier": hist_h["test_acc"],
+                  "acc_flat": hist_f["test_acc"]},
+        "headline": {
+            "n": n_big,
+            "levels": tree.levels,
+            "rounds_per_s_hier": T_tr / hier_s,
+            "rounds_per_s_flat": T_tr / flat_s,
+            "cross_tier_bytes_per_window":
+                traffic["cross_tier_bytes_per_window"],
+            "flat_window_bytes": traffic["flat_bytes_per_window"],
+            "cross_over_flat": traffic["cross_over_flat"],
+            "cross_gateway_edges": cross,
+            "train_peak_over_nn": peak_all / (n_big * n_big),
+            "no_dense_nn_materialized": bool(peak_all < dense_floor),
+            "l1_collapse_bitwise": bool(l1_bitwise),
+            "final_acc_hier": hist_h["test_acc"][-1],
+            "final_acc_flat": hist_f["test_acc"][-1]}}
+
+
+def l1_collapse_bitwise(data, tau: int, device) -> bool:
+    """The L = 1 claim at n = 64 under churn on flat streams: a one-tier
+    tree's history is the flat scan's bit for bit."""
+    n_s = 64
+    src, dst = topo.random_sparse_edges(n_s, 4, np.random.default_rng(2))
+    sched = topo.churn_schedule_edges(n_s, src, dst, 20, 0.1, 0.3,
+                                      np.random.default_rng(7), tau=tau)
+    flat = pl.poisson_streams_flat(n_s, 20, data[1],
+                                   rng=np.random.default_rng(3),
+                                   mean_per_round=2.0)
+    etr = synthetic_edge_costs(n_s, 20, src, dst, np.random.default_rng(1))
+    plan = mv.realize_plan(mv.greedy_linear(etr, sched), sched)
+    cfg = F.FedConfig(n=n_s, T=20, tau=tau, eta=0.1, model="linear",
+                      seed=0)
+    kw = dict(streams=flat, schedule=sched, engine="scan", device=device)
+    h1 = F.run_network_aware(cfg, data, etr, None, plan,
+                             hierarchy=hr.TierTree.balanced(n_s, (1,),
+                                                            (tau,)), **kw)
+    h0 = F.run_network_aware(cfg, data, etr, None, plan, **kw)
+    return all(np.array_equal(np.asarray(h1[k]), np.asarray(h0[k]))
+               for k in ("device_loss", "test_loss", "test_acc", "H_agg"))
+
+
 TABLES = {"table2": table2_accuracy, "table3": table3_settings,
           "table4": table4_error_costs, "table5": table5_dynamics,
           "fig5": fig5_nodes, "fig6": fig6_connectivity,
           "fig7": fig7_aggregation, "fig8": fig8_topologies,
           "fig9": fig9_exit, "fig10": fig10_entry,
           "thm5": thm5_value_of_offloading, "dynamics": network_dynamics,
-          "prediction": network_prediction, "faults": fault_tolerance}
+          "prediction": network_prediction, "faults": fault_tolerance,
+          "sparse_scale": sparse_scale, "hier_scale": hier_scale}
 
 
 def main(argv=None) -> dict:
@@ -809,6 +1195,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--quick", action="store_true",
                     help="the reference's CI scale (8,000 samples, T=20)")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--max-n", type=int, default=0,
+                    help="cap on sparse_scale's and hier_scale's n "
+                         "(0: their full 102,400)")
     ap.add_argument("--out", default=None, metavar="PATH",
                     help="also write the JSON here (never under results/)")
     args = ap.parse_args(argv)
@@ -821,7 +1210,8 @@ def main(argv=None) -> dict:
     if args.out and results in Path(args.out).resolve().parents:
         raise SystemExit(f"--out {args.out}: results/ holds the "
                          "reference's artifacts; write elsewhere")
-    scale = QUICK if args.quick else DEFAULT
+    scale = dataclasses.replace(QUICK if args.quick else DEFAULT,
+                                max_n=args.max_n)
     device = resolve_device(args.device)
     out = {"device": str(device), "scale": dataclasses.asdict(scale)}
     for name in names:

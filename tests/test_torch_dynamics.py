@@ -128,8 +128,19 @@ def test_expected_cost_traces_bitwise(kind):
     b = rest.expected_cost_traces(tr_r, want, floor=0.2)
     for f in ("c_node", "c_link", "f_err", "cap_node", "cap_link"):
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        pest.expected_cost_traces(object(), got)
+    # edge cost traces (once refused, ROADMAP queue 1 item 7) on the
+    # edge-list replay of the same schedule
+    indptr, dst = want.to_edgelist().union_csr()
+    src = np.repeat(np.arange(N), np.diff(indptr))
+    ea, eb = (m.expected_cost_traces(
+        m_c.edge_costs_from_dense(tr, src, dst), s.to_edgelist(),
+        floor=0.2)
+        for m, m_c, tr, s in ((pest, tc, tr_t, got),
+                              (rest, rc, tr_r, want)))
+    assert isinstance(ea, tc.EdgeCostTraces) and src.size
+    for f in ("c_node", "c_link", "f_err", "cap_node", "cap_link",
+              "indptr", "indices"):
+        np.testing.assert_array_equal(getattr(ea, f), getattr(eb, f))
 
 
 @pytest.mark.parametrize("kind", ["churn", "flap", "static"])

@@ -549,3 +549,90 @@ def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
     assert torch.equal(out["b"][0].view(torch.int16),
                        tree["b"][0].view(torch.int16))
     assert meta["k"] == 1
+
+
+def _flat_problem(n, T, seed=0, mean=2.0):
+    """A seeded edge-list churn problem on flat streams: (data, config
+    pieces, costs, plan, flat streams, schedule)."""
+    from repro_torch.core import federated as F
+    from repro_torch.core.costs import synthetic_edge_costs
+    from repro_torch.data import pipeline as pl
+
+    rng = np.random.default_rng(seed)
+    data = (rng.random((600, 28, 28)).astype(np.float32),
+            rng.integers(0, 10, 600),
+            rng.random((100, 28, 28)).astype(np.float32),
+            rng.integers(0, 10, 100))
+    src, dst = topology.random_sparse_edges(n, 4, rng)
+    sched = topology.churn_schedule_edges(n, src, dst, T, 0.1, 0.3,
+                                          np.random.default_rng(7), tau=4)
+    etr = synthetic_edge_costs(n, T, src, dst, np.random.default_rng(1))
+    plan = movement.realize_plan(movement.greedy_linear(etr, sched), sched)
+    flat = pl.poisson_streams_flat(n, T, data[1],
+                                   rng=np.random.default_rng(3),
+                                   mean_per_round=mean)
+    cfg = F.FedConfig(n=n, T=T, tau=4, eta=0.1, model="linear", seed=0)
+    return data, cfg, etr, plan, flat, sched
+
+
+@pytest.mark.parametrize("n,T,mean", [(64, 8, 2.0), (3000, 20, 1.0)])
+def test_counts_flat_through_the_kernel(cuda, n, T, mean):
+    from repro_torch.data import pipeline as pl
+
+    flat = _flat_problem(n, T, mean=mean)[4]
+    sr.reset_launches()
+    got = pl.counts_flat(flat)
+    assert sr.launches == 1
+    key = flat.cell_key()
+    plain = sr.segment_sum_plain(
+        torch.ones(key.shape[0], device=cuda),
+        torch.from_numpy(key.astype(np.int32)).to(cuda), T * n)
+    assert got.dtype == np.float64 and got.shape == (T, n)
+    np.testing.assert_array_equal(got, plain.cpu().numpy().reshape(T, n))
+    np.testing.assert_array_equal(
+        got, np.bincount(key, minlength=T * n).reshape(T, n))
+    np.testing.assert_array_equal(got, pl.counts_flat(flat, "cpu"))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_topk_ties_on_card_equal_cpu(cuda, seed):
+    """Integer costs make many equal sums: the card must order them as
+    the CPU does (lowest j first), dense and CSR."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator().manual_seed(seed)
+    T, n, k = 3, 300, 6
+    c_link = torch.randint(0, 3, (T, n, n), generator=g).float()
+    c_next = torch.randint(0, 3, (T, n), generator=g).float()
+    adj = torch.rand((T, n, n), generator=g) < 0.1
+    want = ops.topk_neighbors(c_link, c_next, adj, k=k)
+    got = ops.topk_neighbors(c_link.to(cuda), c_next.to(cuda),
+                             adj.to(cuda), k=k)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    src, dst = np.nonzero(adj[0].numpy() | adj[1].numpy())
+    keys = src * n + dst
+    indptr = np.searchsorted(src, np.arange(n + 1))
+    ce = c_link[:, src, dst]
+    live = torch.from_numpy(adj[:, src, dst].numpy() & (src != dst))
+    want = ops.topk_neighbors_csr(ce, c_next, indptr, dst, live, k=k)
+    got = ops.topk_neighbors_csr(ce.to(cuda), c_next.to(cuda), indptr, dst,
+                                 live.to(cuda), k=k)
+    assert keys.size and np.all(np.diff(keys) > 0)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_tiered_flat_l1_is_flat_scan_bitwise_on_card(cuda):
+    from repro_torch.core import federated as F
+    from repro_torch.core import hierarchy as hr
+
+    data, cfg, etr, plan, flat, sched = _flat_problem(64, 16)
+    kw = dict(streams=flat, schedule=sched, device=cuda)
+    h1 = F.run_network_aware(cfg, data, etr, None, plan,
+                             hierarchy=hr.TierTree.balanced(64, (1,), (4,)),
+                             **kw)
+    h0 = F.run_network_aware(cfg, data, etr, None, plan, **kw)
+    assert h1["agg_round"] == h0["agg_round"]
+    for k in ("device_loss", "test_loss", "test_acc", "H_agg"):
+        assert np.array_equal(np.asarray(h1[k]), np.asarray(h0[k])), k

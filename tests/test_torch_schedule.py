@@ -237,5 +237,19 @@ def test_make_schedule_bitwise(kind):
 @pytest.mark.parametrize("fn", [tt.churn_schedule_edges,
                                 tt.link_flap_schedule_edges])
 def test_edge_producers_name_their_roadmap_item(fn):
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        fn(N, [0], [1], T, np.random.default_rng(0))
+    """The edge-list producers, once refused (ROADMAP queue 1 item 7),
+    now draw the reference's schedules bitwise from the same seed, for
+    the flat stream (offset 0) and a tier's own stream, and leave the
+    generator where the reference leaves it."""
+    ref = getattr(rt, fn.__name__)
+    src, dst = rt.random_sparse_edges(N, 3, np.random.default_rng(5))
+    kw = ({"p_down": 0.3, "p_up": 0.4} if "flap" in fn.__name__
+          else {"tau": 3})
+    args = (() if "flap" in fn.__name__ else (0.2, 0.3))
+    for offset in (0, 2):
+        rr, rg = np.random.default_rng(0), np.random.default_rng(0)
+        want = ref(N, src, dst, T, *args, rr, node_offset=offset, **kw)
+        got = fn(N, src, dst, T, *args, rg, node_offset=offset, **kw)
+        assert got.storage == want.storage == "edgelist"
+        assert_schedules_equal(got, want)
+        assert rr.random() == rg.random()
