@@ -36,24 +36,31 @@ no result line) if any of them fails:
     the fog-scale plan on the host clock, whole and split into
     device_inputs, the kernel, and the COO epilogue with read-back and
     host packing;
-(e) the segment-reduce kernel against its references on the card:
+(e) the segment-reduce kernels against their references on the card:
     random, mostly empty, out-of-range, empty, single-segment, ragged
-    and non-finite cases; its sum bitwise equal to a sequential
+    and non-finite cases; the 1-D sum bitwise equal to a sequential
     ascending-order float32 sum (small shapes) and within γ_k·Σ|x| of a
     float64 sum (large shapes), bitwise equal from run to run; its max
-    exactly equal to the plain version; and each group's row of
+    exactly equal to the plain version; the row sum (``segment_sum_rows``)
+    bitwise a sequential float32 row sum on the host, at P % 4 of 0 to
+    3, bases off a 16-byte boundary, P = 1, w1's width, an empty group,
+    out-of-range ids, NaN and inf rows, no rows and a group of 3000
+    rows; the one huge segment timed; and each group's row of
     ``aggregate_tier`` bitwise equal to ``aggregate_edges`` over the
     group's members;
 (f) the tiered fog-scale path (the fog-scale flags plus ``--tiers
     32@5,4@10,1@20``), with every launch counter set to 0 just before
-    and read just after: both kernels must have launched, the history
-    must be finite and the tier levels [1, 2, 1, 3];
+    and read just after: both kernels must have launched, exactly one
+    H_g sum and one row sum per leaf and tier (35), the history must be
+    finite and the tier levels [1, 2, 1, 3];
 (g) the tiered defaults (cnn, n=10, T=20, ``--tiers 5@10,1@20``) once on
     the card and once on the CPU, held to each other as in (b), plus
     ``tier_agg_round`` and ``tier_agg_level`` exactly;
-(h) the segment sum timed on the tier-1 ``w1`` leaf that (f) gave it,
-    beside its plain version, the library call (``index_add_``), the
-    layout build on its own, and its least time on this card;
+(h) the row sum on the tier-1 ``w1`` leaf that (f) gave it, bitwise a
+    sequential float32 row sum on the host, then timed beside its plain
+    version, the library call (``index_add_`` of the product's rows),
+    the layout build (of the m member ids) on its own, and its least
+    times on this card in the row form and in the 1-D form;
 (i) the flash-attention and SSD-scan kernels against their plain
     versions on the card: MHA, GQA 2:1 and MQA, head_dim 16, 64, 100,
     112 and 128, lengths that are no multiple of a tile, causal or not,
@@ -150,7 +157,7 @@ no result line) if any of them fails:
     its train time beside (c)'s; (p2) the tiered fog-scale CLI under the
     same faults: exactly the clean path's segment launches
     (``sum(tier_agg_level)·(1+4)``: the quorum stays on the card), and a
-    tier-1 reduction whose rows a drop or the guard zeroed held bitwise
+    tier-1 row sum whose rows a drop or the guard zeroed held bitwise
     to the plain version; (p3) at fog scale the clean run, an empty
     FaultSchedule under the guard and quorum 0.5, and the mixed faults,
     three times in turns (their train times: the guard's cost): the
@@ -182,12 +189,14 @@ no result line) if any of them fails:
     version, and ``plan_cost`` on it within 1e-12 of the CPU's; (q3)
     ``hier_scale`` at full size, counters as in (q1): no movement edge
     across a gateway, exactly 3 segment launches per tier aggregation
-    (51), the tier-1 ``w`` reduction bitwise its plain version on the
-    CPU, histories replayed as in (q1), the L = 1 tree bitwise the flat
-    scan on the card; both new kernel-2 sites timed beside their plain
-    version, ``index_add_`` and their byte bound (the ``sites`` of the
-    segment_reduce entry); (q4) n = 2048, T = 20 flat-stream scan and
-    tiered runs on the card against the CPU, held as in (b).
+    (51), the tier-1 ``w`` row sum bitwise its plain version on the
+    CPU and its 1-D form through the generic kernel, histories replayed
+    as in (q1), the L = 1 tree bitwise the flat scan on the card; both
+    kernel-2 sites (and the 1-D form) timed beside their plain version,
+    ``index_add_`` and their byte bound (with (e)'s huge segment, the
+    ``sites`` of the segment_reduce entry); (q4) n = 2048, T = 20
+    flat-stream scan and tiered runs on the card against the CPU, held
+    as in (b).
 
 The line before the last is the JSON list of kernels; the one before it
 the card's name and power limit; the last line is the result.
@@ -629,6 +638,60 @@ def _same_bits(np, a, b):
         a[~na].view(np.int32), b[~nb].view(np.int32)))
 
 
+def _seq_rows(np, data, ids, G, scale=None):
+    """Sequential float32 row sums on the CPU: each group's rows in
+    ascending order from +0, one product (with ``scale``) and one add a
+    entry. The groups' r-th rows are added together, one vector add a
+    rank (at most one row of a group in each)."""
+    out = np.zeros((G, data.shape[1]), np.float32)
+    valid = np.nonzero((ids >= 0) & (ids < G))[0]
+    order = valid[np.argsort(ids[valid], kind="stable")]
+    g = ids[order]
+    rank = np.arange(order.shape[0]) - np.searchsorted(g, g)
+    for r in range(int(rank.max()) + 1 if order.size else 0):
+        sel = order[rank == r]
+        x = data[sel] if scale is None else data[sel] * scale[sel][:, None]
+        out[ids[sel]] = out[ids[sel]] + x
+    return out
+
+
+def _row_cases(np):
+    """(name, data (m, P) f32, ids int32, G, scale f32 or None, off): the
+    row kernel's cases of phase (e); ``off`` floats of storage before
+    the data, so its base lies off a 16-B boundary."""
+    rng = np.random.default_rng(13)
+
+    def normal(m, P):
+        return rng.standard_normal((m, P)).astype(np.float32)
+
+    def weights(m):
+        return rng.integers(0, 40, m).astype(np.float32)
+
+    cases = [(f"P={P}, base +{off}", normal(m, P), rng.integers(0, G, m),
+              G, weights(m), off)
+             for m, P, G, off in ((300, 156_800, 32, 0), (2000, 490, 20, 0),
+                                  (2000, 490, 20, 1), (2000, 10, 20, 0),
+                                  (700, 13, 7, 0), (700, 15, 7, 3),
+                                  (700, 1, 7, 0))]
+    ids = rng.integers(0, 9, 1500)
+    ids[ids == 4] = 5
+    cases.append(("an empty group, no scale", normal(1500, 202), ids, 9,
+                  None, 0))
+    cases.append(("out-of-range ids", normal(1500, 64),
+                  rng.integers(-20, 29, 1500), 9, weights(1500), 0))
+    cases.append(("one group of 3000 rows", normal(3000, 130),
+                  np.zeros(3000, np.int64), 1, weights(3000), 2))
+    data, ids = normal(1000, 2000), rng.integers(0, 10, 1000)
+    data[np.nonzero(ids == 3)[0][0]] = np.nan
+    data[np.nonzero(ids == 6)[0][-1], 17] = np.inf
+    data[np.nonzero(ids == 6)[0][0], 18] = -np.inf
+    cases.append(("NaN and inf rows", data, ids, 10, weights(1000), 0))
+    cases.append(("no rows", normal(0, 8), np.zeros(0, np.int64), 4,
+                  weights(0), 0))
+    return [(name, d, i.astype(np.int32), G, h, off)
+            for name, d, i, G, h, off in cases]
+
+
 def _segment_cases(np):
     """(name, data f32, ids int32, S): the edge cases of phase (e)."""
     rng = np.random.default_rng(12)
@@ -657,10 +720,14 @@ def _segment_cases(np):
 
 
 def phase_e_segment(torch, np, sr, eng, card, cuda):
-    """Segment-reduce kernel against its references on the card."""
+    """Segment-reduce kernels against their references on the card;
+    returns the huge segment's timing (a ``sites`` entry)."""
+    huge = None
     for name, data, ids, S in _segment_cases(np):
         d = torch.from_numpy(data).to(cuda)
         i = torch.from_numpy(ids).to(cuda)
+        if name == "one huge segment":
+            huge = (d, i, S)
         got = sr.segment_sum(d, i, S).cpu().numpy()
         again = sr.segment_sum(d, i, S).cpu().numpy()
         want = _seq_sum(np, data, ids, S)
@@ -676,6 +743,33 @@ def phase_e_segment(torch, np, sr, eng, card, cuda):
         log(f"(e) segment_reduce {name} (E={len(data)}, S={S}): {ok}")
         if not all(ok.values()):
             raise AssertionError(f"segment kernel wrong on {name}: {ok}")
+    for name, data, ids, G, scale, off in _row_cases(np):
+        m, P = data.shape
+        store = torch.empty(off + m * P, device=cuda)
+        store[off:] = torch.from_numpy(data.reshape(-1)).to(cuda)
+        d = store[off:].view(m, P)
+        i = torch.from_numpy(ids).to(cuda)
+        h = None if scale is None else torch.from_numpy(scale).to(cuda)
+        got = sr.segment_sum_rows(d, i, G, scale=h).cpu().numpy()
+        again = sr.segment_sum_rows(d, i, G, scale=h).cpu().numpy()
+        ok = {"(G, P)": got.shape == (G, P),
+              "rows == sequential sum": _same_bits(
+                  np, got, _seq_rows(np, data, ids, G, scale)),
+              "rows repeat": _same_bits(np, got, again)}
+        log(f"(e) segment_sum_rows {name} (m={m}, P={P}, G={G}): {ok}")
+        if not all(ok.values()):
+            raise AssertionError(f"row kernel wrong on {name}: {ok}")
+        del store, d
+    d, i, S = huge
+    site = _segment_site(torch, np, sr, "one huge segment (e)", d, i, S,
+                         sr.segment_layout(i, S), None,
+                         flush_buffer(torch, cuda))
+    log(f"(e) one huge segment (E={d.shape[0]} in S={S}): kernel "
+        f"{site['ms']} ms (bound {site['bound_ms']} ms by "
+        f"{site['bound_by']}; the fixed-order sum is {d.shape[0]} "
+        f"dependent adds), plain {site['plain_ms']} ms, index_add_ "
+        f"{site['library_ms']} ms, layout build {site['layout_ms']} ms "
+        f"[{card}]")
     # large shapes: within gamma_k * sum|x| of a float64 sum, and bitwise
     # repeatable
     E, S = 50_000_000, 1_000_003
@@ -726,32 +820,40 @@ def phase_e_segment(torch, np, sr, eng, card, cuda):
     if bad:
         raise AssertionError(f"aggregate_tier rows {bad} differ from "
                              "aggregate_edges")
+    return [site]
+
+
+def _keep_biggest_rows(ops, biggest):
+    """A stand-in for ``ops.segment_sum_rows`` that keeps the inputs of
+    the largest call in ``biggest`` and then makes the call."""
+    real = ops.segment_sum_rows
+
+    def keep(data, segment_ids, *, num_segments, scale=None, layout=None):
+        if data.numel() > biggest.get("numel", -1):
+            biggest.update(numel=data.numel(), data=data, ids=segment_ids,
+                           G=num_segments, scale=scale, layout=layout)
+        return real(data, segment_ids, num_segments=num_segments,
+                    scale=scale, layout=layout)
+
+    return keep
 
 
 def phase_f_tiered_fog(torch, np, card, counters, ops):
-    """The tiered fog-scale path; keeps the tier-1 w1 segment sum's
-    inputs for phase (h)."""
+    """The tiered fog-scale path; keeps the tier-1 w1 row sum's inputs
+    for phase (h)."""
     from repro_torch.launch import train
 
     biggest = {}
-    real_sum = ops.segment_sum
-
-    def keep_biggest(data, segment_ids, *, num_segments, layout=None):
-        if data.shape[0] > biggest.get("E", -1):
-            biggest.update(E=data.shape[0], data=data, ids=segment_ids,
-                           S=num_segments, layout=layout)
-        return real_sum(data, segment_ids, num_segments=num_segments,
-                        layout=layout)
-
+    real_rows = ops.segment_sum_rows
     torch.cuda.reset_peak_memory_stats()
-    ops.segment_sum = keep_biggest
+    ops.segment_sum_rows = _keep_biggest_rows(ops, biggest)
     try:
         for c in counters.values():
             c.reset_launches()
         out = train.main(TIERED_FOG_ARGV)
         launches = {name: c.launches for name, c in counters.items()}
     finally:
-        ops.segment_sum = real_sum
+        ops.segment_sum_rows = real_rows
     T = int(FOG_ARGV[FOG_ARGV.index("--T") + 1])
     tim = out["timing"]
     hist = out["history"]
@@ -765,7 +867,7 @@ def phase_f_tiered_fog(torch, np, card, counters, ops):
                if launches[k] == 0]
     if missing:
         raise AssertionError(f"tiered path launched no {missing} kernel")
-    # one H_g sum and one sum per leaf (the mlp has four), for tiers
+    # one H_g sum and one row sum per leaf (the mlp has four), for tiers
     # 1..level of each aggregation round
     want = sum(hist["tier_agg_level"]) * (1 + 4)
     if launches["segment_reduce"] != want:
@@ -797,65 +899,90 @@ def phase_g_tiered_defaults(np, card):
         f"[{card}]")
 
 
-def phase_h_segment_timing(torch, sr, biggest, launches):
-    """segment_sum on the tier-1 w1 leaf of the tiered fog-scale run."""
-    d, ids, S, layout = (biggest[k] for k in ("data", "ids", "S", "layout"))
-    layout = layout or sr.segment_layout(ids, S)
-    E = d.shape[0]
-    flush = flush_buffer(torch, "cuda")
-    got = sr.segment_sum(d, ids, S, layout=layout)
-    plain = sr.segment_sum_plain(d, ids, S)
-    diff = (got.double() - plain.double()).abs()
-    err = float(diff.max())
-    # both are float32 sums of the same k terms in two orders, each within
-    # gamma_k * sum|x| of the exact sum: they differ by at most twice that
-    k = (layout.offsets[1:] - layout.offsets[:-1]).double()
-    mag = torch.zeros(S, dtype=torch.float64, device=d.device).index_add_(
-        0, ids.long(), d.double().abs())
-    u = 2.0 ** -24
-    if bool((diff > 2 * k * u / (1 - k * u) * mag).any()):
-        raise AssertionError("segment sum and its plain version differ by "
-                             "more than 2*gamma_k*sum|x| on the w1 leaf")
+def _row_site(torch, sr, name, d, ids, G, h, layout, launches, flush):
+    """The row kernel timed at one launch site, beside its plain version
+    (the product, then ``index_add_``, on the card), ``index_add_`` of
+    the product's rows (the product made beforehand), the layout's
+    build, and two least times: the row form's (data, scale and ids
+    read once, the sums written once; a product and an add an entry)
+    and the 1-D form's (the product and its E-length ids read, the sums
+    written) with the product's own pass (data and scale read, the
+    product written) beside it."""
+    m, P = d.shape
     idx64 = ids.long()
+    prod = d * h[:, None]
 
-    def library_sum(d, ids, S):
-        return torch.zeros(S, device=d.device).index_add_(0, ids, d)
+    def kernel(d, ids, G):
+        return sr.segment_sum_rows(d, ids, G, scale=h, layout=layout)
 
-    def library_max(d, ids, S):
-        return torch.full((S,), float("-inf"), device=d.device) \
-            .scatter_reduce_(0, idx64, d, "amax")
+    def plain(d, ids, G):
+        return sr.segment_sum_rows_plain(d, ids, G, scale=h)
 
-    def kernel_sum(d, ids, S):
-        return sr.segment_sum(d, ids, S, layout=layout)
+    def library(d, ids, G):
+        return torch.zeros((G, P), device=d.device).index_add_(0, idx64,
+                                                               prod)
 
-    def kernel_max(d, ids, S):
-        return sr.segment_max(d, ids, S, layout=layout)
+    args = (d, ids, G)
+    E = m * P
+    nbytes = 4 * E + 4 * m + 4 * m + 4 * G * P
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * E / F32_OPS_PER_S
+    site = {"site": name, "shape": {"m": int(m), "P": int(P), "G": int(G)},
+            "launches": launches,
+            "ms": _time_ms(torch, kernel, args, flush),
+            "plain_ms": _time_ms(torch, plain, args, flush),
+            "library_ms": _time_ms(torch, library, args, flush),
+            "layout_ms": _time_ms(torch, sr.segment_layout, (ids, G), flush,
+                                  reps=10),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "flat_bound_ms": 1e3 * (8 * E + 4 * G * P) / HBM_BYTES_PER_S,
+            "product_pass_ms": 1e3 * (8 * E + 4 * m) / HBM_BYTES_PER_S}
+    del prod
+    return site
 
-    args = (d, ids, S)
-    ms = _time_ms(torch, kernel_sum, args, flush)
-    plain_ms = _time_ms(torch, sr.segment_sum_plain, args, flush)
-    library_ms = _time_ms(torch, library_sum, args, flush)
-    layout_ms = _time_ms(torch, sr.segment_layout, (ids, S), flush, reps=10)
-    max_ms = _time_ms(torch, kernel_max, args, flush)
-    max_plain_ms = _time_ms(torch, sr.segment_max_plain, args, flush)
-    max_library_ms = _time_ms(torch, library_max, args, flush)
-    if not torch.equal(kernel_max(*args), sr.segment_max_plain(*args)):
-        raise AssertionError("segment max != plain on the w1 leaf")
-    # least work: each float and each int32 id read once, each sum written
-    nbytes = 4 * E + 4 * E + 4 * S
-    ops_ = E                                  # one add per element
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / F32_OPS_PER_S
+
+def phase_h_segment_timing(torch, np, sr, biggest, launches):
+    """The row kernel on the tier-1 w1 leaf of the tiered fog-scale run:
+    bitwise a sequential float32 replay on the host, then timed."""
+    d, ids, G, h, layout = (biggest[k]
+                            for k in ("data", "ids", "G", "scale", "layout"))
+    got = sr.segment_sum_rows(d, ids, G, scale=h, layout=layout)
+    got = got.cpu().numpy()
+    want = _seq_rows(np, d.cpu().numpy(), ids.cpu().numpy(), G,
+                     h.cpu().numpy())
+    if not _same_bits(np, got, want):
+        raise AssertionError("row kernel != the sequential row sum on the "
+                             "w1 leaf")
+    site = _row_site(torch, sr, "aggregate_tier tier-1 w1", d, ids, G, h,
+                     layout, launches["segment_reduce"],
+                     flush_buffer(torch, "cuda"))
     return {"name": "segment_reduce", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
             "replaces": "src/repro/kernels/segment_reduce.py:78",
-            "launches": launches["segment_reduce"], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
-            "layout_ms": layout_ms, "max_ms": max_ms,
-            "max_plain_ms": max_plain_ms, "max_library_ms": max_library_ms,
-            "shape": {"E": E, "S": S}}
+            "launches": launches["segment_reduce"],
+            "max_abs_err": float(np.abs(got.astype(np.float64)
+                                        - want).max()),
+            **{k: site[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "layout_ms",
+                                    "flat_bound_ms", "product_pass_ms",
+                                    "shape")}}
+
+
+# bounds computed beside bound_ms for the log lines and PERF.md; the
+# kernels line carries only bound_ms and measured numbers
+DERIVED_BOUNDS = ("flat_bound_ms", "product_pass_ms", "kernel_read_bound_ms")
+
+
+def kernels_line_entry(k):
+    """A kernels-line entry without the derived bounds, in it and in its
+    ``sites``."""
+    def strip(d):
+        return {key: v for key, v in d.items() if key not in DERIVED_BOUNDS}
+
+    entry = strip(k)
+    if "sites" in entry:
+        entry["sites"] = [strip(site) for site in entry["sites"]]
+    return entry
 
 
 # zamba2-7b serving: the prefill shape, the correctness shape, the serve
@@ -2026,22 +2153,24 @@ def phase_p_tiered(torch, np, card, counters, ops, sr):
     args = train.parse_args(argv)
     P_w2 = 200 * 10                      # the mlp's w2 leaf
     kept = []
-    real_sum = ops.segment_sum
+    real_rows = ops.segment_sum_rows
 
-    def keep_tier1_w2(data, segment_ids, *, num_segments, layout=None):
-        if data.shape[0] == args.n * P_w2:
-            kept.append((data.clone(), segment_ids, num_segments, layout))
-        return real_sum(data, segment_ids, num_segments=num_segments,
-                        layout=layout)
+    def keep_tier1_w2(data, segment_ids, *, num_segments, scale=None,
+                      layout=None):
+        if tuple(data.shape) == (args.n, P_w2):
+            kept.append((data.clone(), segment_ids, num_segments,
+                         scale.clone(), layout))
+        return real_rows(data, segment_ids, num_segments=num_segments,
+                         scale=scale, layout=layout)
 
-    ops.segment_sum = keep_tier1_w2
+    ops.segment_sum_rows = keep_tier1_w2
     try:
         for c in counters.values():
             c.reset_launches()
         out = train.main(argv)
         launches = {name: c.launches for name, c in counters.items()}
     finally:
-        ops.segment_sum = real_sum
+        ops.segment_sum_rows = real_rows
     hist = out["history"]
     want = sum(hist["tier_agg_level"]) * (1 + 4)
     log(f"(p2) tiered fog scale under the same faults: train "
@@ -2061,25 +2190,28 @@ def phase_p_tiered(torch, np, card, counters, ops, sr):
                               rate=args.fault_rate, seed=args.seed + 7919,
                               corrupt=args.corrupt_mode).engine_arrays()
     hit = None
-    for t, (data, ids, S, layout) in zip(hist["tier_agg_round"], kept):
+    for t, (data, ids, G, h, layout) in zip(hist["tier_agg_round"], kept):
         bad = np.nonzero((upl[t] == 0) | ~np.isfinite(cor[t]))[0]
-        rows = data.reshape(args.n, P_w2)[torch.from_numpy(bad).to(
-            data.device)]
+        sel = torch.from_numpy(bad).to(data.device)
+        # what a row adds, its parameters times its weight: zero where a
+        # drop took the weight or the guard the parameters
+        rows = data[sel] * h[sel][:, None]
         if len(bad) and bool((rows == 0).all()):
-            hit = (t, bad, data, ids, S, layout)
+            hit = (t, bad, data, ids, G, h, layout)
             break
     if hit is None:
         raise AssertionError("no tier-1 reduction with fault-zeroed rows")
-    t, bad, data, ids, S, layout = hit
-    # the plain version on the CPU adds each segment's elements in
-    # ascending order, one at a time from +0: the kernel's order (on the
-    # card its index_add_ adds by atomics, in no fixed order)
-    got = sr.segment_sum(data, ids, S, layout=layout).cpu()
-    plain = sr.segment_sum_plain(data.cpu(), ids.cpu(), S)
+    t, bad, data, ids, G, h, layout = hit
+    # the plain version on the CPU adds each group's rows in ascending
+    # order, one at a time from +0: the kernel's order (on the card its
+    # index_add_ adds by atomics, in no fixed order)
+    got = sr.segment_sum_rows(data, ids, G, scale=h, layout=layout).cpu()
+    plain = sr.segment_sum_rows_plain(data.cpu(), ids.cpu(), G,
+                                      scale=h.cpu())
     if not torch.equal(got, plain):
-        raise AssertionError("segment kernel != plain on the guarded rows")
-    log(f"(p2) tier-1 w2 reduction of round {t} (E={data.shape[0]}, "
-        f"S={S}; rows of devices {bad.tolist()[:8]}"
+        raise AssertionError("row kernel != plain on the guarded rows")
+    log(f"(p2) tier-1 w2 row sum of round {t} (m={data.shape[0]}, "
+        f"P={data.shape[1]}, G={G}; rows of devices {bad.tolist()[:8]}"
         f"{'...' if len(bad) > 8 else ''} ({len(bad)}) zeroed by a drop or "
         f"the guard): kernel == plain (on the CPU) bitwise [{card}]")
 
@@ -2453,29 +2585,23 @@ def phase_q_counts(torch, np, card, sr, keep, cuda):
 
 
 def phase_q_hier(torch, np, card, counters, ops, sr, cuda):
-    """(q3) hier_scale at full size; the tier-1 w reduction bitwise its
-    plain version (on the CPU, where it adds in element order)."""
+    """(q3) hier_scale at full size; the tier-1 w row sum bitwise its
+    plain version (on the CPU, where it adds in row order) and the 1-D
+    form of the same sum through the generic kernel; returns both
+    timings (``sites`` entries)."""
     from repro_torch.launch import tables as tb
 
     biggest = {}
-    real_sum = ops.segment_sum
-
-    def keep_biggest(data, segment_ids, *, num_segments, layout=None):
-        if data.shape[0] > biggest.get("E", -1):
-            biggest.update(E=data.shape[0], data=data, ids=segment_ids,
-                           S=num_segments, layout=layout)
-        return real_sum(data, segment_ids, num_segments=num_segments,
-                        layout=layout)
-
+    real_rows = ops.segment_sum_rows
     keep = {}
-    ops.segment_sum = keep_biggest
+    ops.segment_sum_rows = _keep_biggest_rows(ops, biggest)
     try:
         for c in counters.values():
             c.reset_launches()
         out = tb.hier_scale(tb.DEFAULT, cuda, keep=keep)
         launches = {name: c.launches for name, c in counters.items()}
     finally:
-        ops.segment_sum = real_sum
+        ops.segment_sum_rows = real_rows
     tr, hd = out["train"], out["headline"]
     lv = tr["tier_agg_level"]
     want = sum(lv) * 3                      # H_g, w and b per tier
@@ -2500,23 +2626,41 @@ def phase_q_hier(torch, np, card, counters, ops, sr, cuda):
     tree = keep["tree"]
     h_total = _check_scale_history(np, keep, keep["hist"], 5, tiers=tree)
     _check_scale_history(np, keep, keep["hist_flat"], 5)
-    d, ids, S, layout = (biggest[k] for k in ("data", "ids", "S", "layout"))
-    got = sr.segment_sum(d, ids, S, layout=layout).cpu().numpy()
-    plain = sr.segment_sum_plain(d.cpu(), ids.cpu(), S).numpy()
-    if not _same_bits(np, got, plain):
-        raise AssertionError("tier-1 w sum != its plain version bitwise")
-    site = _segment_site(torch, np, sr, "aggregate_tier tier-1 w", d, ids,
-                         S, layout, launches["segment_reduce"],
-                         flush_buffer(torch, cuda))
+    d, ids, G, h, layout = (biggest[k]
+                            for k in ("data", "ids", "G", "scale", "layout"))
+    m, P = d.shape
+    got = sr.segment_sum_rows(d, ids, G, scale=h, layout=layout)
+    plain = sr.segment_sum_rows_plain(d.cpu(), ids.cpu(), G, scale=h.cpu())
+    if not _same_bits(np, got.cpu().numpy(), plain.numpy()):
+        raise AssertionError("tier-1 w row sum != its plain version bitwise")
+    flush = flush_buffer(torch, cuda)
+    rows = _row_site(torch, sr, "aggregate_tier tier-1 w", d, ids, G, h,
+                     layout, launches["segment_reduce"], flush)
+    # the same sum in its 1-D form (the product over the ids g·P + p)
+    # through the generic kernel: bitwise the row form
+    flat = (d * h[:, None]).reshape(-1)
+    fids = (ids[:, None] * P + torch.arange(
+        P, dtype=torch.int32, device=cuda)[None]).reshape(-1)
+    flay = sr.segment_layout(fids, G * P)
+    fgot = sr.segment_sum(flat, fids, G * P, layout=flay)
+    if not torch.equal(fgot.view(torch.int32),
+                       got.reshape(-1).view(torch.int32)):
+        raise AssertionError("tier-1 w: the 1-D form != the row form")
+    one_d = _segment_site(torch, np, sr, "aggregate_tier tier-1 w, 1-D form",
+                          flat, fids, G * P, flay, None, flush)
+    del flat, fids, flay
     log(f"(q3) histories: active, agg rounds, H_agg == host replay bit "
-        f"for bit (ΣH {h_total}); tier-1 w reduction (E={biggest['E']}, "
-        f"S={S}) == plain version on the CPU bit for bit; L=1 tree == flat "
-        f"scan on the card; kernel {site['ms']} ms (bound "
-        f"{site['bound_ms']} ms by {site['bound_by']}, kernel reads "
-        f"{site['kernel_read_bound_ms']} ms), plain {site['plain_ms']} ms, "
-        f"index_add_ {site['library_ms']} ms, layout build "
-        f"{site['layout_ms']} ms [{card}]")
-    return site
+        f"for bit (ΣH {h_total}); tier-1 w row sum (m={m}, P={P}, G={G}) "
+        f"== plain version on the CPU bit for bit and == its 1-D form "
+        f"through the generic kernel; L=1 tree == flat scan on the card; "
+        f"row kernel {rows['ms']} ms (bound {rows['bound_ms']} ms by "
+        f"{rows['bound_by']}; 1-D form {rows['flat_bound_ms']} ms + the "
+        f"product's pass {rows['product_pass_ms']} ms), plain "
+        f"{rows['plain_ms']} ms, index_add_ {rows['library_ms']} ms, "
+        f"layout build {rows['layout_ms']} ms; 1-D form through the "
+        f"generic kernel {one_d['ms']} ms (E={one_d['shape']['E']}, "
+        f"layout build {one_d['layout_ms']} ms) [{card}]")
+    return [rows, one_d]
 
 
 def phase_q_small(np, card, cuda):
@@ -2622,16 +2766,15 @@ def main() -> int:
     def h():
         launches, biggest = state.pop("f")
         k = kernels["segment_reduce"] = phase_h_segment_timing(
-            torch, sr, biggest, launches)
-        log(f"(h) {k['name']} sum on the tier-1 w1 leaf {k['shape']}: "
+            torch, np, sr, biggest, launches)
+        log(f"(h) {k['name']} row sum on the tier-1 w1 leaf {k['shape']}: "
             f"kernel {k['ms']} ms, least time {k['bound_ms']} ms (bound by "
-            f"{k['bound_by']}), plain version {k['plain_ms']} ms, library "
-            f"index_add_ {k['library_ms']} ms, layout build "
-            f"{k['layout_ms']} ms; max: kernel {k['max_ms']} ms, plain "
-            f"{k['max_plain_ms']} ms, library scatter_reduce_ amax "
-            f"{k['max_library_ms']} ms; launches on the tiered path "
-            f"{k['launches']}, max abs err vs plain {k['max_abs_err']} "
-            f"[{card}]")
+            f"{k['bound_by']}; the 1-D form's {k['flat_bound_ms']} ms + "
+            f"the product's pass {k['product_pass_ms']} ms), plain version "
+            f"{k['plain_ms']} ms, library index_add_ of the product "
+            f"{k['library_ms']} ms, layout build (m ids) {k['layout_ms']} "
+            f"ms; launches on the tiered path {k['launches']}, max abs err "
+            f"vs the sequential sum {k['max_abs_err']} [{card}]")
 
     def j():
         state["j"] = phase_j_serve(torch, np, card, counters, ops, cuda)
@@ -2673,12 +2816,15 @@ def main() -> int:
         phase_o_small(torch, np, card)
         phase_o_table5(np, cuda, card)
 
+    def e():
+        state["e_sites"] = phase_e_segment(torch, np, sr, eng, card, cuda)
+
     def q():
         keep = phase_q_sparse(torch, np, card, counters, cuda)
         sites = [phase_q_counts(torch, np, card, sr, keep, cuda)]
         del keep
-        sites.append(phase_q_hier(torch, np, card, counters, ops, sr, cuda))
-        kernels["segment_reduce"]["sites"] = sites
+        sites += phase_q_hier(torch, np, card, counters, ops, sr, cuda)
+        kernels["segment_reduce"]["sites"] = state.pop("e_sites") + sites
         phase_q_small(np, card, cuda)
 
     def p():
@@ -2692,7 +2838,7 @@ def main() -> int:
     phases = [("a", lambda: phase_a_kernels(torch, og, cuda)),
               ("b", lambda: phase_b_defaults(torch, np, card, counters, cuda)),
               ("c", c), ("d", d),
-              ("e", lambda: phase_e_segment(torch, np, sr, eng, card, cuda)),
+              ("e", e),
               ("f", f), ("g", lambda: phase_g_tiered_defaults(np, card)),
               ("h", h),
               ("i", lambda: phase_i_new_kernels(torch, fa, sd, cuda)),
@@ -2713,7 +2859,8 @@ def main() -> int:
     if failed:
         print(f"chip_smoke: phases failed: {failed}", file=sys.stderr)
         return 1
-    log(json.dumps({"kernels": [kernels[k] for k in counters]}))
+    log(json.dumps({"kernels": [kernels_line_entry(kernels[k])
+                                for k in counters]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -118,39 +118,27 @@ def aggregate_edges(W: dict, H, device_ids, prev_global: dict | None):
 
 
 class TierSegments:
-    """The segment ids of one tier's reductions: the (m,) member→group
-    ids for the group weights H_g, and ``g·P + p`` over the (m, P)
-    stack for a leaf of P parameters. On the card each comes with the
-    kernel's layout. Built at first use and kept, so a run builds each
-    (tier, leaf width) once."""
+    """One tier's member→group map: the (m,) int32 group ids and, on the
+    card, the kernels' layout of them (:func:`segment_reduce.
+    segment_layout`: G + 1 offsets and the m members, ascending within
+    each group). The H_g sum and every leaf's row-segment sum reduce
+    over it, whatever the leaf's width, so a run builds it once per
+    tier; nothing of length m·P is kept."""
 
     def __init__(self, group_ids, num_groups: int, device):
         self.device = torch.device(device)
         self.num_groups = int(num_groups)
         self.group_ids = torch.as_tensor(
             np.asarray(group_ids)).to(self.device, torch.int32)
-        self._groups = None
-        self._params: dict = {}
-
-    def _entry(self, ids, num_segments):
-        layout = (sr.segment_layout(ids, num_segments)
-                  if self.device.type == "cuda" else None)
-        return ids, layout
+        self._layout = None
 
     def groups(self):
-        """(ids, layout) of the H_g reduction."""
-        if self._groups is None:
-            self._groups = self._entry(self.group_ids, self.num_groups)
-        return self._groups
-
-    def params(self, P: int):
-        """(ids, layout) of the (group, parameter) reduction of a leaf
-        with P parameters per member."""
-        if P not in self._params:
-            p = torch.arange(P, dtype=torch.int32, device=self.device)
-            ids = (self.group_ids[:, None] * P + p[None]).reshape(-1)
-            self._params[P] = self._entry(ids, self.num_groups * P)
-        return self._params[P]
+        """(ids, layout) of the tier's reductions; no layout on the
+        CPU, where the plain versions need none."""
+        if self._layout is None and self.device.type == "cuda":
+            self._layout = sr.segment_layout(self.group_ids,
+                                             self.num_groups)
+        return self.group_ids, self._layout
 
 
 def aggregate_tier(W: dict, H, group_ids, num_groups: int, *,
@@ -160,29 +148,28 @@ def aggregate_tier(W: dict, H, group_ids, num_groups: int, *,
     ``group_ids`` the (m,) member→group map. Returns the (num_groups,
     ...) stack of group models and the group totals H_g, so tiers
     compose: feeding the outputs back in telescopes to the flat eq. (4)
-    over the union. One segment sum per leaf, segments being (group,
-    parameter) pairs, with the divide and ``where`` of
-    :func:`aggregate_edges`: a group's row is bitwise what
-    ``aggregate_edges`` over its ascending member list gives. An empty
-    group (H_g == 0) comes back as zeros. ``segments``, built from the
-    same ``group_ids``, carries the tier's ids and layouts from one call
-    to the next."""
+    over the union. One segment sum for H_g, then one row-segment sum
+    per leaf (rows weighted by H, members added in ascending order),
+    with the divide and ``where`` of :func:`aggregate_edges`: a group's
+    row is bitwise what ``aggregate_edges`` over its ascending member
+    list gives. An empty group (H_g == 0) comes back as zeros.
+    ``segments``, built from the same ``group_ids``, carries the tier's
+    ids and layout from one call to the next."""
     if segments is None:
         segments = TierSegments(group_ids, num_groups, H.device)
     G = segments.num_groups
     m = H.shape[0]
-    gids, glay = segments.groups()
-    Hg = ops.segment_sum(H, gids, num_segments=G, layout=glay)
+    gids, lay = segments.groups()
+    Hg = ops.segment_sum(H, gids, num_segments=G, layout=lay)
     zero = torch.zeros((), dtype=H.dtype, device=H.device)
     den = torch.clamp(Hg, min=1e-9)[:, None]
     ok = Hg[:, None] > 0
     out = {}
     for key, a in W.items():
         P = math.prod(a.shape[1:])
-        flat = (a.reshape(m, P) * H[:, None]).reshape(-1)
-        ids, lay = segments.params(P)
-        s = ops.segment_sum(flat, ids, num_segments=G * P, layout=lay)
-        o = torch.where(ok, s.reshape(G, P) / den, zero)
+        s = ops.segment_sum_rows(a.reshape(m, P).contiguous(), gids,
+                                 num_segments=G, scale=H, layout=lay)
+        o = torch.where(ok, s / den, zero)
         out[key] = o.reshape((G,) + a.shape[1:]).to(a.dtype)
     return out, Hg
 
@@ -469,17 +456,15 @@ def _run_scan_checkpointed(rnd: _ScanRound, carry, T, n, tau, eta, guard,
     return out
 
 
-# the tier segments of the last tree run, per device: the layouts of a
-# fog-scale tree fill about a gigabyte of device memory, so one tree's
-# are kept at a time
+# the tier segments of the last tree run, per device: one tree's are
+# kept at a time
 _TIER_SEGMENTS: dict = {}
 
 
-def tier_segments(tree, device, widths=()) -> list:
+def tier_segments(tree, device) -> list:
     """The :class:`TierSegments` of each tier of ``tree`` on ``device``,
-    kept across runs of the same tree (keyed on its fingerprint), with
-    the H_g reduction and the reductions of leaves of the given
-    ``widths`` built up front."""
+    kept across runs of the same tree (keyed on its fingerprint), their
+    layouts built up front."""
     key = (tree.fingerprint(), str(device))
     if key not in _TIER_SEGMENTS:
         _TIER_SEGMENTS.clear()
@@ -489,8 +474,6 @@ def tier_segments(tree, device, widths=()) -> list:
     segs = _TIER_SEGMENTS[key]
     for seg in segs:
         seg.groups()
-        for P in widths:
-            seg.params(P)
     return segs
 
 
@@ -542,8 +525,7 @@ def run_rounds_hierarchical(apply_fn, params: dict, x_tr, y_tr, x_te,
     L = tree.levels
     lvl = tree.level_rounds(T)
     top = np.nonzero(lvl == L)[0]
-    segs = tier_segments(tree, device,
-                         [math.prod(p.shape) for p in params.values()])
+    segs = tier_segments(tree, device)
     anc = [torch.from_numpy(a).to(device) for a in tree.ancestors()]
 
     step = make_device_step(apply_fn, float(eta))

@@ -65,6 +65,24 @@ def segment_sum(data, segment_ids, *, num_segments, layout=None):
     return sr.segment_sum(data, segment_ids, num_segments, layout=layout)
 
 
+def segment_sum_rows(data, segment_ids, *, num_segments, scale=None,
+                     layout=None):
+    """out[s] = Σ data[segment_ids == s] over (E, ...) ROW data, each
+    segment's rows added in ascending order: the ND-payload sibling of
+    :func:`segment_sum` (the reference's ``ops.segment_sum_rows``).
+    Returns (num_segments, ...) float32. ``scale`` (E,) float32
+    multiplies each row first (one product, then one add, per entry:
+    eq. (4)'s H-weighted sum in one pass); ``layout`` is
+    :func:`repro_torch.kernels.segment_reduce.segment_layout` of the
+    same ids. One launch of the row kernel on CUDA tensors."""
+    data = data.to(torch.float32)
+    E, tail = data.shape[0], data.shape[1:]
+    P = int(np.prod(tail, dtype=np.int64))
+    out = sr.segment_sum_rows(data.reshape(E, P), segment_ids,
+                              num_segments, scale=scale, layout=layout)
+    return out.reshape((num_segments,) + tuple(tail))
+
+
 def segment_max(data, segment_ids, *, num_segments, layout=None):
     """out[s] = max data[segment_ids == s] (−inf for an empty
     segment)."""

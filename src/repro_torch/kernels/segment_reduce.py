@@ -1,4 +1,6 @@
-"""Segment reductions ``out[s] = sum/max of data[ids == s]``.
+"""Segment reductions ``out[s] = sum/max of data[ids == s]``, and the
+row-segment sum ``out[g] = Σ_{i: ids[i] = g} data[i] · scale[i]`` over
+(m, P) rows.
 
 Ids need not be sorted. A segment that no element names gives the
 identity (0 for sum, −inf for max), and an element whose id lies
@@ -6,23 +8,29 @@ outside ``[0, num_segments)`` adds the identity, as in
 ``jax.ops.segment_sum`` / ``segment_max``. ``E = 0`` and
 ``num_segments = 0`` both work.
 
-On a CUDA tensor :func:`segment_sum` and :func:`segment_max` launch the
-hand-written kernel in ``csrc/segment_reduce.cu`` (it replaces the
-Pallas TPU kernel of :mod:`repro.kernels.segment_reduce`; the source
-says what bounds it and how). The kernel walks a CSR layout of the ids
-(:func:`segment_layout`): exact integer work done with a stable sort,
-which a caller that reduces many times over the same ids builds once
-and passes in. Every floating-point operation happens in the kernel,
-one segment per thread in ascending element order, so its sum is
-bitwise repeatable and bitwise equal to a sequential float32 sum.
+On a CUDA tensor :func:`segment_sum`, :func:`segment_max` and
+:func:`segment_sum_rows` launch the hand-written kernels in
+``csrc/segment_reduce.cu`` (they replace the Pallas TPU kernel of
+:mod:`repro.kernels.segment_reduce`; the source says what bounds them
+and how). Each walks a CSR layout of the ids (:func:`segment_layout`):
+exact integer work done with a stable sort, which a caller that
+reduces many times over the same ids builds once and passes in. Every
+floating-point operation happens in the kernel, each segment's
+elements (rows) in ascending order from +0, one correctly rounded add
+each (and, in the row form, one correctly rounded product before it),
+so a sum is bitwise repeatable and bitwise a sequential float32 sum.
+The row form over ``m`` member ids is therefore bitwise the product
+``data · scale[:, None]`` summed by :func:`segment_sum` over the ids
+``g · P + p``, without either the product or those ids.
 
-On a CPU tensor they run :func:`segment_sum_plain` /
-:func:`segment_max_plain`, which the card also uses as the kernel's
-yardstick. The CPU's ``index_add_`` adds in element order too, so the
-plain sum keeps the same order on the CPU.
+On a CPU tensor they run :func:`segment_sum_plain`,
+:func:`segment_max_plain` and :func:`segment_sum_rows_plain`, which the
+card also uses as the kernels' yardstick. The CPU's ``index_add_``
+adds in element (row) order, so the plain sums keep the same order on
+the CPU; on the card it adds by atomics, in no fixed order.
 
 ``launches`` counts kernel launches (never plain-version calls), so a
-run can show that it went through the kernel.
+run can show that it went through the kernels.
 """
 from __future__ import annotations
 
@@ -35,7 +43,9 @@ from repro_torch.kernels import _build
 
 launches = 0
 
-_INT32_MAX = 2 ** 31 - 1
+# the kernels index elements, segments and rows with int32 and read a
+# few thousand past a walk's end in their loop bounds
+_INDEX_LIMIT = 2 ** 31 - 2 ** 16
 
 
 def reset_launches() -> None:
@@ -87,6 +97,17 @@ def segment_max_plain(data, ids, num_segments: int):
     return out.scatter_reduce_(0, ids[valid].long(), data[valid], "amax")
 
 
+def segment_sum_rows_plain(data, ids, num_segments: int, *, scale=None):
+    """Plain PyTorch version of :func:`segment_sum_rows`: the product
+    ``data · scale[:, None]``, then ``index_add_`` of the valid rows
+    into zeros."""
+    prod = data if scale is None else data * scale[:, None]
+    valid = (ids >= 0) & (ids < num_segments)
+    out = torch.zeros((num_segments, data.shape[1]), dtype=torch.float32,
+                      device=data.device)
+    return out.index_add_(0, ids[valid].long(), prod[valid])
+
+
 def _check_ids(ids, num_segments):
     if ids.dim() != 1:
         raise ValueError(f"ids must be 1-D; got {tuple(ids.shape)}")
@@ -94,9 +115,33 @@ def _check_ids(ids, num_segments):
         raise TypeError(f"ids must be torch.int32; got {ids.dtype}")
     if num_segments < 0:
         raise ValueError(f"num_segments={num_segments} must be >= 0")
-    if ids.shape[0] > _INT32_MAX or num_segments >= _INT32_MAX:
+    if ids.shape[0] >= _INDEX_LIMIT or num_segments >= _INDEX_LIMIT:
         raise ValueError("the kernel indexes elements and segments with "
-                         "int32: E and num_segments must stay below 2**31")
+                         "int32: E and num_segments must stay below "
+                         f"{_INDEX_LIMIT}")
+
+
+def _check_tensor(name, a, device, dtype=torch.float32):
+    if a.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}; got {a.dtype}")
+    if a.device != device:
+        raise ValueError(f"{name} is on {a.device}, data on {device}")
+    if device.type == "cuda" and not a.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_layout(layout, num_segments, num_elements, device):
+    if layout is None:
+        return
+    if (layout.num_segments, layout.num_elements) != \
+            (num_segments, num_elements):
+        raise ValueError(
+            f"layout is for (S={layout.num_segments}, "
+            f"E={layout.num_elements}); the call is (S={num_segments}, "
+            f"E={num_elements})")
+    if layout.perm.device != device:
+        raise ValueError(f"layout is on {layout.perm.device}, data on "
+                         f"{device}")
 
 
 def _check(data, ids, num_segments, layout):
@@ -104,52 +149,74 @@ def _check(data, ids, num_segments, layout):
     if data.dim() != 1 or data.shape != ids.shape:
         raise ValueError(f"data must be 1-D and match ids; got "
                          f"{tuple(data.shape)} and {tuple(ids.shape)}")
-    if data.dtype != torch.float32:
-        raise TypeError(f"data must be torch.float32; got {data.dtype}")
-    if ids.device != data.device:
-        raise ValueError(f"ids are on {ids.device}, data on {data.device}")
-    if data.device.type == "cuda":
-        for name, a in (("data", data), ("ids", ids)):
-            if not a.is_contiguous():
-                raise ValueError(f"{name} must be contiguous")
-    if layout is not None:
-        if (layout.num_segments, layout.num_elements) != \
-                (num_segments, data.shape[0]):
-            raise ValueError(
-                f"layout is for (S={layout.num_segments}, "
-                f"E={layout.num_elements}); the call is (S={num_segments}, "
-                f"E={data.shape[0]})")
-        if layout.perm.device != data.device:
-            raise ValueError(f"layout is on {layout.perm.device}, data on "
-                             f"{data.device}")
+    _check_tensor("data", data, data.device)
+    _check_tensor("ids", ids, data.device, torch.int32)
+    _check_layout(layout, num_segments, data.shape[0], data.device)
+
+
+def _check_rows(data, ids, num_segments, scale, layout):
+    _check_ids(ids, num_segments)
+    if data.dim() != 2 or data.shape[0] != ids.shape[0]:
+        raise ValueError(f"data must be (m, P) with m = len(ids); got "
+                         f"{tuple(data.shape)} and {tuple(ids.shape)}")
+    if data.shape[1] >= _INDEX_LIMIT:
+        raise ValueError(f"P = {data.shape[1]} must stay below "
+                         f"{_INDEX_LIMIT}")
+    _check_tensor("data", data, data.device)
+    _check_tensor("ids", ids, data.device, torch.int32)
+    if scale is not None:
+        if scale.shape != ids.shape:
+            raise ValueError(f"scale must be (m,) = {tuple(ids.shape)}; "
+                             f"got {tuple(scale.shape)}")
+        _check_tensor("scale", scale, data.device)
+    _check_layout(layout, num_segments, data.shape[0], data.device)
+
+
+# each C entry point's arguments between the data pointer and the stream
+_ARGTYPES = {
+    "segment_sum_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int],
+    "segment_max_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int],
+    "segment_sum_rows_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int,
+                                                        ctypes.c_longlong],
+}
+
+
+def _launch(name, data, *args):
+    """Call C entry point ``name`` on ``data``'s device and stream;
+    count the launch, or raise on its CUDA error."""
+    global launches
+    fn = getattr(_build.load("segment_reduce"), name)
+    fn.argtypes = [ctypes.c_void_p, *_ARGTYPES[name], ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(data.device):
+        err = fn(data.data_ptr(), *args,
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {err}")
+    launches += 1
+
+
+def _on_card(data):
+    """True on a CUDA tensor, False on a CPU one; raises elsewhere."""
+    if data.device.type == "cpu":
+        return False
+    if data.device.type != "cuda":
+        raise ValueError(f"no kernel for device {data.device}")
+    return True
 
 
 def _reduce(op, data, ids, num_segments, layout):
-    global launches
     _check(data, ids, num_segments, layout)
-    if data.device.type == "cpu":
+    if not _on_card(data):
         plain = segment_sum_plain if op == "sum" else segment_max_plain
         return plain(data, ids, num_segments)
-    if data.device.type != "cuda":
-        raise ValueError(f"no kernel for device {data.device}")
     out = torch.empty(num_segments, dtype=torch.float32, device=data.device)
     if num_segments == 0:               # nothing to compute, nothing to launch
         return out
     if layout is None:
         layout = segment_layout(ids, num_segments)
-    lib = _build.load("segment_reduce")
-    fn = getattr(lib, f"segment_{op}_launch")
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(data.data_ptr(), layout.perm.data_ptr(),
-                 layout.offsets.data_ptr(), out.data_ptr(), num_segments,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"segment_{op} kernel launch failed: CUDA error "
-                           f"{err}")
-    launches += 1
+    _launch(f"segment_{op}_launch", data, layout.perm.data_ptr(),
+            layout.offsets.data_ptr(), out.data_ptr(), num_segments)
     return out
 
 
@@ -165,3 +232,28 @@ def segment_max(data, ids, num_segments: int, *, layout=None):
     """``out[s] = max data[ids == s]`` (−inf for an empty segment); the
     same arguments and dispatch as :func:`segment_sum`."""
     return _reduce("max", data, ids, num_segments, layout)
+
+
+def segment_sum_rows(data, ids, num_segments: int, *, scale=None,
+                     layout=None):
+    """``out[g, p] = Σ_{i: ids[i] = g, ascending i} data[i, p] ·
+    scale[i]``: data (m, P) float32, ids (m,) int32 mapping row to
+    group, scale (m,) float32 or None (no product), out (num_segments,
+    P) float32. The row kernel on CUDA tensors (one launch; ``layout``
+    is :func:`segment_layout` of the same ids: G + 1 offsets and the m
+    rows), the plain version on CPU tensors."""
+    _check_rows(data, ids, num_segments, scale, layout)
+    if not _on_card(data):
+        return segment_sum_rows_plain(data, ids, num_segments, scale=scale)
+    m, P = data.shape
+    out = torch.empty((num_segments, P), dtype=torch.float32,
+                      device=data.device)
+    if num_segments == 0 or P == 0:     # nothing to compute, nothing to launch
+        return out
+    if layout is None:
+        layout = segment_layout(ids, num_segments)
+    _launch("segment_sum_rows_launch", data,
+            None if scale is None else scale.data_ptr(),
+            layout.perm.data_ptr(), layout.offsets.data_ptr(),
+            out.data_ptr(), num_segments, P)
+    return out

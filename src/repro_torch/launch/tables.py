@@ -1082,7 +1082,7 @@ def hier_scale(scale: BenchScale, device=None, *,
     cfg = F.FedConfig(n=n_big, T=T_tr, tau=taus[0], eta=0.1,
                       model="linear", seed=0)
     t = time.perf_counter()
-    eng.tier_segments(tree, device, widths)
+    eng.tier_segments(tree, device)
     synchronize(device)
     seg_s = time.perf_counter() - t
 

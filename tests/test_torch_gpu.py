@@ -280,6 +280,102 @@ def test_aggregate_tier_row_is_aggregate_edges_bitwise_on_card(cuda):
             assert torch.equal(Wg[k][g], ref[k])
 
 
+def _nan_bits(a):
+    """float32 bits, every NaN one pattern."""
+    a = np.array(a, np.float32)
+    a[np.isnan(a)] = np.nan
+    return a.view(np.int32)
+
+
+def _sequential_rows(data, ids, G, scale):
+    """float32 row sums in ascending row order from +0, each entry one
+    product and one add."""
+    out = np.zeros((G, data.shape[1]), np.float32)
+    for i, g in enumerate(ids):
+        if 0 <= g < G:
+            out[g] = out[g] + (data[i] if scale is None
+                               else data[i] * scale[i])
+    return out
+
+
+# P % 4 in 0..3, bases off a 16-B boundary (a view `off` floats into its
+# storage), a group of 600 rows (staged chunks, unrolled tails), P = 1,
+# no rows, no groups, an empty group, out-of-range ids, NaN and inf rows
+@pytest.mark.parametrize("m,P,G,off,scaled,kind", [
+    (40, 12, 5, 0, True, "random"), (40, 13, 5, 0, True, "random"),
+    (40, 14, 5, 1, True, "random"), (40, 15, 5, 0, False, "random"),
+    (40, 16, 5, 3, False, "random"), (40, 16, 5, 2, True, "random"),
+    (650, 1031, 3, 2, True, "random"), (30, 156_800, 2, 0, True, "random"),
+    (25, 1, 5, 0, True, "random"), (0, 8, 4, 0, True, "random"),
+    (40, 8, 0, 0, True, "random"), (60, 20, 6, 0, True, "empty_group"),
+    (60, 20, 6, 0, True, "out_of_range"), (60, 20, 6, 0, True, "non_finite")])
+def test_segment_rows_kernel_is_the_sequential_sum_bitwise(cuda, m, P, G,
+                                                           off, scaled,
+                                                           kind):
+    rng = np.random.default_rng(m + P + off)
+    ids = rng.integers(-2, G + 2, m) if kind == "out_of_range" else \
+        rng.integers(0, max(G, 1), m)
+    if kind == "empty_group":
+        ids[ids == 2] = 4
+    data = rng.standard_normal((m, P)).astype(np.float32)
+    if kind == "non_finite":
+        data[np.nonzero(ids == 1)[0][0]] = np.nan
+        data[np.nonzero(ids == 3)[0][0], 5] = np.inf
+    scale = rng.integers(0, 7, m).astype(np.float32) if scaled else None
+    store = torch.empty(off + m * P, device=cuda)
+    store[off:] = torch.from_numpy(data.reshape(-1)).to(cuda)
+    d = store[off:].view(m, P)
+    i = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    h = None if scale is None else torch.from_numpy(scale).to(cuda)
+    before = sr.launches
+    got = sr.segment_sum_rows(d, i, G, scale=h)
+    again = sr.segment_sum_rows(d, i, G, scale=h,
+                                layout=sr.segment_layout(i, G))
+    assert sr.launches == before + (2 if G and P else 0)
+    want = _sequential_rows(data, ids, G, scale)
+    assert got.shape == (G, P)
+    np.testing.assert_array_equal(_nan_bits(got.cpu().numpy()),
+                                  _nan_bits(want))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    if kind == "empty_group":
+        assert not got[2].any()
+
+
+def _segment_lengths_case(kind, rng):
+    if kind == "one_element":               # per-cell counts, K > 1
+        S = 600_000
+        ids = np.repeat(np.arange(S), rng.poisson(1.0, S))
+    elif kind == "wide":                    # around the wide threshold
+        lens = [5, 2100, 0, 3, 2049, 2048, 700, 4100, 1, 70_000, 2047]
+        S = len(lens) + 3
+        ids = np.repeat(np.arange(len(lens)), lens)
+        rng.shuffle(ids)
+    elif kind == "huge":                    # one segment of 2**20
+        S = 5
+        ids = np.full(1 << 20, 3)
+    else:
+        S = 3001
+        ids = rng.integers(-50, S + 50, 200_000)
+    data = rng.standard_normal(ids.shape[0]).astype(np.float32)
+    if kind == "mixed":
+        data[rng.integers(0, data.shape[0], 4)] = [np.nan, np.inf, -np.inf,
+                                                   np.nan]
+    return data, ids.astype(np.int32), S
+
+
+@pytest.mark.parametrize("kind", ["one_element", "wide", "huge", "mixed"])
+def test_segment_kernel_short_and_wide_segments_bitwise(cuda, kind):
+    data, ids, S = _segment_lengths_case(kind, np.random.default_rng(9))
+    d, i = torch.from_numpy(data).to(cuda), torch.from_numpy(ids).to(cuda)
+    got = sr.segment_sum(d, i, S).cpu().numpy()
+    np.testing.assert_array_equal(_nan_bits(got),
+                                  _nan_bits(_sequential_sum(data, ids, S)))
+    mx = sr.segment_max(d, i, S).cpu().numpy()
+    want = sr.segment_max_plain(torch.from_numpy(data),
+                                torch.from_numpy(ids), S).numpy()
+    np.testing.assert_array_equal(_nan_bits(mx), _nan_bits(want))
+
+
 def _randn(shape, seed, device, scale=1.0):
     g = torch.Generator().manual_seed(seed)
     return (torch.randn(shape, generator=g) * scale).to(device)

@@ -186,14 +186,19 @@ def test_two_stage_composition_is_manual_aggregate_edges():
 
 
 def test_tier_segments_are_built_once_per_tree():
+    """One m-length member→group map per tier, shared by H_g and every
+    leaf whatever its width: nothing of length m·P is built."""
     tree = th.TierTree.from_spec("2@2,1@4", 4)
-    segs = teng.tier_segments(tree, torch.device("cpu"), [3, 5])
+    segs = teng.tier_segments(tree, torch.device("cpu"))
     assert teng.tier_segments(tree, torch.device("cpu")) is segs
-    ids, layout = segs[0].params(3)
+    ids, layout = segs[0].groups()
     assert layout is None                     # no kernel layout on the CPU
-    np.testing.assert_array_equal(ids.numpy(),
-                                  [0, 1, 2, 0, 1, 2, 3, 4, 5, 3, 4, 5])
-    assert segs[0].params(3)[0] is ids
+    assert ids.dtype == torch.int32
+    np.testing.assert_array_equal(ids.numpy(), tree.parents[0])
+    assert segs[0].groups()[0] is ids
+    assert [s.group_ids.shape[0] for s in segs] == [4, 2]
+    assert all(t.numel() <= 4 for s in segs for t in vars(s).values()
+               if isinstance(t, torch.Tensor))
 
 
 N, T = 8, 8
