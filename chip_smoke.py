@@ -6,7 +6,7 @@
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; it
 imports no JAX. It builds every CUDA kernel of the fog and serving
 paths from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source,
-all started together), then runs seventeen phases and fails (exit 1,
+all started together), then runs eighteen phases and fails (exit 1,
 no result line) if any of them fails:
 
 (a) the Theorem-3 kernel against its plain PyTorch version on the
@@ -196,7 +196,28 @@ no result line) if any of them fails:
     ``index_add_`` and their byte bound (with (e)'s huge segment, the
     ``sites`` of the segment_reduce entry); (q4) n = 2048, T = 20
     flat-stream scan and tiered runs on the card against the CPU, held
-    as in (b).
+    as in (b);
+(r) the sweep engine: (r1) ``launch.tables``' ``scenario_batched`` at
+    ``--quick`` (the fig5, dynamics and prediction grids, each bucket
+    dispatched by the cost model, against the per-point loop; bucket
+    programs no more than buckets, accuracy within 1e-2 of the loop),
+    then its fig5 buckets through the card's dispatch once on the card
+    and once on the CPU, held as in (b); (r2) six seeds of the
+    fog-scale path in one bucket (6,144 device rows), dense and ragged,
+    every launch counter set to 0 just before each and read just
+    after: exactly 5 kernel-2 launches a window (a row sum a leaf and
+    the H total) and, ragged, 5 more a round (the gradient's row sums
+    and the loss sum), no other kernel; each seed held as in (b) to its
+    run on the scan engine and to itself run alone at the same staging
+    (bit for bit reported, the tolerances asserted), with the bucket's
+    and the six scan runs' host-clock times, phase times, peak memory,
+    the cost model's decision and the segment lengths against the warp
+    walk's 2048; (r3) kernel 2 at the two shapes (r2) gave it (eq.
+    (4)'s rows into S, the busiest round's ragged gradient rows into
+    S·n_b) bit for bit its plain version on the CPU, timed beside its
+    byte bound, ``index_add_`` and the plain version (two more
+    ``sites``), and the gradient of ``segment_sum_rows`` through the
+    kernel equal to the gradient through the plain version on the card.
 
 The line before the last is the JSON list of kernels; the one before it
 the card's name and power limit; the last line is the result.
@@ -907,10 +928,15 @@ def _row_site(torch, sr, name, d, ids, G, h, layout, launches, flush):
     read once, the sums written once; a product and an add an entry)
     and the 1-D form's (the product and its E-length ids read, the sums
     written) with the product's own pass (data and scale read, the
-    product written) beside it."""
+    product written) beside it. ``h`` None: no product. Rows whose id
+    lies outside [0, G) add nothing and count in no bound."""
     m, P = d.shape
-    idx64 = ids.long()
-    prod = d * h[:, None]
+    valid = (ids >= 0) & (ids < G)
+    m_in = int(valid.sum())
+    prod = d if h is None else d * h[:, None]
+    if m_in < m:
+        prod = prod[valid]
+    idx64 = ids[valid].long()
 
     def kernel(d, ids, G):
         return sr.segment_sum_rows(d, ids, G, scale=h, layout=layout)
@@ -923,9 +949,11 @@ def _row_site(torch, sr, name, d, ids, G, h, layout, launches, flush):
                                                                prod)
 
     args = (d, ids, G)
-    E = m * P
-    nbytes = 4 * E + 4 * m + 4 * m + 4 * G * P
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * E / F32_OPS_PER_S
+    E = m_in * P
+    scaled = h is not None
+    nbytes = 4 * E + 4 * m_in * (1 + scaled) + 4 * G * P
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (1 + scaled) * E / F32_OPS_PER_S
     site = {"site": name, "shape": {"m": int(m), "P": int(P), "G": int(G)},
             "launches": launches,
             "ms": _time_ms(torch, kernel, args, flush),
@@ -936,7 +964,9 @@ def _row_site(torch, sr, name, d, ids, G, h, layout, launches, flush):
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "flat_bound_ms": 1e3 * (8 * E + 4 * G * P) / HBM_BYTES_PER_S,
-            "product_pass_ms": 1e3 * (8 * E + 4 * m) / HBM_BYTES_PER_S}
+            "product_pass_ms": 1e3 * (8 * E + 4 * m_in) / HBM_BYTES_PER_S}
+    if m_in < m:
+        site["shape"]["rows_in_range"] = m_in
     del prod
     return site
 
@@ -2707,6 +2737,313 @@ def phase_q_small(np, card, cuda):
 
 
 
+# (r) the sweep engine: the fog-scale main path's flags, six seeds in
+# one bucket
+SWEEP_SEEDS = 6
+SWEEP_SCALE = dict(n_train=60000, n_test=10000, T=20, tau=5, eta=0.1)
+SWEEP_POINT = dict(n=1000, model="mlp", topology="random", rho=0.1)
+WARP_WALK = 2048          # kernel 2's warp walk of wide segments (ROADMAP q. 2)
+
+
+def _hist_diff(np, got, want):
+    """Hold two histories as (b) does: the exact fields equal, losses
+    within rtol 2e-3 / atol 1e-4, accuracy within atol 1e-2. Returns the
+    largest |difference| of device_loss, test_loss and test_acc."""
+    if got["agg_round"] != want["agg_round"]:
+        raise AssertionError("agg_round differs")
+    for k in ("agg_survivors", "agg_quorum_ok"):
+        if got.get(k) != want.get(k):
+            raise AssertionError(f"{k} differs")
+    if not np.array_equal(np.stack(got["H_agg"]), np.stack(want["H_agg"])):
+        raise AssertionError("H_agg differs")
+    dl = (np.stack(got["device_loss"]), np.stack(want["device_loss"]))
+    np.testing.assert_allclose(*dl, rtol=2e-3, atol=1e-4)
+    np.testing.assert_allclose(got["test_loss"], want["test_loss"],
+                               rtol=2e-3, atol=1e-4)
+    np.testing.assert_allclose(got["test_acc"], want["test_acc"], atol=1e-2)
+    return (float(np.abs(dl[0] - dl[1]).max()),
+            float(np.max(np.abs(np.subtract(got["test_loss"],
+                                             want["test_loss"])))),
+            float(np.max(np.abs(np.subtract(got["test_acc"],
+                                            want["test_acc"])))))
+
+
+def _finite(np, h):
+    return bool(np.isfinite(np.stack(h["device_loss"])).all()
+                and np.isfinite(h["test_loss"]).all()
+                and np.isfinite(np.stack(h["H_agg"])).all())
+
+
+def phase_r_tables(np, card, cuda):
+    """(r1) launch.tables' scenario_batched at --quick on the card; then
+    its fig5 grid bucket by bucket through the card's dispatch, once on
+    the card and once on the CPU, held to each other."""
+    import copy
+
+    from repro_torch.core import federated as F
+    from repro_torch.launch import tables as tb
+
+    out = tb.scenario_batched(tb.QUICK, cuda)
+    for r in out["rows"]:
+        disp = [(d["path"], d["staging"], d["reason"])
+                for d in r["dispatch_cold"]]
+        log(f"(r1) scenario_batched {r['grid']}: {r['points']} points, "
+            f"{r['buckets']} buckets, dispatch (cold) {disp}, warm "
+            f"{[(d['path'], d['staging']) for d in r['dispatch_warm']]}; "
+            f"dispatched {r['dispatched_cold_s']:.3f} s cold, "
+            f"{r['dispatched_warm_s']:.3f} s warm, loop "
+            f"{r['loop_cold_s']:.3f} / {r['loop_warm_s']:.3f} s, speedup "
+            f"{r['speedup_cold']:.3f} cold, {r['speedup_warm']:.3f} warm; "
+            f"bucket programs {r['dispatched_train_programs']}; warm phases "
+            f"{r['warm_phases']}; acc gap to the loop {r['acc_curve_gap']}; "
+            f"in-bucket == alone bitwise: dense "
+            f"{r['staged_histories_bitwise']} (largest |diff| "
+            f"{r['staged_max_diff']}), ragged {r['ragged_alone_bitwise']} "
+            f"({r['ragged_alone_max_diff']}) [{card}]")
+    hd = out["headline"]
+    if not hd["train_programs_leq_buckets"] or hd["max_acc_curve_gap"] > 1e-2:
+        raise AssertionError(f"scenario_batched headline {hd}")
+    scenarios = tb.scenario_grid(tb.QUICK, "fig5")
+    plans = tb.solve_scenario_plans(scenarios, device="cpu")
+    rows = tb.run_scenarios(scenarios, tb.QUICK, plans=plans, device=cuda)
+    data = tb.dataset(tb.QUICK.n_train, tb.QUICK.n_test)
+    worst = [0.0, 0.0, 0.0]
+    for idxs in tb._buckets(scenarios):
+        d = rows[idxs[0]]["dispatch"]
+        runs = []
+        for dev in (cuda, "cpu"):
+            if d["path"] == "batched":
+                runs.append(F.run_network_aware_batched(
+                    [scenarios[b].cfg for b in idxs], data,
+                    [plans[b] for b in idxs],
+                    streams=[copy.deepcopy(scenarios[b].streams)
+                             for b in idxs], staging=d["staging"],
+                    device=dev))
+            else:
+                runs.append([F.run_network_aware(
+                    scenarios[b].cfg, data, None, None, plans[b],
+                    streams=copy.deepcopy(scenarios[b].streams),
+                    engine="scan", device=dev) for b in idxs])
+        for got, want in zip(*runs):
+            worst = [max(a, b) for a, b in zip(worst,
+                                               _hist_diff(np, got, want))]
+        log(f"(r1) fig5 bucket n={scenarios[idxs[0]].cfg.n} "
+            f"({len(idxs)} seeds) dispatched {d['path']} {d['staging']} "
+            f"({d['reason']}, predicted {d['predicted_s']}): card vs CPU "
+            f"exact fields equal [{card}]")
+    log(f"(r1) fig5 card vs CPU: agg_round, H_agg equal; max |diff| "
+        f"device_loss {worst[0]}, test_loss {worst[1]}, test_acc "
+        f"{worst[2]} [{card}]")
+
+
+def _keep_rows_by_segments(ops, keep, wanted):
+    """A stand-in for ``ops.segment_sum_rows`` that keeps, for each
+    segment count G in ``wanted``, the inputs of one call of its largest
+    leaf: the ``wanted[G]``-th such call (0 is the first)."""
+    real = ops.segment_sum_rows
+
+    def kept(data, segment_ids, *, num_segments, scale=None, layout=None):
+        G = num_segments
+        if G in wanted:
+            k = keep.setdefault(G, {"numel": -1})
+            if data.numel() > k["numel"]:       # a larger leaf: count anew
+                k.clear()
+                k.update(numel=data.numel(), seen=0)
+            if data.numel() == k["numel"]:
+                if k["seen"] == wanted[G]:
+                    k.update(data=data, ids=segment_ids, G=G, scale=scale,
+                             layout=layout)
+                k["seen"] += 1
+        return real(data, segment_ids, num_segments=G, scale=scale,
+                    layout=layout)
+
+    return kept
+
+
+def phase_r_full_width(torch, np, card, counters, ops, sr, cuda):
+    """(r2) six seeds of the fog-scale main path in one bucket, dense and
+    ragged, counted, held to the scan and to themselves alone; returns
+    the two new kernel-2 sites' inputs for (r3)."""
+    import dataclasses
+
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core import engine as eng
+    from repro_torch.core import federated as F
+    from repro_torch.data import pipeline as pl
+    from repro_torch.launch import tables as tb
+    from repro_torch.models import mnist as mm
+
+    scale = tb.BenchScale(**SWEEP_SCALE)
+    tau = scale.tau
+    scenarios = [tb.make_scenario(scale, key={"seed": s},
+                                  error_model="discard", seed=s,
+                                  **SWEEP_POINT)
+                 for s in range(SWEEP_SEEDS)]
+    t = time.perf_counter()
+    plans = tb.solve_scenario_plans(scenarios, device=cuda)
+    plan_s = time.perf_counter() - t
+    data = tb.dataset(scale.n_train, scale.n_test)
+    t = time.perf_counter()
+    prepared = [F._prepare_streams(sc.cfg, data, plans[b], sc.streams,
+                                   sc.activity, sc.schedule)
+                for b, sc in enumerate(scenarios)]
+    prep_s = time.perf_counter() - t
+    cfgs = [sc.cfg for sc in scenarios]
+    dims = tb._group_dims(prepared, tau, "pow2")
+    decision = cm.MODEL.choose(
+        key=tb.scenario_bucket_key(scenarios[0]),
+        idents=[tb._point_ident(sc) for sc in scenarios],
+        eval_slots=sum(T // tau for T, _, _ in dims["points"])
+        * scale.n_test, **dims)
+    S, T_b, n_b, P_b = SWEEP_SEEDS, dims["T_b"], dims["n_b"], dims["P_b"]
+    M, n_win = S * n_b, T_b // tau
+    L = len(mm.mlp_specs())
+    # eq. (4): one row sum a leaf and one H total a window; ragged: also
+    # a row sum a leaf (the gradient) and one (the losses) a round
+    expected = {"dense": n_win * (L + 1),
+                "ragged": n_win * (L + 1) + T_b * (L + 1)}
+    # the ragged rows of each round (the engine stages the same table):
+    # (r3) times the gradient sum of the round with the most real rows
+    ragged = pl.stage_scenario_ragged([p[1] for p in prepared], data[1],
+                                      [p[2] for p in prepared], tau)
+    real_rows_t = (ragged.cell < M).sum(1)
+    busiest = int(real_rows_t.argmax())
+    keep: dict = {}
+    real_rows = ops.segment_sum_rows
+    runs = {}
+    for staging in ("dense", "ragged"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng.reset_phase_timings()
+        for c in counters.values():
+            c.reset_launches()
+        ops.segment_sum_rows = _keep_rows_by_segments(
+            ops, keep, {S: 0, M: busiest})
+        try:
+            t = time.perf_counter()
+            hs = F.run_network_aware_batched(cfgs, data, plans,
+                                             prepared=prepared,
+                                             staging=staging, device=cuda)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = {name: c.launches for name, c in counters.items()}
+        finally:
+            ops.segment_sum_rows = real_rows
+        peak = torch.cuda.max_memory_allocated()
+        runs[staging] = hs
+        log(f"(r2) {staging} bucket of {S} fog-scale seeds (S·n_b = {M}, "
+            f"T_b {T_b}, P_b {P_b}): wall {wall:.3f} s, phases "
+            f"{eng.phase_timings()}, max_memory_allocated {peak} B, kernel "
+            f"launches {launches}, kernel-2 launches expected "
+            f"{expected[staging]} [{card}]")
+        if launches["segment_reduce"] != expected[staging] or any(
+                v for k, v in launches.items() if k != "segment_reduce"):
+            raise AssertionError(f"{staging}: launches {launches}, kernel 2 "
+                                 f"expected {expected[staging]}")
+        if not all(_finite(np, h) for h in hs):
+            raise AssertionError(f"{staging} bucket history is not finite")
+        runs[staging + "_s"] = wall
+    # the six points one by one on the scan engine
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    scans = [F.run_network_aware(cfg, data, None, None, plans[b],
+                                 prepared=prepared[b], engine="scan",
+                                 device=cuda)
+             for b, cfg in enumerate(cfgs)]
+    scan_s = time.perf_counter() - t
+    worst = {}
+    for staging in ("dense", "ragged"):
+        diffs = [_hist_diff(np, h, w) for h, w in zip(runs[staging], scans)]
+        worst[staging] = [max(d[i] for d in diffs) for i in range(3)]
+    # each point alone at the bucket's staging (dense: P pinned to P_b)
+    alone = {"dense": [], "ragged": []}
+    for b, cfg in enumerate(cfgs):
+        st, proc, act, _ = prepared[b]
+        alone["dense"].append(F.run_network_aware(
+            dataclasses.replace(cfg, max_points=P_b), data, None, None,
+            plans[b], prepared=(st, proc, act, P_b), engine="batched",
+            device=cuda))
+        alone["ragged"].append(F.run_network_aware_batched(
+            [cfg], data, [plans[b]], prepared=[prepared[b]],
+            staging="ragged", device=cuda)[0])
+    same = {}
+    for staging in ("dense", "ragged"):
+        same[staging] = [tb._histories_equal(a, h) for a, h in
+                         zip(alone[staging], runs[staging])]
+        diffs = [_hist_diff(np, h, a) for h, a in zip(runs[staging],
+                                                      alone[staging])]
+        log(f"(r2) {staging}: in bucket vs alone bitwise per seed "
+            f"{same[staging]}; max |diff| (device_loss, test_loss, "
+            f"test_acc) {[max(d[i] for d in diffs) for i in range(3)]}; vs "
+            f"the scan engine {worst[staging]} [{card}]")
+    per_dev = max(int(np.bincount(c[c < M], minlength=M).max())
+                  for c in ragged.cell)
+    log(f"(r2) sweep {runs['dense_s']:.3f} s dense, {runs['ragged_s']:.3f} "
+        f"s ragged, against the six scan runs {scan_s:.3f} s (plans "
+        f"{plan_s:.3f} s, host stream preparation {prep_s:.3f} s, both "
+        f"outside); cost model: {decision.as_row()}; ragged rows R_b "
+        f"{ragged.dims[3]} (real {ragged.total_rows} over {T_b} rounds, "
+        f"{int(real_rows_t[busiest])} in round {busiest}), "
+        f"longest gradient segment {per_dev} rows, aggregation segments "
+        f"{n_b} rows, against the warp walk's {WARP_WALK} [{card}]")
+    accs = [h["test_acc"][-1] for h in runs["dense"]]
+    log(f"(r2) final accuracy per seed (dense) {accs} [{card}]")
+    return {"agg": keep[S], "grad": keep[M],
+            "launches": {"dense": expected["dense"],
+                         "ragged": expected["ragged"]}}
+
+
+def phase_r_kernel(torch, np, card, sr, cuda, sites):
+    """(r3) kernel 2 at the two shapes (r2) gave it, bitwise its plain
+    version on the CPU, timed beside its bound, ``index_add_`` and the
+    plain version; and the gradient through the kernel against the
+    gradient through the plain version on the card."""
+    flush = flush_buffer(torch, cuda)
+    out = []
+    for key, name, launches in (
+            ("agg", "eq. (4) bucket rows (S·n_b, P) -> S",
+             sites["launches"]["dense"]),
+            ("grad", "ragged gradient rows (R_b, P) -> S·n_b",
+             sites["launches"]["ragged"])):
+        k = sites[key]
+        d, ids, G, h, lay = (k[x] for x in ("data", "ids", "G", "scale",
+                                            "layout"))
+        got = sr.segment_sum_rows(d, ids, G, scale=h, layout=lay).cpu()
+        plain = sr.segment_sum_rows_plain(
+            d.cpu(), ids.cpu(), G, scale=None if h is None else h.cpu())
+        if not _same_bits(np, got.numpy(), plain.numpy()):
+            raise AssertionError(f"{name}: kernel != plain on the CPU")
+        del got, plain
+        site = _row_site(torch, sr, name, d, ids, G, h, lay, launches,
+                         flush)
+        site["max_abs_err"] = 0.0
+        log(f"(r3) {name} {site['shape']}: kernel {site['ms']} ms (bound "
+            f"{site['bound_ms']} ms by {site['bound_by']}), plain "
+            f"{site['plain_ms']} ms, index_add_ {site['library_ms']} ms, "
+            f"layout build {site['layout_ms']} ms; bitwise the CPU's "
+            f"sequential row sum; launches in its run {launches} [{card}]")
+        out.append(site)
+    k = sites["agg"]
+    m = min(1024, k["data"].shape[0])
+    d0, ids0, h0, G = (k["data"][:m], k["ids"][:m].contiguous(),
+                       k["scale"][:m].contiguous(), k["G"])
+    cot = torch.randn((G, d0.shape[1]),
+                      generator=torch.Generator().manual_seed(0)).to(cuda)
+    grads = []
+    for fn in (sr.segment_sum_rows, sr.segment_sum_rows_plain):
+        d = d0.detach().clone().requires_grad_(True)
+        s = h0.detach().clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(fn(d, ids0, G, scale=s), (d, s),
+                                         cot))
+    if not all(torch.equal(a, b) for a, b in zip(*grads)):
+        raise AssertionError("gradient through the row kernel != through "
+                             "its plain version")
+    log(f"(r3) gradients of segment_sum_rows (data and scale) on {m} rows "
+        f"of the eq. (4) leaf: through the kernel == through the plain "
+        f"version, bit for bit [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2827,6 +3164,14 @@ def main() -> int:
         kernels["segment_reduce"]["sites"] = state.pop("e_sites") + sites
         phase_q_small(np, card, cuda)
 
+    def r():
+        phase_r_tables(np, card, cuda)
+        sites = phase_r_full_width(torch, np, card, counters, ops, sr, cuda)
+        kernels["segment_reduce"].setdefault("sites", []).extend(
+            phase_r_kernel(torch, np, card, sr, cuda, sites))
+        del sites
+        torch.cuda.empty_cache()
+
     def p():
         phase_p_fog(torch, np, card, counters, state["c_train_s"])
         phase_p_tiered(torch, np, card, counters, ops, sr)
@@ -2845,7 +3190,7 @@ def main() -> int:
               ("j", j), ("k", k_), ("l", l_),
               ("m", lambda: phase_m_smoke_configs(torch, np, card, counters,
                                                   cuda)),
-              ("n", n_), ("o", o), ("p", p), ("q", q)]
+              ("n", n_), ("o", o), ("p", p), ("q", q), ("r", r)]
     failed = []
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -22,6 +22,14 @@ per parameter leaf, through the segment-reduce kernel on the card).
 ``run_rounds_legacy`` is the per-round oracle: fresh host-padded
 batches every round and the history read back as it goes.
 
+``run_rounds_batched`` is the sweep engine: S scenarios of one shape
+bucket (phantom rounds and devices pad them to it) train in one round
+loop over the flat (S·n_b) device stack, with dense or ragged staging,
+eq. (4) as one row-segment sum a leaf (kernel 2's row form on the
+card) and the whole (windows, S) grid of snapshots evaluated at once
+(:class:`AsyncEvaluator`); ``run_rounds_batched_single`` is its S = 1
+slice (``engine="batched"``).
+
 All three take a :class:`repro_torch.core.faults.FaultSchedule`: crash
 outages join the activity, and every aggregation receives guarded
 uploads (``_guarded_uploads``: corrupt rows selected away with
@@ -35,12 +43,16 @@ per-cell lists or as a :class:`repro_torch.data.pipeline.FlatStreams`
 """
 from __future__ import annotations
 
+import collections
+import hashlib
 import math
+import time
 
 import numpy as np
 import torch
 
 from repro_torch.data import pipeline as pl
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import ops
 from repro_torch.kernels import segment_reduce as sr
 from repro_torch.models import mnist as mm
@@ -218,15 +230,20 @@ def _evaluate(apply_fn, params, x, y):
     return mm.ce_loss(logits, y), mm.accuracy(logits, y)
 
 
-def _stage_fault_ops(faults, T: int, n: int, tau: int, device):
-    """Validate a FaultSchedule against the run's (T, n, τ) and return
-    its (upload_ok, corrupt) views as (T, n) float32 on ``device``."""
+def _check_fault_dims(faults, T: int, n: int, tau: int) -> None:
+    """Raise unless a FaultSchedule matches the run's (T, n, τ)."""
     if (faults.T, faults.n) != (T, n):
         raise ValueError(f"fault schedule is (T={faults.T}, n={faults.n})"
                          f" but the run is (T={T}, n={n})")
     if faults.tau != tau:
         raise ValueError(f"fault schedule has tau={faults.tau} but the "
                          f"run aggregates every tau={tau}")
+
+
+def _stage_fault_ops(faults, T: int, n: int, tau: int, device):
+    """Validate a FaultSchedule against the run's (T, n, τ) and return
+    its (upload_ok, corrupt) views as (T, n) float32 on ``device``."""
+    _check_fault_dims(faults, T, n, tau)
     upl, cor = faults.engine_arrays()
     return (torch.from_numpy(upl).to(device),
             torch.from_numpy(cor).to(device))
@@ -677,3 +694,705 @@ def run_rounds_legacy(apply_fn, params: dict, x_tr, y_tr, x_te, y_te,
             out["test_loss"].append(float(tl))
             out["test_acc"].append(float(ta))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the sweep engine: S scenarios of one shape bucket in one round loop
+# ---------------------------------------------------------------------------
+
+# host arrays pinned on the device across engine calls (a sweep calls
+# the engine many times with the same dataset): keyed by the array's
+# identity, shape, type and a sampled checksum (so treat arrays passed
+# to the engine as immutable); the value keeps the host array alive so
+# its id is not recycled. LRU: only the oldest entry is evicted.
+_DEVICE_CACHE_CAP = 16
+_DEVICE_CACHE: collections.OrderedDict = collections.OrderedDict()
+
+
+def _to_device_cached(arr, device, dtype=None):
+    arr = np.asarray(arr)
+    key = (id(arr),) + _array_identity(arr) + (str(device), str(dtype))
+    hit = _DEVICE_CACHE.get(key)
+    if hit is None:
+        while len(_DEVICE_CACHE) >= _DEVICE_CACHE_CAP:
+            _DEVICE_CACHE.popitem(last=False)
+        dev = torch.from_numpy(np.ascontiguousarray(arr)).to(device, dtype)
+        hit = _DEVICE_CACHE[key] = (arr, dev)
+    else:
+        _DEVICE_CACHE.move_to_end(key)
+    return hit[1]
+
+
+def _array_identity(arr) -> tuple:
+    """Cheap dataset fingerprint: shape, type and a sampled checksum
+    (sparse in-place edits can slip through: engine inputs are treated
+    as immutable)."""
+    a = np.asarray(arr)
+    flat = a.reshape(-1)
+    sample = flat[::max(1, flat.size // 4096)]
+    return (a.shape, str(a.dtype),
+            float(np.asarray(sample, np.float64).sum()))
+
+
+# per-phase host-clock accumulators of the sweep engine: "stage" is the
+# host staging, fingerprint and upload, "program" the round loop (to the
+# device's last operation), "eval" the stacked evaluation, "train" the
+# program, the evaluation and the history assembly together. Reset and
+# read around a timed region.
+_PHASE = {"stage_s": 0.0, "program_s": 0.0, "eval_s": 0.0,
+          "train_s": 0.0}
+
+
+def phase_timings() -> dict:
+    return dict(_PHASE)
+
+
+def reset_phase_timings() -> None:
+    _PHASE.update(stage_s=0.0, program_s=0.0, eval_s=0.0, train_s=0.0)
+
+
+def add_phase_time(phase: str, seconds: float) -> None:
+    """Fold externally timed work (e.g. a sweep's host data
+    preparation) into a phase accumulator."""
+    _PHASE[phase] = _PHASE.get(phase, 0.0) + float(seconds)
+
+
+class AsyncEvaluator:
+    """Test evaluation off the round loop.
+
+    ``submit`` enqueues one evaluation of a parameter dict and returns
+    (on the card the work runs in CUDA's own asynchrony, and nothing
+    waits until ``collect``). ``submit_stack`` evaluates a whole stack
+    of snapshots, e.g. a bucket's (windows, S) grid, in one
+    ``torch.func.vmap`` of the evaluation, a snapshot at a time
+    (``chunk_size=1``): a snapshot's numbers are then those of a scalar
+    ``submit``, whatever the stack's size (a product over the whole
+    stack would let the matrix library block it by that size). The test
+    set is pinned on the device.
+
+    Errors: a failure while enqueueing or while the result is read is
+    never swallowed. It is kept and raised, the first failure chained,
+    at the next ``collect()``/``result()``/``shutdown()``; a failed
+    enqueue is first retried ``retries`` times with capped exponential
+    backoff. The raised error lists every failure (``.failures``).
+    ``submit`` after a kept failure does nothing, so a sweep fails once,
+    where it collects; ``shutdown`` is idempotent."""
+
+    def __init__(self, apply_fn, x_te, y_te, *, device=None,
+                 retries: int = 3, backoff: float = 0.05,
+                 backoff_cap: float = 1.0):
+        self._device = resolve_device(device)
+        self._apply = apply_fn
+        self._x = _to_device_cached(x_te, self._device)
+        self._y = _to_device_cached(y_te, self._device, torch.int64)
+        self._pending: list = []
+        self._errors: list[BaseException] = []
+        self._retries = max(0, int(retries))
+        self._backoff = float(backoff)
+        self._backoff_cap = float(backoff_cap)
+        self._closed = False
+
+    def _params(self, params) -> dict:
+        return {k: torch.as_tensor(v, dtype=torch.float32).to(self._device)
+                for k, v in params.items()}
+
+    def _dispatch(self, fn, *args) -> None:
+        delay = self._backoff
+        for attempt in range(self._retries + 1):
+            try:
+                with torch.no_grad():
+                    self._pending.append(fn(*args))
+                return
+            except Exception as e:
+                if attempt == self._retries:
+                    self._errors.append(e)
+                    return
+                time.sleep(min(delay, self._backoff_cap))
+                delay *= 2.0
+
+    def submit(self, params) -> None:
+        if self._errors:
+            return                      # raised at the next collect()
+        self._closed = False
+        self._dispatch(lambda p: _evaluate(self._apply, self._params(p),
+                                           self._x, self._y), params)
+
+    def submit_stack(self, params_stack, n_axes: int = 1) -> None:
+        """Evaluate a stack of snapshots at once: the leading ``n_axes``
+        axes of every leaf are batch axes. The results arrive at
+        ``collect()`` as arrays of that batch shape, in submission
+        order."""
+        if self._errors:
+            return
+        self._closed = False
+
+        def ev(p, x, y):
+            return _evaluate(self._apply, p, x, y)
+
+        fn = ev
+        for _ in range(int(n_axes)):
+            fn = torch.func.vmap(fn, in_dims=(0, None, None), chunk_size=1)
+        self._dispatch(lambda p: fn(self._params(p), self._x, self._y),
+                       params_stack)
+
+    def collect(self) -> tuple[list, list]:
+        """Wait once for everything submitted; returns (losses, accs):
+        floats for ``submit`` entries, arrays for ``submit_stack``
+        ones. Raises, listing every failure, instead of returning part
+        of the results."""
+        errs = list(self._errors)
+        losses, accs = [], []
+        for item in self._pending:
+            try:                        # the card's errors surface here
+                tl, ta = (np.asarray(v.cpu()) for v in item)
+                losses.append(float(tl) if tl.ndim == 0 else tl)
+                accs.append(float(ta) if ta.ndim == 0 else ta)
+            except Exception as e:
+                errs.append(e)
+        self._pending = []
+        self._errors = []
+        if errs:
+            lines = "\n".join(f"  [{i}] {type(e).__name__}: {e}"
+                              for i, e in enumerate(errs))
+            exc = RuntimeError(f"AsyncEvaluator: {len(errs)} submitted "
+                               f"evaluation(s) failed:\n{lines}")
+            exc.failures = tuple(errs)
+            raise exc from errs[0]
+        return losses, accs
+
+    def result(self) -> tuple[list, list]:
+        """Alias of :meth:`collect`."""
+        return self.collect()
+
+    def shutdown(self) -> None:
+        """Collect what is pending and raise a kept failure; a second
+        call does nothing."""
+        if self._closed:
+            return
+        self._closed = True
+        self.collect()
+
+
+# staged operands kept across calls: repeated sweeps (replan studies,
+# fault grids, timing repeats) enter run_rounds_batched with the same
+# streams; staging them again costs host work and an upload per operand.
+# Keyed by a fingerprint of everything staging reads, bytes-capped LRU.
+# The parameter stack is built fresh every call and never kept.
+_STAGED_CACHE_LIMIT_BYTES = 512 * 1024 ** 2
+_STAGED_CACHE: collections.OrderedDict = collections.OrderedDict()
+_STAGED_CACHE_STATS = {"hits": 0, "misses": 0}
+
+
+def staged_cache_stats() -> dict:
+    """{'hits', 'misses'} of the staged-operand cache (process-wide)."""
+    return dict(_STAGED_CACHE_STATS)
+
+
+def reset_staged_cache() -> None:
+    _STAGED_CACHE.clear()
+    _STAGED_CACHE_STATS.update(hits=0, misses=0)
+
+
+def _staged_nbytes(args: dict) -> int:
+    return sum(v.numel() * v.element_size() for v in args.values()
+               if isinstance(v, torch.Tensor))
+
+
+def _staged_cache_put(key, args, meta) -> None:
+    nbytes = _staged_nbytes(args)
+    if nbytes > _STAGED_CACHE_LIMIT_BYTES:
+        return                          # larger than the whole cache
+    used = sum(e[2] for e in _STAGED_CACHE.values())
+    while _STAGED_CACHE and used + nbytes > _STAGED_CACHE_LIMIT_BYTES:
+        _, evicted = _STAGED_CACHE.popitem(last=False)
+        used -= evicted[2]
+    _STAGED_CACHE[key] = (args, meta, nbytes)
+
+
+def _staged_fingerprint(processed_list, act_list, tau, bucket, staging,
+                        max_points, device, faults, x_tr, y_tr):
+    """blake2b over everything the staged operands are a function of."""
+    h = hashlib.blake2b(digest_size=16)
+    mp = None if max_points is None else tuple(int(v) for v in max_points)
+    h.update(repr((int(tau), bucket, staging, mp, str(device),
+                   _array_identity(x_tr), _array_identity(y_tr))).encode())
+    for b, p in enumerate(processed_list):
+        lens, ids = pl._cell_table(p)
+        h.update(lens.tobytes())
+        h.update(np.ascontiguousarray(ids).tobytes())
+        h.update(np.ascontiguousarray(
+            np.asarray(act_list[b], np.float32)).tobytes())
+        f = None if faults is None else faults[b]
+        if f is None:
+            h.update(b"\x00nofault")
+        else:
+            for v in f.engine_arrays():
+                h.update(np.ascontiguousarray(
+                    np.asarray(v, np.float32)).tobytes())
+    return h.digest()
+
+
+def _stage_bucket_operands(processed_list, act_list, y_tr, tau, bucket,
+                           staging, max_points, faults, x_dev, x_tr,
+                           device):
+    """The staged device operands of one bucket run, and the host
+    metadata that slices the histories back out: round-major (T_b, ...)
+    tensors with the scenarios inside (dense idx/yb/w (T_b, S, n_b,
+    P_b); ragged idx/yb/w (T_b, R_b, C) and cell (T_b, R_b)), counts and
+    activity (T_b, S, n_b), the aggregation flags (windows, S) and, with
+    faults, the window-last (upload_ok, corrupt) views (windows, S,
+    n_b), identity for phantom windows and devices. Pixels are gathered
+    up front when that fits ``PRESTAGE_LIMIT_BYTES``, per round
+    otherwise."""
+    S = len(processed_list)
+    mp = list(max_points) if max_points is not None else None
+    item_bytes = int(np.prod(x_tr.shape[1:], dtype=np.int64)) * 4
+
+    def up(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
+
+    if staging == "ragged":
+        batch = pl.stage_scenario_ragged(processed_list, y_tr, act_list,
+                                         tau, max_points=mp, bucket=bucket)
+        _, T_b, n_b, R_b, C = batch.dims
+        prestage = T_b * R_b * C * item_bytes <= PRESTAGE_LIMIT_BYTES
+        idx, yb, wts = batch.idx, batch.yb, batch.w
+        M = S * n_b
+        cell = up(batch.cell)
+        extra = {"cell": cell,
+                 "cell_safe": torch.clamp(cell, max=M - 1).long()}
+        dims = (T_b, n_b, R_b, C)
+    else:
+        batch = pl.stage_scenario_batch(processed_list, y_tr, act_list,
+                                        tau, max_points=mp, bucket=bucket)
+        _, T_b, n_b, P_b = batch.dims
+        prestage = S * T_b * n_b * P_b * item_bytes <= PRESTAGE_LIMIT_BYTES
+
+        def rounds_major(a):
+            return np.moveaxis(np.asarray(a), 0, 1)  # (T_b, S, n_b, ...)
+
+        idx, yb, wts = (rounds_major(a) for a in
+                        (batch.idx, batch.yb, batch.w))
+        extra = {}
+        dims = (T_b, n_b, P_b)
+    n_win = T_b // tau
+    st = {"yb": up(yb, torch.int64), "w": up(wts),
+          "counts": up(np.moveaxis(batch.counts, 0, 1)),
+          "act": up(np.moveaxis(batch.act, 0, 1)),
+          # aggregations land on window-last rounds by construction
+          "agg": up(np.asarray(batch.is_agg, np.float32)
+                    .reshape(S, n_win, tau)[..., -1].T),
+          **extra}
+    idx_dev = up(idx, torch.int64)
+    if prestage:
+        st["xb_all"] = x_dev[idx_dev]
+    else:
+        st["idx"] = idx_dev
+    if faults is not None:
+        upl_w = np.ones((S, n_win, n_b), np.float32)
+        cor_w = np.ones((S, n_win, n_b), np.float32)
+        for b, f in enumerate(faults):
+            if f is None:
+                continue
+            upl_v, cor_v = f.engine_arrays()        # (T_s, n_s)
+            sl = slice(tau - 1, f.T, tau)
+            upl_w[b, :f.T // tau, :f.n] = upl_v[sl]
+            cor_w[b, :f.T // tau, :f.n] = cor_v[sl]
+        st["upl"] = up(np.moveaxis(upl_w, 0, 1))
+        st["cor"] = up(np.moveaxis(cor_w, 0, 1))
+    meta = {"T": list(batch.T), "n": list(batch.n),
+            "is_agg": np.asarray(batch.is_agg), "T_b": T_b, "n_b": n_b,
+            "n_win": n_win, "prestage": prestage, "dims": dims}
+    return st, meta
+
+
+def _row_loss_fn(apply_fn):
+    """The UNNORMALIZED weighted cross-entropy of one ragged chunk row,
+    the summand of ``mnist.ce_loss``'s numerator. The ragged round sums
+    these per device and divides by the staged count afterwards (equal
+    to the dense path's ``w.sum()``: 0/1 weights sum exactly)."""
+
+    def lf(p, xb, yb, w):
+        logp = torch.log_softmax(apply_fn(p, xb).float(), dim=-1)
+        ll = logp.gather(1, yb[:, None])[:, 0]
+        return -(ll * w).sum()
+
+    return lf
+
+
+class _RowGather(torch.autograd.Function):
+    """Each ragged row's owner parameters gathered off the flat (M, ...)
+    device stack. Phantom rows carry the trash id M: the gather reads
+    row M − 1 for them (``cell_safe``, clamped), where the reference's
+    ``mode="clip"`` reads it too. The backward is the transpose, each
+    device's row gradients summed in ascending row order by
+    ``ops.segment_sum_rows`` (the row kernel on the card), where the
+    trash id adds nothing; torch's own backward of ``index_select``
+    adds by atomics on the card, in no fixed order."""
+
+    @staticmethod
+    def forward(Wf, cell, cell_safe, layout):
+        return Wf.index_select(0, cell_safe)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        Wf, cell, _, layout = inputs
+        ctx.save_for_backward(cell)
+        ctx.shape, ctx.layout = Wf.shape, layout
+
+    @staticmethod
+    def backward(ctx, grad_rows):
+        cell, = ctx.saved_tensors
+        M = ctx.shape[0]
+        g = ops.segment_sum_rows(
+            grad_rows.reshape(grad_rows.shape[0], -1).contiguous(), cell,
+            num_segments=M, layout=ctx.layout)
+        return g.reshape(ctx.shape), None, None, None
+
+
+def _layout(ids, num_segments: int):
+    """The segment layout of ``ids`` on the card (built once for all the
+    leaves that reduce over them); None on the CPU, where the plain
+    versions need none."""
+    if ids.device.type != "cuda":
+        return None
+    return sr.segment_layout(ids, num_segments)
+
+
+# bucket programs by (model, η, prestage, faults, guard, quorum, staging);
+# each records the bucket shapes it ran, the port's analogue of the
+# reference's per-shape jit cache entries. A program holds closures
+# only, so none is evicted.
+_BUCKET_PROGRAMS: dict = {}
+
+
+def batched_compile_count() -> int:
+    """The number of distinct (bucket program, bucket shape) keys the
+    sweep engine has run. The port builds nothing at run time (no
+    ``torch.compile``): this is the analogue of the reference's count of
+    jit cache entries, one per program and shape bucket."""
+    return sum(len(p.shapes) for p in _BUCKET_PROGRAMS.values())
+
+
+def _bucket_program(apply_fn, eta: float, prestage: bool, faults: bool,
+                    guard: bool, quorum: float, staging: str):
+    key = (apply_fn, float(eta), prestage, faults, guard, quorum, staging)
+    if key not in _BUCKET_PROGRAMS:
+        _BUCKET_PROGRAMS[key] = _BucketProgram(
+            apply_fn, eta, prestage, faults, guard, quorum, staging)
+    return _BUCKET_PROGRAMS[key]
+
+
+class _BucketProgram:
+    """One bucket of S scenarios trained together: the port of the
+    reference's ``_bucket_program``, as a Python loop over (T_b/τ)
+    aggregation windows of τ rounds, with the reference's order of
+    operations kept literally so that the histories come out the same.
+
+    The device axis is the flat (M = S·n_b) stack. A dense round runs
+    :func:`make_device_step` over the M rows; a ragged round gathers the
+    chunk rows' owner parameters (:class:`_RowGather`), sums the rows'
+    losses and takes the gradient of that sum with respect to the
+    stack, whose backward sums each device's row gradients by
+    ``ops.segment_sum_rows``; the per-device losses are the same row sum
+    over M + 1 segments (the last the trash), divided by the staged
+    count.
+
+    Aggregation is deferred by one window, as the reference's double
+    buffer: window w's epilogue issues eq. (4)'s H-weighted sums
+    (:meth:`agg_sums`, a fixed-order sum over the devices of each
+    scenario: one row-kernel launch per leaf into S segments, and the
+    1-D kernel for the H totals), and window w + 1's prologue divides,
+    syncs and updates ``waiting``. Under faults the uploads are guarded
+    and the quorum decision and the H reset move to the prologue too,
+    so a window that fails its quorum keeps H accumulating. One card
+    gains no overlap from this: the order is kept for the bits."""
+
+    def __init__(self, apply_fn, eta, prestage, faults, guard, quorum,
+                 staging):
+        self.apply_fn, self.eta = apply_fn, float(eta)
+        self.prestage, self.faults = prestage, faults
+        self.guard, self.quorum = guard, quorum
+        self.ragged = staging == "ragged"
+        self.step = make_device_step(apply_fn, self.eta)
+        self.vrow = torch.func.vmap(_row_loss_fn(apply_fn))
+        self.shapes: set = set()
+
+    def agg_sums(self, W, H, contributing, scen):
+        """Eq. (4)'s numerator and denominator per scenario: Σ H_i·c_i·
+        w_i and Σ H_i·c_i over each scenario's n_b devices, in ascending
+        device order from zero, one product and one add an entry, so a
+        scenario's bits are the same alone and in a bucket (phantom
+        devices add +0). ``scen`` is (ids, layout) of the rows'
+        scenarios."""
+        ids, lay = scen
+        S = H.shape[0]
+        hc = (H * contributing).reshape(-1)
+        num = {k: ops.segment_sum_rows(
+                   p.reshape(p.shape[0], -1), ids, num_segments=S,
+                   scale=hc, layout=lay).reshape((S,) + p.shape[1:])
+               for k, p in W.items()}
+        return num, ops.segment_sum(hc, ids, num_segments=S, layout=lay)
+
+    @staticmethod
+    def finalize(p_num, p_tot, p_flag, wg):
+        """The deferred divide: the new global of each scenario whose
+        window aggregated with a positive H total; the old one
+        elsewhere."""
+        live = (p_flag > 0) & (p_tot > 0)
+        den = torch.clamp(p_tot, min=1e-9)
+        return {k: torch.where(_bcast(live, old), p_num[k] / _bcast(den, old),
+                               old) for k, old in wg.items()}
+
+    def ragged_round(self, W, xb, yb, w, cell, cell_safe, cnt, active):
+        M = cnt.numel()
+        denom = torch.clamp(cnt.reshape(M), min=1.0)
+        scale = (active * torch.clamp(cnt, max=1.0)).reshape(M)
+        lay = _layout(cell, M)
+        leaves = {k: p.detach().requires_grad_(True) for k, p in W.items()}
+        with torch.enable_grad():
+            Wr = {k: _RowGather.apply(p, cell, cell_safe, lay)
+                  for k, p in leaves.items()}
+            rloss = self.vrow(Wr, xb, yb, w)
+            grads = torch.autograd.grad(rloss.sum(), list(leaves.values()))
+        lsum = ops.segment_sum_rows(rloss.detach(), cell,
+                                    num_segments=M + 1,
+                                    layout=_layout(cell, M + 1))[:M]
+        new = {}
+        for (k, p), g in zip(W.items(), grads):
+            g = g / _bcast(denom, g)
+            new[k] = p - _bcast(self.eta * scale, p) * g
+        return new, lsum / denom
+
+    def __call__(self, W, wg, x_dev, st, tau: int):
+        T_b, S, n = st["counts"].shape
+        M, n_win = S * n, T_b // tau
+        dev = x_dev.device
+        scen_ids = torch.arange(S, dtype=torch.int32,
+                                device=dev).repeat_interleave(n)
+        scen = (scen_ids, _layout(scen_ids, S))
+        zeros = torch.zeros((S, n), device=dev)
+        zs = torch.zeros(S, device=dev)
+        H, waiting = zeros, zeros
+        p_num = {k: torch.zeros_like(v) for k, v in wg.items()}
+        p_tot, p_act, p_flag = zs, zeros, zs
+        p_surv = p_expd = zs
+        losses = torch.empty((T_b, S, n), device=dev)
+        H_w = torch.empty((n_win, S, n), device=dev)
+        wg_ys = {k: torch.empty((n_win,) + v.shape, device=dev)
+                 for k, v in wg.items()}
+        fo = None
+        if self.faults:
+            fo = {k: torch.empty((n_win, S), device=dev)
+                  for k in ("surv", "expd", "qok")}
+        for win in range(n_win):
+            if self.faults:
+                # the previous window's quorum decision lands here, with
+                # its deferred sums
+                qok_f = (p_surv >= self.quorum * p_expd).float()
+                p_flag = p_flag * qok_f
+            # prologue: realize the aggregation the previous window
+            # issued (divide, sync, waiting)
+            wg = self.finalize(p_num, p_tot, p_flag, wg)
+            flag = (p_flag > 0)[:, None]
+            sync = flag & (p_act > 0.5)                       # (S, n)
+            W = {k: torch.where(
+                     sync.reshape((S, n) + (1,) * (p.dim() - 1)),
+                     wg[k][:, None], p.reshape((S, n) + p.shape[1:]))
+                 .reshape(p.shape) for k, p in W.items()}
+            waiting = torch.where(flag, 1.0 - p_act, waiting)
+            if self.faults:
+                H = torch.where(flag, torch.zeros_like(H), H)
+            t0 = win * tau
+            a = st["act"][t0:t0 + tau]
+            act_eff = a * (1.0 - waiting)                     # (τ, S, n)
+            for r in range(tau):
+                t = t0 + r
+                if "xb_all" in st:
+                    xb = st["xb_all"][t]
+                else:
+                    xb = x_dev[st["idx"][t]]
+                cnt_r, a_r = st["counts"][t], act_eff[r]
+                if self.ragged:
+                    W, lt = self.ragged_round(
+                        W, xb, st["yb"][t], st["w"][t], st["cell"][t],
+                        st["cell_safe"][t], cnt_r, a_r)
+                else:
+                    P = xb.shape[2]
+                    W, lt = self.step(
+                        W, xb.reshape((M, P) + xb.shape[3:]),
+                        st["yb"][t].reshape(M, P), st["w"][t].reshape(M, P),
+                        a_r.reshape(M))
+                losses[t] = lt.reshape(S, n)
+                H = H + cnt_r * a_r
+            # epilogue: issue this window's H-weighted sums; the next
+            # prologue consumes them
+            H_w[win] = H
+            for k, v in wg.items():
+                wg_ys[k][win] = v
+            agg = st["agg"][win]
+            if self.faults:
+                Wu, contrib = _guarded_uploads(
+                    W, act_eff[-1].reshape(M), st["upl"][win].reshape(M),
+                    st["cor"][win].reshape(M), self.guard)
+                contrib = contrib.reshape(S, n)
+                num, tot = self.agg_sums(Wu, H, contrib, scen)
+                fo["surv"][win], fo["expd"][win] = p_surv, p_expd
+                fo["qok"][win] = qok_f
+                p_surv, p_expd = contrib.sum(1), act_eff[-1].sum(1)
+            else:
+                num, tot = self.agg_sums(W, H, act_eff[-1], scen)
+                H = torch.where(agg[:, None] > 0, torch.zeros_like(H), H)
+            p_num, p_tot, p_act, p_flag = num, tot, a[-1], agg
+        # window w's snapshot is the global BEFORE its aggregation
+        # realizes: shift by one and realize the last pending window
+        if self.faults:
+            qok_last = (p_surv >= self.quorum * p_expd).float()
+            wg_last = self.finalize(p_num, p_tot, p_flag * qok_last, wg)
+            last = {"surv": p_surv, "expd": p_expd, "qok": qok_last}
+            fo = {k: torch.cat([v[1:], last[k][None]]) for k, v in fo.items()}
+        else:
+            wg_last = self.finalize(p_num, p_tot, p_flag, wg)
+        wg_win = {k: torch.cat([v[1:], wg_last[k][None]])
+                  for k, v in wg_ys.items()}
+        return losses, H_w, wg_win, fo
+
+
+def _check_mesh(mesh) -> None:
+    if mesh not in ("auto", None):
+        raise ValueError(
+            "the port runs the sweep engine on one card: mesh must be "
+            "'auto' or None (ROADMAP.md, queue 1 item 12: multi-GPU)")
+
+
+def run_rounds_batched(apply_fn, params_list, x_tr, y_tr, x_te, y_te,
+                       processed_list, act_list, tau: int, eta: float,
+                       max_points=None, *, bucket: str = "pow2",
+                       mesh="auto", staging: str = "dense", faults=None,
+                       guard: bool = True, quorum: float = 0.0,
+                       device=None) -> list[dict]:
+    """Train a whole bucket of S scenarios in one round loop on
+    ``device`` (``cuda`` by default).
+
+    ``processed_list``/``act_list``/``params_list`` carry the S
+    scenarios, possibly of different true (T, n, P): they are padded to
+    the shared shape bucket with phantom inactive rounds and devices
+    (:func:`pipeline.stage_scenario_batch`), and must share the dataset,
+    model, η and τ. Returns one history per scenario, sliced back to its
+    true (T, n), the keys of :func:`run_rounds_scan`. Evaluation of the
+    whole (windows, S) snapshot grid is one stacked
+    :class:`AsyncEvaluator` call.
+
+    ``staging``: "dense" stages padded (S, T_b, n_b, P_b) slabs;
+    "ragged" stages chunk-row tables (:func:`pipeline.
+    stage_scenario_ragged`), so each round's work follows the bucket's
+    real sample total. Either way a scenario's history is bitwise the
+    same as that scenario run alone at the same staging (dense: alone
+    with ``max_points`` the bucket's P_b), on the CPU; it matches
+    :func:`run_rounds_scan` within the engines' tolerances (eq. (4) is
+    a sequential sum here, an einsum there). Staged device operands are
+    kept across calls (:func:`staged_cache_stats`).
+
+    ``faults`` — optional list of per-scenario FaultSchedules (entries
+    may be None): crash outages join each scenario's activity and the
+    window-last (upload_ok, corrupt) views ride the windows, under the
+    shared ``guard`` and ``quorum`` (see :func:`run_rounds_scan`).
+
+    ``mesh``: "auto" and None both mean one card; anything else raises
+    (multi-GPU is ROADMAP.md queue 1 item 12)."""
+    t_stage0 = time.perf_counter()
+    device = resolve_device(device)
+    if staging not in ("dense", "ragged"):
+        raise ValueError(f"staging must be 'dense' or 'ragged'; "
+                         f"got {staging!r}")
+    _check_mesh(mesh)
+    S = len(processed_list)
+    use_faults = faults is not None and any(f is not None for f in faults)
+    if use_faults:
+        if len(faults) != S:
+            raise ValueError(f"faults list has {len(faults)} entries "
+                             f"for {S} scenarios")
+        act_list = list(act_list)
+        for b, f in enumerate(faults):
+            if f is None:
+                continue
+            _check_fault_dims(f, *_dims(processed_list[b]), tau)
+            act_list[b] = np.asarray(act_list[b], bool) \
+                & f.activity_mask()
+    guard_f = bool(guard) if use_faults else False
+    quorum_f = float(quorum) if use_faults else 0.0
+    x_dev = _to_device_cached(x_tr, device)
+    cache_key = _staged_fingerprint(
+        processed_list, act_list, tau, bucket, staging, max_points,
+        device, faults if use_faults else None, x_tr, y_tr)
+    hit = _STAGED_CACHE.get(cache_key)
+    if hit is not None:
+        _STAGED_CACHE.move_to_end(cache_key)
+        _STAGED_CACHE_STATS["hits"] += 1
+        st, meta, _ = hit
+    else:
+        _STAGED_CACHE_STATS["misses"] += 1
+        st, meta = _stage_bucket_operands(
+            processed_list, act_list, y_tr, tau, bucket, staging,
+            max_points, faults if use_faults else None, x_dev, x_tr,
+            device)
+        _staged_cache_put(cache_key, st, meta)
+    n_b = meta["n_b"]
+    keys = list(params_list[0])
+
+    def leaf(p, k):
+        return torch.as_tensor(p[k], dtype=torch.float32).to(device)
+
+    wg0 = {k: torch.stack([leaf(p, k) for p in params_list]) for k in keys}
+    W0 = {k: v[:, None].expand(S, n_b, *v.shape[1:])
+          .reshape(S * n_b, *v.shape[1:]) for k, v in wg0.items()}
+    t_train0 = time.perf_counter()
+    _PHASE["stage_s"] += t_train0 - t_stage0
+    prog = _bucket_program(apply_fn, eta, meta["prestage"], use_faults,
+                           guard_f, quorum_f, staging)
+    prog.shapes.add((S,) + meta["dims"])
+    with torch.no_grad():
+        losses, H_w, wg_win, fo = prog(W0, wg0, x_dev, st, tau)
+    synchronize(device)
+    t_eval0 = time.perf_counter()
+    _PHASE["program_s"] += t_eval0 - t_train0
+    ev = AsyncEvaluator(apply_fn, x_te, y_te, device=device)
+    ev.submit_stack(wg_win, n_axes=2)
+    (tl,), (ta,) = ev.collect()
+    _PHASE["eval_s"] += time.perf_counter() - t_eval0
+
+    losses = losses.cpu().numpy()
+    H_w = H_w.cpu().numpy()
+    if fo is not None:
+        fo = {k: v.cpu().numpy() for k, v in fo.items()}
+    hists = []
+    for b in range(S):
+        T, n = meta["T"][b], meta["n"][b]
+        agg_rounds = np.nonzero(meta["is_agg"][b, :T])[0]
+        wins = agg_rounds // tau
+        h = {"device_loss": list(losses[:T, b, :n]),
+             "test_loss": [float(v) for v in tl[wins, b]],
+             "test_acc": [float(v) for v in ta[wins, b]],
+             "agg_round": [int(t) for t in agg_rounds],
+             "H_agg": list(H_w[wins, b][:, :n])}
+        if fo is not None:
+            h["agg_survivors"] = [float(v) for v in fo["surv"][wins, b]]
+            h["agg_quorum_ok"] = [bool(v > 0) for v in fo["qok"][wins, b]]
+        hists.append(h)
+    _PHASE["train_s"] += time.perf_counter() - t_train0
+    return hists
+
+
+def run_rounds_batched_single(apply_fn, params, x_tr, y_tr, x_te, y_te,
+                              processed, act_all, tau: int, eta: float,
+                              max_pts: int, *, mesh="auto",
+                              staging: str = "dense", faults=None,
+                              guard: bool = True, quorum: float = 0.0,
+                              device=None) -> dict:
+    """One scenario through the sweep engine (``engine="batched"``,
+    S = 1): the same round loop, exact pad sizes."""
+    return run_rounds_batched(
+        apply_fn, [params], x_tr, y_tr, x_te, y_te, [processed],
+        [act_all], tau, eta, [max_pts], bucket="exact", mesh=mesh,
+        staging=staging, faults=None if faults is None else [faults],
+        guard=guard, quorum=quorum, device=device)[0]

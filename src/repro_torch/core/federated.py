@@ -3,10 +3,13 @@
 ``run_network_aware`` prepares the sample streams on the host (movement
 routing, pad sizing) and hands the staged rounds to the training engine
 in :mod:`repro_torch.core.engine`: ``"scan"`` (the whole horizon on the
-device, default), ``"legacy"`` (the per-round oracle) or ``"auto"``
-(scan: the port runs on one card). With ``hierarchy=`` a
+device, default), ``"legacy"`` (the per-round oracle), ``"batched"``
+(the sweep engine with one scenario) or ``"auto"`` (scan: the port runs
+on one card). With ``hierarchy=`` a
 :class:`repro_torch.core.hierarchy.TierTree` composes eq. (4) up its
 tiers (``"hierarchical"``, on the scan substrate).
+``run_network_aware_batched`` trains a whole bucket of sweep points at
+once through the sweep engine.
 
 Baselines: ``run_centralized`` (all data at one node) and
 ``run_federated`` (no movement, G_i = D_i), the Table II rows.
@@ -44,9 +47,10 @@ class FedConfig:
     p_entry: float = 0.0
 
 
-# engines of the reference not ported yet, with their ROADMAP.md item
-_UNPORTED_ENGINES = {"batched": "queue 1 item 11 (sweep engine)",
-                     "sharded": "queue 1 item 12 (multi-GPU)"}
+# the reference's engine not ported yet, with its ROADMAP.md item: the
+# sweep engine ("batched") runs on one card; its sharded slice waits
+# for multi-GPU
+_UNPORTED_ENGINES = {"sharded": "queue 1 item 12 (multi-GPU)"}
 
 
 def run_network_aware(cfg: FedConfig, data, traces: CostTraces,
@@ -64,6 +68,7 @@ def run_network_aware(cfg: FedConfig, data, traces: CostTraces,
                       checkpoint_every: int = 1,
                       resume: str | None = None,
                       stop_after: int | None = None,
+                      mesh=None, prepared=None,
                       device=None) -> dict:
     """Train with a given movement plan. Returns the history dict.
 
@@ -97,6 +102,14 @@ def run_network_aware(cfg: FedConfig, data, traces: CostTraces,
     (the sparse staging path for 10⁵ devices: masking, routing and
     staging as array operations over the sample table); the scan and
     hierarchical engines take it, the legacy engine refuses it.
+
+    ``engine="batched"`` runs the sweep engine with S = 1
+    (:func:`repro_torch.core.engine.run_rounds_batched_single`: exact
+    pad sizes, eq. (4) as a sequential sum); ``mesh`` is passed to it
+    (None or "auto": one card). ``prepared`` — the
+    ``(streams, processed, act_all, max_pts)`` of an earlier
+    :func:`_prepare_streams` call, so a sweep that prepared the
+    streams to price a bucket does not prepare them twice.
     """
     device = resolve_device(device)
     if hierarchy is not None:
@@ -121,7 +134,9 @@ def run_network_aware(cfg: FedConfig, data, traces: CostTraces,
                          f" {_UNPORTED_ENGINES[engine]})")
     runners = {"scan": eng.run_rounds_scan, "legacy": eng.run_rounds_legacy,
                "hierarchical": functools.partial(
-                   eng.run_rounds_hierarchical, tree=hierarchy)}
+                   eng.run_rounds_hierarchical, tree=hierarchy),
+               "batched": functools.partial(
+                   eng.run_rounds_batched_single, mesh=mesh)}
     if engine not in runners:
         raise ValueError(f"unknown engine {engine!r}; expected one of "
                          f"{sorted(runners)} or 'auto'")
@@ -141,17 +156,13 @@ def run_network_aware(cfg: FedConfig, data, traces: CostTraces,
                         checkpoint_every=checkpoint_every, resume=resume,
                         stop_after=stop_after)
     x_tr, y_tr, x_te, y_te = data
-    streams, processed, act_all, max_pts = _prepare_streams(
-        cfg, data, plan, streams, activity, schedule, faults)
-
-    specs_fn, apply_fn = mm.MODELS[cfg.model]
-    if params is None:
-        params = mm.init_params(
-            specs_fn(), torch.Generator().manual_seed(cfg.seed),
-            device=device)
+    if prepared is not None:
+        streams, processed, act_all, max_pts = prepared
     else:
-        params = {k: torch.as_tensor(v, dtype=torch.float32).to(device)
-                  for k, v in params.items()}
+        streams, processed, act_all, max_pts = _prepare_streams(
+            cfg, data, plan, streams, activity, schedule, faults)
+    apply_fn = mm.MODELS[cfg.model][1]
+    params = _initial_params(cfg, params, device)
 
     hist = _history_base(cfg, y_tr, streams, processed, act_all)
     hist["max_points"] = max_pts
@@ -165,6 +176,97 @@ def run_network_aware(cfg: FedConfig, data, traces: CostTraces,
                                 processed, act_all, cfg.tau, cfg.eta,
                                 max_pts, device=device, **engine_kw))
     return hist
+
+
+def _initial_params(cfg: FedConfig, params, device) -> dict:
+    """``params`` on ``device``, or the model's parameters drawn from a
+    ``torch.Generator`` seeded with ``cfg.seed``."""
+    if params is None:
+        specs_fn = mm.MODELS[cfg.model][0]
+        return mm.init_params(
+            specs_fn(), torch.Generator().manual_seed(cfg.seed),
+            device=device)
+    return {k: torch.as_tensor(v, dtype=torch.float32).to(device)
+            for k, v in params.items()}
+
+
+def run_network_aware_batched(cfgs: list[FedConfig], data,
+                              plans: list[mv.MovementPlan], *,
+                              streams: list | None = None,
+                              activities: list | None = None,
+                              schedules: list | None = None,
+                              mesh="auto", bucket: str = "pow2",
+                              staging: str = "dense",
+                              prepared: list | None = None,
+                              faults: list | None = None,
+                              guard: bool = True, quorum: float = 0.0,
+                              params: list | None = None,
+                              device=None) -> list[dict]:
+    """Train a whole bucket of sweep points at once: each point's host
+    preparation (:func:`_prepare_streams`, the same code as
+    :func:`run_network_aware`, so the streams are those of a loop over
+    the points), then :func:`repro_torch.core.engine.
+    run_rounds_batched`, which pads every point to the bucket's shape
+    and trains them together. The points must share the dataset,
+    model, η and τ (group a sweep first: :func:`repro_torch.launch.
+    tables.scenario_bucket_key`).
+
+    ``staging``: "dense" pads every point to the bucket's (n_b, P_b)
+    slab; "ragged" stages chunk-row tables. ``prepared`` — one
+    ``_prepare_streams`` result per point, as a cost-model dispatch
+    that priced the bucket hands them down. ``faults`` — per-point
+    FaultSchedules or None, under the shared ``guard`` and ``quorum``.
+    ``params`` — optional per-point initial parameters (as in
+    :func:`run_network_aware`). ``mesh``: "auto" or None (one card).
+    ``device`` defaults to ``cuda``. Returns one history per point, the
+    contract of :func:`run_network_aware`."""
+    device = resolve_device(device)
+    S = len(cfgs)
+    if not (S == len(plans)
+            and all(lst is None or len(lst) == S
+                    for lst in (streams, activities, schedules, faults,
+                                params, prepared))):
+        raise ValueError("cfgs/plans/streams/activities/schedules/"
+                         "faults/params/prepared must have one entry per "
+                         "scenario")
+    head = (cfgs[0].model, cfgs[0].eta, cfgs[0].tau)
+    for cfg in cfgs[1:]:
+        if (cfg.model, cfg.eta, cfg.tau) != head:
+            raise ValueError(
+                "a batched bucket must share (model, eta, tau); got "
+                f"{(cfg.model, cfg.eta, cfg.tau)} vs {head}")
+    x_tr, y_tr, x_te, y_te = data
+    pl.reset_padding_warnings()          # inflation warnings: once a sweep
+    processed_list, act_list, max_list, hists = [], [], [], []
+    for b, cfg in enumerate(cfgs):
+        f = faults[b] if faults is not None else None
+        if prepared is not None:
+            st, processed, act_all, max_pts = prepared[b]
+        else:
+            st, processed, act_all, max_pts = _prepare_streams(
+                cfg, data, plans[b],
+                streams[b] if streams is not None else None,
+                activities[b] if activities is not None else None,
+                schedules[b] if schedules is not None else None, f)
+        processed_list.append(processed)
+        act_list.append(act_all)
+        max_list.append(max_pts)
+        h = _history_base(cfg, y_tr, st, processed, act_all)
+        h["max_points"] = max_pts
+        if f is not None:
+            h["fault_summary"] = f.summary()
+        hists.append(h)
+    params_list = [_initial_params(cfg, None if params is None
+                                   else params[b], device)
+                   for b, cfg in enumerate(cfgs)]
+    outs = eng.run_rounds_batched(
+        mm.MODELS[cfgs[0].model][1], params_list, x_tr, y_tr, x_te, y_te,
+        processed_list, act_list, cfgs[0].tau, cfgs[0].eta, max_list,
+        bucket=bucket, mesh=mesh, staging=staging, faults=faults,
+        guard=guard, quorum=quorum, device=device)
+    for hist, out in zip(hists, outs):
+        hist.update(out)
+    return hists
 
 
 def _prepare_streams(cfg: FedConfig, data, plan, streams, activity,

@@ -6,7 +6,10 @@
 * application of a MovementPlan to the physical sample streams:
   offloaded samples travel one round (arrive at t+1), discarded samples
   vanish;
-* padding and staging of the (T, n, P) rounds the engine trains on.
+* padding and staging of the (T, n, P) rounds the engine trains on;
+* the sweep engine's staging of S scenarios into one shape bucket:
+  dense (S, T_b, n_b, P_b) slabs (:func:`stage_scenario_batch`) or
+  ragged chunk-row tables (:func:`stage_scenario_ragged`).
 
 Streams come as per-cell lists (:class:`FogStreams`) or as one flat
 sample table (:class:`FlatStreams`, the O(samples) form for 10⁵
@@ -300,6 +303,29 @@ def label_similarity(label_multisets: list[np.ndarray],
     return float(np.mean(sims)) if sims.size else 0.0
 
 
+# padding-inflation warnings are deduplicated per sweep, not emitted per
+# point: a 50-point sweep with one undersized bucket should warn once
+_PAD_WARNED: set = set()
+
+
+def reset_padding_warnings() -> None:
+    """Start a new sweep: padding-inflation warnings may fire again."""
+    _PAD_WARNED.clear()
+
+
+def _warn_once(key, msg: str) -> None:
+    if key not in _PAD_WARNED:
+        _PAD_WARNED.add(key)
+        warnings.warn(msg, stacklevel=3)
+
+
+# padded rounds/devices still execute their (zero-weight) compute, so
+# bucketing a dimension that would inflate it beyond this factor falls
+# back to the exact size: nearby shapes share a program, distant ones
+# pay a recompile instead of phantom FLOPs every round
+BUCKET_MAX_INFLATION = 4 / 3
+
+
 def bucket_size(value: int, bucket: str = "pow2", *,
                 max_inflation: float | None = None) -> int:
     """Round a dimension up to its shape bucket: ``"pow2"`` rounds up to
@@ -315,6 +341,19 @@ def bucket_size(value: int, bucket: str = "pow2", *,
     if max_inflation is not None and b > value * max_inflation:
         return value
     return b
+
+
+def bucket_rounds(T: int, tau: int, bucket: str = "pow2") -> int:
+    """Bucket for the round axis: the WINDOW count (T/tau) is bucketed,
+    then scaled back by tau — so tau-aligned horizons (the common
+    same-T sweep) pad zero rounds while cross-T sweeps still share a
+    program per bucket. Padded windows train nothing but still execute,
+    so inflation beyond ``BUCKET_MAX_INFLATION`` keeps the exact window
+    count. Always a multiple of tau (the engines scan (T/tau, tau)
+    aggregation windows)."""
+    n_win = -(-int(T) // int(tau))
+    return bucket_size(n_win, bucket,
+                       max_inflation=BUCKET_MAX_INFLATION) * int(tau)
 
 
 def pad_size(processed, requested: int = 0, *,
@@ -420,3 +459,259 @@ def stage_rounds_flat(flat: FlatStreams, y: np.ndarray, max_points: int):
     counts = np.minimum(cell_counts, P).astype(np.float32) \
         .reshape(T, n)
     return idx, yb, w, counts
+
+
+@dataclasses.dataclass
+class ScenarioBatch:
+    """S scenarios staged into ONE stacked, bucket-padded stream.
+
+    All arrays carry a leading scenario axis: ``idx``/``yb``/``w`` are
+    (S, T_b, n_b, P_b), ``counts``/``act`` are (S, T_b, n_b), ``is_agg``
+    is (S, T_b). ``T``/``n``/``P`` record each scenario's TRUE dims so
+    histories can be sliced back out of the padding; phantom rounds and
+    devices are inactive (act 0, counts 0, is_agg False) and train
+    nothing."""
+
+    idx: np.ndarray
+    yb: np.ndarray
+    w: np.ndarray
+    counts: np.ndarray
+    act: np.ndarray
+    is_agg: np.ndarray
+    T: list[int]
+    n: list[int]
+    P: list[int]
+    tau: int
+
+    @property
+    def dims(self) -> tuple[int, int, int, int]:
+        """(S, T_b, n_b, P_b) — the bucket the program compiles for."""
+        return self.idx.shape
+
+
+# chunk size of the ragged row tables: each (round, device) cell is cut
+# into ceil(count/RAGGED_CHUNK) virtual rows of RAGGED_CHUNK sample
+# slots, so the compiled per-round work is proportional to the actual
+# sample total (plus at most one partially-filled chunk per nonempty
+# cell) instead of S·P_max. Larger chunks mean fewer rows (less
+# parameter gather/scatter traffic) but more slot padding per cell.
+RAGGED_CHUNK = 8
+
+
+@dataclasses.dataclass
+class RaggedScenarioBatch:
+    """S scenarios staged as per-round RAGGED chunk-row tables.
+
+    Instead of the dense (S, T_b, n_b, P_b) slab of
+    :class:`ScenarioBatch` — whose phantom P-slots still execute — each
+    round carries a flat table of ``R_b`` chunk rows of ``chunk``
+    sample slots: row r of round t holds up to ``chunk`` samples of ONE
+    (scenario, device) cell, identified by ``cell[t, r]`` on the flat
+    scenario-major device axis (``s * n_b + dev``). Phantom rows point
+    at the trash segment ``S * n_b`` so their (zero-weight) garbage
+    never reaches a real device. A scenario's rows are contiguous and
+    ordered by (device, chunk) within each round, so its per-device
+    reduction order — and therefore its bits — is the same whether it
+    trains alone or inside the bucket.
+
+    ``counts``/``act``/``is_agg`` and the true-dims lists are exactly
+    the dense batch's: the device axis stays (S, n_b), only the sample
+    axis goes ragged."""
+
+    idx: np.ndarray      # (T_b, R_b, C) int32 global sample ids
+    yb: np.ndarray       # (T_b, R_b, C) int32 labels
+    w: np.ndarray        # (T_b, R_b, C) float32 slot mask
+    cell: np.ndarray     # (T_b, R_b) int32 flat device id; S*n_b=trash
+    counts: np.ndarray   # (S, T_b, n_b) float32
+    act: np.ndarray      # (S, T_b, n_b) float32
+    is_agg: np.ndarray   # (S, T_b) bool
+    T: list[int]
+    n: list[int]
+    P: list[int]
+    tau: int
+    chunk: int
+    total_samples: int   # true sample total across the bucket
+    total_rows: int      # true (unpadded) chunk-row total
+
+    @property
+    def dims(self) -> tuple[int, int, int, int, int]:
+        """(S, T_b, n_b, R_b, C) — the bucket the program compiles
+        for."""
+        S, T_b, n_b = self.counts.shape
+        R_b, C = self.idx.shape[1:]
+        return S, T_b, n_b, R_b, C
+
+
+def _cell_table(processed, y=None):
+    """Normalize per-cell lists or a :class:`FlatStreams` into
+    ((T, n) sample counts, concatenated ids in (t, dev, within-cell)
+    order) — the inputs the ragged stager scatters from."""
+    if isinstance(processed, FlatStreams):
+        T, n = processed.T, processed.n
+        lens = np.bincount(processed.cell_key(),
+                           minlength=T * n).astype(np.int64).reshape(T, n)
+        return lens, np.asarray(processed.idx, np.int64)
+    lens = np.array([[len(ix) for ix in row] for row in processed],
+                    np.int64).reshape(len(processed), -1)
+    cells = [np.asarray(ix, np.int64) for row in processed for ix in row]
+    ids = (np.concatenate(cells) if cells and lens.sum()
+           else np.empty(0, np.int64))
+    return lens, ids
+
+
+def stage_scenario_ragged(processed_list, y: np.ndarray,
+                          act_list: list[np.ndarray], tau: int, *,
+                          max_points: list[int] | None = None,
+                          bucket: str = "pow2",
+                          chunk: int | None = None
+                          ) -> RaggedScenarioBatch:
+    """Ragged counterpart of :func:`stage_scenario_batch`.
+
+    Per-round chunk-row tables are built with one scatter per staged
+    array (the :func:`stage_rounds_flat` idiom): every (scenario,
+    round, device) cell becomes ceil(count/chunk) rows, rows of one
+    round packed scenario-major (scenario rows contiguous, devices in
+    index order — the order the in-bucket-equals-alone bitwise
+    guarantee rests on), the row axis bucketed like the other compute
+    axes (pow2, ``BUCKET_MAX_INFLATION`` cap). The inflation warning
+    fires on the RAGGED totals — padded row-slots vs the samples
+    actually staged — not on the dense pow2 P prediction, since the
+    phantom P-slots the dense warning prices never execute here."""
+    C = int(chunk or RAGGED_CHUNK)
+    if C < 1:
+        raise ValueError(f"chunk must be >= 1; got {C}")
+    S = len(processed_list)
+    tables = [_cell_table(p) for p in processed_list]
+    T_s = [lens.shape[0] for lens, _ in tables]
+    n_s = [lens.shape[1] for lens, _ in tables]
+    P_s = [pad_size(p, (max_points or [0] * S)[b])
+           for b, p in enumerate(processed_list)]
+    T_b = max(bucket_rounds(T, tau, bucket) for T in T_s)
+    n_b = max(bucket_size(n, bucket,
+                          max_inflation=BUCKET_MAX_INFLATION)
+              for n in n_s)
+    nrows = [-(-lens // C) for lens, _ in tables]        # (T_s, n_s)
+    rows_round = np.zeros(T_b, np.int64)
+    for b, nr in enumerate(nrows):
+        rows_round[:T_s[b]] += nr.sum(1)
+    R_max = int(rows_round.max()) if T_b else 0
+    R_b = bucket_size(max(R_max, 1), bucket,
+                      max_inflation=BUCKET_MAX_INFLATION)
+    total_rows = int(rows_round.sum())
+    total_samples = int(sum(int(lens.sum()) for lens, _ in tables))
+    # satellite of the dense P-inflation warning, computed on what
+    # ragged staging actually executes: padded row-slots per horizon
+    if total_rows and T_b * R_b > 2 * total_rows:
+        _warn_once(
+            ("ragged_inflation", T_b, R_b),
+            f"ragged bucket pads {total_rows} chunk rows up to "
+            f"{T_b}x{R_b} row slots (> 2x) for this sweep; split the "
+            "sweep into finer buckets if the padded compute shows up")
+
+    trash = S * n_b
+    idx = np.zeros((T_b, R_b, C), np.int32)
+    yb = np.zeros((T_b, R_b, C), np.int32)
+    w = np.zeros((T_b, R_b, C), np.float32)
+    cell = np.full((T_b, R_b), trash, np.int32)
+    counts = np.zeros((S, T_b, n_b), np.float32)
+    act = np.zeros((S, T_b, n_b), np.float32)
+    is_agg = np.zeros((S, T_b), bool)
+    off = np.zeros(T_b, np.int64)        # next free row per round
+    for b, (lens, ids) in enumerate(tables):
+        T, n = T_s[b], n_s[b]
+        counts[b, :T, :n] = lens
+        act[b, :T, :n] = np.asarray(act_list[b], np.float32)
+        is_agg[b, :T] = (np.arange(T) + 1) % tau == 0
+        if ids.size:
+            nr_flat = nrows[b].reshape(-1)
+            lens_flat = lens.reshape(-1)
+            cell_of = np.repeat(np.arange(T * n, dtype=np.int64),
+                                lens_flat)
+            starts = np.concatenate([[0], np.cumsum(lens_flat)])[:-1]
+            pos = np.arange(ids.size, dtype=np.int64) - starts[cell_of]
+            # scenario-local row index of each cell within its round
+            rowbase = np.cumsum(nr_flat) - nr_flat
+            round_start = np.concatenate(
+                [[0], np.cumsum(nrows[b].sum(1))])[:-1]
+            rowbase -= np.repeat(round_start, n)
+            t_of = cell_of // n
+            row = off[t_of] + rowbase[cell_of] + pos // C
+            slot = pos % C
+            flat = (t_of * np.int64(R_b) + row) * C + slot
+            idx.reshape(-1)[flat] = ids
+            yb.reshape(-1)[flat] = y[ids]
+            w.reshape(-1)[flat] = 1.0
+            cell.reshape(-1)[t_of * np.int64(R_b) + row] = \
+                b * n_b + (cell_of % n)
+        off[:T] += nrows[b].sum(1)
+    return RaggedScenarioBatch(
+        idx=idx, yb=yb, w=w, cell=cell, counts=counts, act=act,
+        is_agg=is_agg, T=T_s, n=n_s, P=P_s, tau=tau, chunk=C,
+        total_samples=total_samples, total_rows=total_rows)
+
+
+def ragged_rows(processed_list, chunk: int | None = None) -> np.ndarray:
+    """Per-round chunk-row totals a ragged bucket of these scenarios
+    would stage — the cost model's work estimate, computed without
+    building the tables (rows = Σ over cells of ceil(count/chunk))."""
+    C = int(chunk or RAGGED_CHUNK)
+    T_max = max(
+        (p.T if isinstance(p, FlatStreams) else len(p))
+        for p in processed_list)
+    rows = np.zeros(T_max, np.int64)
+    for p in processed_list:
+        lens, _ = _cell_table(p)
+        rows[:lens.shape[0]] += (-(-lens // C)).sum(1)
+    return rows
+
+
+def stage_scenario_batch(processed_list: list[list[list[np.ndarray]]],
+                         y: np.ndarray,
+                         act_list: list[np.ndarray], tau: int, *,
+                         max_points: list[int] | None = None,
+                         bucket: str = "pow2") -> ScenarioBatch:
+    """Stage a whole sweep bucket for the batched engine.
+
+    Each scenario's (T_s, n_s, P_s) stream is padded up to the shared
+    shape bucket — the round axis via :func:`bucket_rounds` (window
+    count bucketed, always a tau multiple), the device and sample axes
+    via :func:`bucket_size` — and stacked on a leading scenario axis.
+    Warns ONCE per sweep (see :func:`reset_padding_warnings`) when the
+    bucket inflates a scenario's own sample budget P by more than 2x:
+    that is the signal to split the sweep into finer buckets."""
+    S = len(processed_list)
+    T_s = [len(p) for p in processed_list]
+    n_s = [len(p[0]) for p in processed_list]
+    P_s = [pad_size(p, (max_points or [0] * S)[b])
+           for b, p in enumerate(processed_list)]
+    T_b = max(bucket_rounds(T, tau, bucket) for T in T_s)
+    n_b = max(bucket_size(n, bucket,
+                          max_inflation=BUCKET_MAX_INFLATION)
+              for n in n_s)
+    # P buckets off the GROUP max (one program per bucket either way);
+    # the pow2 rounding buys cross-sweep cache hits, the cap keeps the
+    # padded per-round compute bounded like the n/T axes
+    P_b = bucket_size(max(P_s), bucket,
+                      max_inflation=BUCKET_MAX_INFLATION)
+    for b, P in enumerate(P_s):
+        if P_b > 2 * P:
+            _warn_once(
+                ("P_inflation", P_b),
+                f"shape bucket pads P={P} up to {P_b} (> 2x) for at "
+                "least one scenario of this sweep; split the sweep "
+                "into finer buckets if the padded compute shows up")
+    idx = np.zeros((S, T_b, n_b, P_b), np.int32)
+    yb = np.zeros((S, T_b, n_b, P_b), np.int32)
+    w = np.zeros((S, T_b, n_b, P_b), np.float32)
+    counts = np.zeros((S, T_b, n_b), np.float32)
+    act = np.zeros((S, T_b, n_b), np.float32)
+    is_agg = np.zeros((S, T_b), bool)
+    for b, processed in enumerate(processed_list):
+        T, n = T_s[b], n_s[b]
+        i_b, y_b, w_b, c_b = stage_rounds(processed, y, P_b)
+        idx[b, :T, :n], yb[b, :T, :n] = i_b, y_b
+        w[b, :T, :n], counts[b, :T, :n] = w_b, c_b
+        act[b, :T, :n] = np.asarray(act_list[b], np.float32)
+        is_agg[b, :T] = (np.arange(T) + 1) % tau == 0
+    return ScenarioBatch(idx=idx, yb=yb, w=w, counts=counts, act=act,
+                         is_agg=is_agg, T=T_s, n=n_s, P=P_s, tau=tau)

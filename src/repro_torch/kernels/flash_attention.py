@@ -28,6 +28,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import refuse_grad
 
 launches = 0
 
@@ -108,8 +109,10 @@ def flash_attention(q, k, v, kv_map=None, *, causal=True, window=None):
     copied to the card at every call, or already on q's card, where the
     caller guarantees them in [0, KH) (a check there would wait for the
     card). The kernel on CUDA tensors (one launch), the plain version on
-    CPU tensors."""
+    CPU tensors. Inputs that require grad raise: there is no backward
+    yet."""
     global launches
+    refuse_grad("flash_attention", q, k, v)
     if kv_map is None:
         H, KH = q.shape[1], k.shape[1]
         if KH < 1 or H % KH:

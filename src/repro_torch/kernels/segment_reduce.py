@@ -29,6 +29,16 @@ card also uses as the kernels' yardstick. The CPU's ``index_add_``
 adds in element (row) order, so the plain sums keep the same order on
 the CPU; on the card it adds by atomics, in no fixed order.
 
+Gradients: :func:`segment_sum` and :func:`segment_sum_rows` are
+``torch.autograd.Function`` s on both devices, with the transpose of the
+sum as their backward, a gather in plain PyTorch (``grad_data[i] =
+grad_out[ids[i]] · scale[i]``, 0 for an out-of-range id, and
+``grad_scale[i] = ⟨grad_out[ids[i]], data[i]⟩``), as the reference
+takes them from ``jax.ops.segment_sum``'s transpose. Take them with
+``torch.autograd.grad`` or ``.backward()``; the Functions have no
+``torch.func`` rule. :func:`segment_max` has no backward yet and
+refuses inputs that require grad.
+
 ``launches`` counts kernel launches (never plain-version calls), so a
 run can show that it went through the kernels.
 """
@@ -40,6 +50,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import refuse_grad
 
 launches = 0
 
@@ -220,17 +231,72 @@ def _reduce(op, data, ids, num_segments, layout):
     return out
 
 
+def _gather_back(grad_out, ids, num_segments: int):
+    """The transpose of a segment sum: ``grad_out[ids[i]]`` for each
+    element (row), 0 where ``ids[i]`` is out of range."""
+    if num_segments == 0:
+        return torch.zeros((ids.shape[0],) + tuple(grad_out.shape[1:]),
+                           dtype=grad_out.dtype, device=grad_out.device)
+    valid = (ids >= 0) & (ids < num_segments)
+    g = grad_out[torch.where(valid, ids, torch.zeros_like(ids)).long()]
+    return torch.where(valid.reshape((-1,) + (1,) * (g.dim() - 1)), g,
+                       torch.zeros((), dtype=g.dtype, device=g.device))
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(data, ids, num_segments, layout):
+        return _reduce("sum", data, ids, num_segments, layout)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[1])
+        ctx.num_segments = inputs[2]
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        ids, = ctx.saved_tensors
+        return _gather_back(grad_out, ids, ctx.num_segments), None, None, \
+            None
+
+
+class _SegmentSumRows(torch.autograd.Function):
+    @staticmethod
+    def forward(data, ids, num_segments, scale, layout):
+        return _rows(data, ids, num_segments, scale, layout)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        data, ids, num_segments, scale, _ = inputs
+        ctx.save_for_backward(data, ids, scale)
+        ctx.num_segments = num_segments
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        data, ids, scale = ctx.saved_tensors
+        g = _gather_back(grad_out, ids, ctx.num_segments)   # (m, P)
+        grad_data = grad_scale = None
+        if ctx.needs_input_grad[0]:
+            grad_data = g if scale is None else g * scale[:, None]
+        if scale is not None and ctx.needs_input_grad[3]:
+            grad_scale = (g * data).sum(1)
+        return grad_data, None, None, grad_scale, None
+
+
 def segment_sum(data, ids, num_segments: int, *, layout=None):
     """``out[s] = Σ data[ids == s]``: data (E,) float32, ids (E,) int32,
     out (num_segments,) float32. The kernel on CUDA tensors (one launch;
     ``layout``, from :func:`segment_layout` of the same ids, skips
-    building it), the plain version on CPU tensors."""
-    return _reduce("sum", data, ids, num_segments, layout)
+    building it), the plain version on CPU tensors. Differentiable in
+    ``data``."""
+    return _SegmentSum.apply(data, ids, num_segments, layout)
 
 
 def segment_max(data, ids, num_segments: int, *, layout=None):
     """``out[s] = max data[ids == s]`` (−inf for an empty segment); the
-    same arguments and dispatch as :func:`segment_sum`."""
+    same arguments and dispatch as :func:`segment_sum`. Data that
+    requires grad raises: there is no backward yet."""
+    refuse_grad("segment_max", data)
     return _reduce("max", data, ids, num_segments, layout)
 
 
@@ -241,7 +307,12 @@ def segment_sum_rows(data, ids, num_segments: int, *, scale=None,
     group, scale (m,) float32 or None (no product), out (num_segments,
     P) float32. The row kernel on CUDA tensors (one launch; ``layout``
     is :func:`segment_layout` of the same ids: G + 1 offsets and the m
-    rows), the plain version on CPU tensors."""
+    rows), the plain version on CPU tensors. Differentiable in ``data``
+    and ``scale``."""
+    return _SegmentSumRows.apply(data, ids, num_segments, scale, layout)
+
+
+def _rows(data, ids, num_segments, scale, layout):
     _check_rows(data, ids, num_segments, scale, layout)
     if not _on_card(data):
         return segment_sum_rows_plain(data, ids, num_segments, scale=scale)

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import refuse_grad
 
 launches = 0
 
@@ -126,8 +127,9 @@ def ssd_scan(xdt, a, Bm, Cm, *, chunk: int = 128):
     """xdt (B,H,S,P), Bm/Cm (B,S,N) float32 or bfloat16, a (B,H,S)
     float32 -> y (B,H,S,P) float32. The kernels on CUDA tensors (four
     CUDA kernels, counted as one launch), the plain version on CPU
-    tensors."""
+    tensors. Inputs that require grad raise: there is no backward yet."""
     global launches
+    refuse_grad("ssd_scan", xdt, a, Bm, Cm)
     _check(xdt, a, Bm, Cm)
     B_, H, S, P = xdt.shape
     N = Bm.shape[-1]

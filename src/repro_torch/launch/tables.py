@@ -34,14 +34,21 @@ there). ``--only`` takes any of:
   under a no-(n, n) guard (``--max-n`` caps n);
 * ``hier_scale`` — the same 102,400 devices under a 3-tier tree with
   movement kept within gateways, against the flat plane, and the L = 1
-  tree bitwise the flat scan.
+  tree bitwise the flat scan;
+* ``scenario_batched`` — the sweep engine: the fig5 grid (n ∈ {5, 10,
+  20} × 6 seeds) and the dynamics and prediction grids at 4 samples a
+  device a round, each bucket dispatched by the cost model
+  (:mod:`repro_torch.core.costmodel`) against the forced per-point
+  loop, with the in-bucket-equals-alone checks (``--repeat`` warm
+  repeats).
 
 The sweeps of figs. 5 and 6, the two dynamics studies and the fault
-study build their
-points as :func:`benchmarks.fog.make_scenario` does and train them one
-by one. The rows and headlines are printed as JSON, and written to
-``--out`` when given; nothing is written under ``results/``, which
-holds the reference's artifacts.
+study build their points as :func:`benchmarks.fog.make_scenario` does
+and train them one by one on the scan engine (``run_scenarios(...,
+engine="scan")``); ``scenario_batched`` dispatches them. The rows and
+headlines are printed as JSON, and written to ``--out`` when given;
+nothing is written under ``results/``, which holds the reference's
+artifacts.
 """
 from __future__ import annotations
 
@@ -59,6 +66,7 @@ import numpy as np
 
 import torch
 
+from repro_torch.core import costmodel as cm
 from repro_torch.core import engine as eng
 from repro_torch.core import estimator as est
 from repro_torch.core import faults as fl
@@ -92,6 +100,8 @@ class BenchScale:
     # cap on the device count of sparse_scale and hier_scale (0 = their
     # full n = 102,400)
     max_n: int = 0
+    # warm repeats of scenario_batched's timed sweeps
+    repeats: int = 1
 
 
 QUICK = BenchScale(n_train=8_000, n_test=2_000, T=20, tau=5)
@@ -105,9 +115,10 @@ def dataset(n_train: int, n_test: int, seed: int = 0):
 
 def _draw(scale: BenchScale, *, n=10, model="mlp", iid=True,
           costs="testbed", topology="full", rho=1.0, medium="wifi",
-          p_exit=0.0, p_entry=0.0, f_err=0.7, seed=0):
+          p_exit=0.0, p_entry=0.0, f_err=0.7, seed=0, mean_per_round=None):
     """One experiment's problem, drawn in the reference's order: costs,
-    topology, then streams. Returns the generator there (the churn or
+    topology, then streams (``mean_per_round`` samples a device a
+    round; None: |D|/(nT)). Returns the generator there (the churn or
     flap draw comes next), the run's config, the cost traces, the base
     graph, the streams and their counts."""
     rng = np.random.default_rng(seed)
@@ -122,7 +133,8 @@ def _draw(scale: BenchScale, *, n=10, model="mlp", iid=True,
         traces = synthetic_costs(n, scale.T, rng, f_err=f_err)
     adj = make_topology(topology, n, rng, rho=rho,
                         costs=traces.c_node.mean(0))
-    streams = pl.poisson_streams(n, scale.T, data[1], iid=iid, rng=rng)
+    streams = pl.poisson_streams(n, scale.T, data[1], iid=iid, rng=rng,
+                                 mean_per_round=mean_per_round)
     return rng, cfg, traces, adj, streams, pl.counts(streams)
 
 
@@ -178,14 +190,19 @@ def _trained(hist: dict) -> dict:
 @dataclasses.dataclass
 class Scenario:
     """One sweep point: costs, topology, streams, schedule and the plan
-    recipe. ``error_model``: "discard" plans by the Theorem-3 rule,
-    "sqrt" by the f/√G convex solve. ``replan``: "oracle" plans on the
-    true schedule, "predict" on the schedule predicted from the
-    observed history, "expected" on the observed support with
-    1/availability link prices, "once" on the base graph (True/False:
-    oracle/once). ``faults`` (unannounced failures) are never visible
-    to the planner: crash outages enter at realization, upload faults
-    inside the engine's aggregation under ``guard`` and ``quorum``."""
+    recipe. ``setting``: the Table III setting the point is planned
+    under (A: no movement; C, E: on estimates; D, E: repaired against
+    capacities). ``error_model``: "discard" plans by the Theorem-3 rule,
+    "sqrt" (or "neg_G") by the convex solve at ``gamma``. ``activity``:
+    a (T, n) active mask that overrides the schedule's. ``replan``:
+    "oracle" plans on the true schedule, "predict" on the schedule
+    predicted from the observed history, "expected" on the observed
+    support with 1/availability link prices, "once" on the base graph
+    (True/False: oracle/once). ``faults`` (unannounced failures) are
+    never visible to the planner: crash outages enter at realization,
+    upload faults inside the engine's aggregation under ``guard`` and
+    ``quorum``. ``hierarchy``: a TierTree; such a point trains alone on
+    the scan substrate, never in a batched bucket."""
 
     key: dict
     cfg: F.FedConfig
@@ -193,29 +210,40 @@ class Scenario:
     adj: np.ndarray
     D: np.ndarray
     streams: pl.FogStreams
+    setting: str = "B"
     error_model: str = "sqrt"
+    gamma: float = 1.0
+    activity: np.ndarray | None = None
     schedule: NetworkSchedule | None = None
     replan: bool | str = "oracle"
     faults: fl.FaultSchedule | None = None
     guard: bool = True
     quorum: float = 0.0
+    hierarchy: object | None = None
 
 
-def make_scenario(scale: BenchScale, *, key=None, error_model="sqrt",
-                  dynamics=None, p_flap=0.05, replan="oracle", faults=None,
+def make_scenario(scale: BenchScale, *, key=None, setting="B",
+                  error_model="sqrt", gamma=1.0, dynamics=None,
+                  p_flap=0.05, replan="oracle", faults=None,
                   fault_rate=0.0, guard=True, quorum=0.0,
-                  corrupt_mode="nan", **draw) -> Scenario:
+                  corrupt_mode="nan", tiers=None, **draw) -> Scenario:
     """Build one sweep point: :func:`_draw`'s problem (``draw`` takes its
-    keywords), then the schedule from the same generator. ``dynamics``:
-    None (churn when ``p_exit``/``p_entry`` are set, else static),
-    "churn" or "flap" (links fail w.p. ``p_flap`` and recover w.p.
-    0.5 a round). ``faults``/``fault_rate``: a
+    keywords, ``mean_per_round`` among them), then the schedule from the
+    same generator. ``setting`` D or E gives the traces capacities at
+    the mean count. ``dynamics``: None (churn when
+    ``p_exit``/``p_entry`` are set, else static), "churn" or "flap"
+    (links fail w.p. ``p_flap`` and recover w.p. 0.5 a round).
+    ``faults``/``fault_rate``: a
     :class:`~repro_torch.core.faults.FaultSchedule` or a
     :func:`~repro_torch.core.faults.make_faults` kind drawn at that rate
     from a generator of its own (seed + 7919), so a faulted point
     shares streams, costs and topology with its clean twin;
-    ``guard``/``quorum``/``corrupt_mode`` configure the engine side."""
+    ``guard``/``quorum``/``corrupt_mode`` configure the engine side.
+    ``tiers``: a TierTree or a ``--tiers`` spec (its first period must
+    be ``scale.tau``)."""
     rng, cfg, traces, adj, streams, D = _draw(scale, **draw)
+    if setting in ("D", "E"):
+        traces = with_capacity(traces, float(D.mean()))
     if dynamics is None:
         dynamics = "churn" if (cfg.p_exit or cfg.p_entry) else "static"
     schedule = None
@@ -229,10 +257,14 @@ def make_scenario(scale: BenchScale, *, key=None, error_model="sqrt",
         faults = fl.make_faults(faults, scale.T, cfg.n, scale.tau,
                                 rate=fault_rate, seed=cfg.seed + 7919,
                                 corrupt=corrupt_mode)
+    hierarchy = tiers
+    if isinstance(tiers, str):
+        hierarchy = hr.TierTree.from_spec(tiers, cfg.n)
     return Scenario(key=dict(key or {}), cfg=cfg, traces=traces, adj=adj,
-                    D=D, streams=streams, error_model=error_model,
+                    D=D, streams=streams, setting=setting,
+                    error_model=error_model, gamma=gamma,
                     schedule=schedule, replan=replan, faults=faults,
-                    guard=guard, quorum=quorum)
+                    guard=guard, quorum=quorum, hierarchy=hierarchy)
 
 
 def replan_mode(replan) -> str:
@@ -248,12 +280,17 @@ def replan_mode(replan) -> str:
                      "'oracle', 'predict', 'expected', 'once' or a bool")
 
 
-def _plan_traces(sc: Scenario):
-    """The traces the planner sees: the true ones, with link costs
-    priced by 1/availability under "expected"."""
+def _estimated(sc: Scenario):
+    """The traces and counts the planner sees: estimates under settings
+    C and E, the true ones otherwise; under "expected" the link costs
+    are priced by 1/availability."""
+    if sc.setting in ("C", "E"):
+        tr, D = est.estimate_traces(sc.traces), est.estimate_counts(sc.D)
+    else:
+        tr, D = sc.traces, sc.D
     if sc.schedule is not None and replan_mode(sc.replan) == "expected":
-        return est.expected_cost_traces(sc.traces, sc.schedule)
-    return sc.traces
+        tr = est.expected_cost_traces(tr, sc.schedule)
+    return tr, D
 
 
 def _plan_network(sc: Scenario):
@@ -274,28 +311,39 @@ def _plan_network(sc: Scenario):
 
 def solve_scenario_plans(scenarios: list[Scenario], *, iters=400, seed=0,
                          device=None) -> list[mv.MovementPlan]:
-    """Plans for a sweep: Theorem-3 plans point by point, convex plans
-    in one ``solve_convex_batched`` call per (T, n, error model) group
-    (every point from the same ``seed``'s z0). Every plan with a
-    schedule is then realized against it, with the point's crash
-    outages composed in where it has any."""
+    """Plans for a sweep: no movement under setting A, Theorem-3 plans
+    point by point, convex plans in one ``solve_convex_batched`` call
+    per (T, n, error model, γ) group (every point from the same
+    ``seed``'s z0), each on the point's planner view (:func:`_estimated`,
+    :func:`_plan_network`). Settings D and E are repaired against the
+    true traces and counts. Every plan with a schedule is then realized
+    against it, with the point's crash outages composed in where it has
+    any."""
     device = resolve_device(device)
-    trs = [_plan_traces(sc) for sc in scenarios]
     nets = [_plan_network(sc) for sc in scenarios]
     plans: list = [None] * len(scenarios)
     groups: dict[tuple, list[int]] = {}
     for b, sc in enumerate(scenarios):
-        if sc.error_model == "discard":
-            plans[b] = mv.greedy_linear(trs[b], nets[b], device=device)
+        T_, n = sc.D.shape
+        if sc.setting == "A":
+            plans[b] = mv.no_movement_plan(T_, n)
+        elif sc.error_model == "discard":
+            plans[b] = mv.greedy_linear(_estimated(sc)[0], nets[b],
+                                        device=device)
         else:
-            groups.setdefault((*sc.D.shape, sc.error_model), []).append(b)
-    for (_, _, em), idxs in groups.items():
+            groups.setdefault((T_, n, sc.error_model, sc.gamma),
+                              []).append(b)
+    for (_, _, em, gamma), idxs in groups.items():
+        estimated = [_estimated(scenarios[b]) for b in idxs]
         for b, p in zip(idxs, mv.solve_convex_batched(
-                [trs[b] for b in idxs], [nets[b] for b in idxs],
-                [scenarios[b].D for b in idxs], error_model=em,
+                [tr for tr, _ in estimated], [nets[b] for b in idxs],
+                [D for _, D in estimated], error_model=em, gamma=gamma,
                 iters=iters, seeds=seed, device=device)):
             plans[b] = p
     for b, sc in enumerate(scenarios):
+        if sc.setting in ("D", "E"):
+            plans[b] = mv.repair_capacities(plans[b], sc.traces, nets[b],
+                                            sc.D)
         if sc.faults is not None and sc.faults.has_crashes:
             plans[b] = mv.realize_plan(
                 plans[b], sc.faults.compose(sc.schedule, adj=sc.adj))
@@ -304,35 +352,188 @@ def solve_scenario_plans(scenarios: list[Scenario], *, iters=400, seed=0,
     return plans
 
 
+def scenario_bucket_key(sc: Scenario, *, bucket: str = "pow2") -> tuple:
+    """The shape bucket a sweep point trains in: points sharing this key
+    run through one bucket program of the sweep engine (P is bucketed
+    inside the group). The fault config is part of the key: guard and
+    quorum are the bucket program's, and fault-free points keep the
+    clean program."""
+    T_, n = sc.D.shape
+    return (sc.cfg.model, sc.cfg.eta, sc.cfg.tau,
+            pl.bucket_rounds(T_, sc.cfg.tau, bucket),
+            pl.bucket_size(n, bucket,
+                           max_inflation=pl.BUCKET_MAX_INFLATION),
+            sc.faults is not None,
+            bool(sc.guard) if sc.faults is not None else False,
+            float(sc.quorum) if sc.faults is not None else 0.0)
+
+
+def _group_dims(prepared, tau: int, bucket: str) -> dict:
+    """The padded bucket dims of one group under dense and ragged
+    staging, from the prepared streams: the cost model's shape
+    inputs."""
+    points = []
+    for (_, processed, _, max_pts) in prepared:
+        if isinstance(processed, pl.FlatStreams):
+            T_, n = processed.T, processed.n
+        else:
+            T_, n = len(processed), len(processed[0])
+        points.append((T_, n, int(max_pts)))
+    cap = pl.BUCKET_MAX_INFLATION
+    T_b = max(pl.bucket_rounds(T_, tau, bucket) for T_, _, _ in points)
+    n_b = max(pl.bucket_size(n, bucket, max_inflation=cap)
+              for _, n, _ in points)
+    P_b = pl.bucket_size(max(P for _, _, P in points), bucket,
+                         max_inflation=cap)
+    rows = pl.ragged_rows([p[1] for p in prepared])
+    R_b = pl.bucket_size(max(int(rows.max()) if rows.size else 1, 1),
+                         bucket, max_inflation=cap)
+    return {"points": points, "T_b": T_b, "n_b": n_b, "P_b": P_b,
+            "R_b": R_b, "chunk": pl.RAGGED_CHUNK}
+
+
+def _point_ident(sc: Scenario) -> tuple:
+    """Preparation-free identity of one point's loop run: the config
+    fields that set its staged shapes."""
+    cfg = sc.cfg
+    return (cfg.T, cfg.n, cfg.seed, cfg.p_exit, cfg.p_entry)
+
+
 def run_scenarios(scenarios: list[Scenario], scale: BenchScale, *,
-                  train=True, iters=400, seed=0, device=None,
-                  plans=None) -> list[dict]:
+                  train=True, engine="auto", iters=400, seed=0,
+                  batch: bool | None = None, bucket: str = "pow2",
+                  plans=None, mesh="auto", staging: str | None = None,
+                  device=None) -> list[dict]:
     """Solve (unless ``plans`` are given), cost and (with ``train``)
-    train every point, one by one on the scan engine. Rows: the point's
-    key, setting, cost and, trained, accuracy, curves, label similarity
-    and mean active devices, and under faults the fault summary and the
+    train a sweep, as :func:`benchmarks.fog.run_scenarios` does.
+
+    ``engine="auto"`` (with more than one point) groups the points into
+    shape buckets (:func:`scenario_bucket_key`) and prices each bucket
+    through :data:`repro_torch.core.costmodel.MODEL`: the per-point loop
+    on the scan engine, or the sweep engine
+    (:func:`repro_torch.core.federated.run_network_aware_batched`) with
+    dense or ragged staging; a bucket of one point takes the loop. Each
+    row records the decision under ``"dispatch"``. ``engine="batched"``
+    (or ``batch=True``) sends every bucket through the sweep engine,
+    dense unless ``staging`` says otherwise; ``engine="scan"``,
+    ``"legacy"`` or ``batch=False`` trains the points one by one
+    (``engine="batched"`` with ``batch=False``: one by one through the
+    sweep engine). ``staging``: None (dispatch chooses; forced batched
+    is dense), "auto", "dense" or "ragged". Hierarchical points always
+    train one by one on the scan substrate. ``mesh``: "auto" or None
+    (one card).
+
+    Rows: the point's key, setting, cost and engine, the dispatch where
+    there was one, and trained, accuracy, curves, label similarity and
+    mean active devices, and under faults the fault summary and the
     aggregations the quorum skipped."""
     device = resolve_device(device)
     if plans is None:
         plans = solve_scenario_plans(scenarios, iters=iters, seed=seed,
                                      device=device)
     data = dataset(scale.n_train, scale.n_test)
+    if batch is None:
+        batch = engine in ("auto", "batched") and len(scenarios) > 1
+    force_batched = engine == "batched" or (batch and engine != "auto")
+    point_engine = "scan" if engine == "auto" else engine
+    engines = [("batched" if batch else point_engine)] * len(scenarios)
+    hists: list = [None] * len(scenarios)
+    dispatches: list = [None] * len(scenarios)
+    hier_idx = {b for b, sc in enumerate(scenarios)
+                if sc.hierarchy is not None}
+
+    def one(b, **kw):
+        sc = scenarios[b]
+        return F.run_network_aware(
+            sc.cfg, data, sc.traces, sc.adj, plans[b], streams=sc.streams,
+            activity=sc.activity, schedule=sc.schedule, faults=sc.faults,
+            guard=sc.guard, quorum=sc.quorum, device=device, **kw)
+
+    if train:
+        for b in sorted(hier_idx):
+            hists[b] = one(b, engine="scan",
+                           hierarchy=scenarios[b].hierarchy)
+            engines[b] = "hierarchical"
+    if train and batch:
+        groups: dict[tuple, list[int]] = {}
+        for b, sc in enumerate(scenarios):
+            if b not in hier_idx:
+                groups.setdefault(scenario_bucket_key(sc, bucket=bucket),
+                                  []).append(b)
+        for gkey, idxs in groups.items():
+            fault_list = [scenarios[b].faults for b in idxs]
+            t_prep0 = time.perf_counter()
+            prepared = [F._prepare_streams(
+                scenarios[b].cfg, data, plans[b], scenarios[b].streams,
+                scenarios[b].activity, scenarios[b].schedule,
+                scenarios[b].faults) for b in idxs]
+            eng.add_phase_time("stage_s", time.perf_counter() - t_prep0)
+            tau = scenarios[idxs[0]].cfg.tau
+            dims = _group_dims(prepared, tau, bucket)
+            dims["idents"] = [_point_ident(scenarios[b]) for b in idxs]
+            dims["eval_slots"] = sum(T_ // tau for T_, _, _
+                                     in dims["points"]) * scale.n_test
+            pin = staging
+            if pin is None:
+                pin = "dense" if force_batched else "auto"
+            decision = cm.MODEL.choose(
+                key=gkey, force_path="batched" if force_batched else None,
+                staging=None if pin == "auto" else pin, **dims)
+            t0 = time.perf_counter()
+            if decision.path == "batched":
+                outs = F.run_network_aware_batched(
+                    [scenarios[b].cfg for b in idxs], data,
+                    [plans[b] for b in idxs], mesh=mesh, bucket=bucket,
+                    staging=decision.staging, prepared=prepared,
+                    faults=(fault_list if any(f is not None
+                                              for f in fault_list)
+                            else None),
+                    # the bucket key groups by (guard, quorum)
+                    guard=scenarios[idxs[0]].guard,
+                    quorum=scenarios[idxs[0]].quorum, device=device)
+                for b, hist in zip(idxs, outs):
+                    hists[b], engines[b] = hist, "batched"
+            else:
+                for i, b in enumerate(idxs):
+                    hists[b] = one(b, engine="scan", prepared=prepared[i])
+                    engines[b] = "scan"
+            synchronize(device)
+            ran = ("loop" if decision.path == "loop"
+                   else f"batched-{decision.staging}")
+            cm.MODEL.observe_run(
+                decision.path, decision.staging,
+                decision.slots.get(ran, 0), time.perf_counter() - t0, 0,
+                n_points=len(idxs), eval_slots=dims["eval_slots"])
+            cm.MODEL.record(decision, key=gkey, **dims)
+            for b in idxs:
+                dispatches[b] = decision.as_row()
+    elif train:
+        for b in range(len(scenarios)):
+            if b not in hier_idx:
+                hists[b] = one(b, engine=engines[b], mesh=(
+                    None if mesh == "auto" else mesh))
+        # a forced loop sweep has run its points: later dispatched
+        # sweeps price the loop path as warm
+        for b, sc in enumerate(scenarios):
+            if b not in hier_idx:
+                cm.MODEL.mark_loop_seen(
+                    scenario_bucket_key(sc, bucket=bucket),
+                    [_point_ident(sc)])
     rows = []
-    for sc, plan in zip(scenarios, plans):
-        out = {**sc.key, "setting": "B",
+    for b, (sc, plan, hist) in enumerate(zip(scenarios, plans, hists)):
+        out = {**sc.key, "setting": sc.setting,
                "cost": mv.plan_cost(plan, sc.traces, sc.D,
-                                    error_model=sc.error_model),
-               "engine": "scan"}
-        if train:
-            hist = F.run_network_aware(
-                sc.cfg, data, sc.traces, sc.adj, plan, streams=sc.streams,
-                schedule=sc.schedule, faults=sc.faults, guard=sc.guard,
-                quorum=sc.quorum, device=device)
+                                    error_model=sc.error_model,
+                                    gamma=sc.gamma),
+               "engine": engines[b]}
+        if dispatches[b] is not None:
+            out["dispatch"] = dispatches[b]
+        if hist is not None:
             out.update(_trained(hist))
             if sc.faults is not None:
                 out["fault_summary"] = sc.faults.summary()
                 out["quorum_skips"] = int(sum(
-                    not ok for ok in hist["agg_quorum_ok"]))
+                    not ok for ok in hist.get("agg_quorum_ok", [])))
         rows.append(out)
     return rows
 
@@ -444,7 +645,8 @@ def _scenario_sweep(scale, points, claim_fn=None, *, iters=300,
     each row gaining its ``unit_sqrt``."""
     scenarios = [make_scenario(scale, key=pv, **pv, **fixed,
                                error_model="discard") for pv in points]
-    full = run_scenarios(scenarios, scale, iters=iters, device=device)
+    full = run_scenarios(scenarios, scale, iters=iters, engine="scan",
+                         device=device)
     rows = [{**r, **{k: r["cost"][k] for k in
                      ("unit", "moved_rate", "processed_frac",
                       "discarded_frac")}} for r in full]
@@ -606,7 +808,7 @@ def network_dynamics(scale: BenchScale, device=None) -> dict:
             scale, key={"kind": "flap", "rate": 0.1, "replan": replan},
             error_model="discard", dynamics="flap", p_flap=0.1,
             replan=replan, seed=7))
-    full = run_scenarios(scenarios, scale, device=device)
+    full = run_scenarios(scenarios, scale, engine="scan", device=device)
     rows = []
     for r, sc in zip(full, scenarios):
         rows.append({**r["cost"], **{k: r.get(k) for k in
@@ -681,7 +883,7 @@ def network_prediction(scale: BenchScale, device=None) -> dict:
             scenarios.append(make_scenario(
                 scale, key={"kind": kind, "rate": rate, "replan": mode},
                 error_model="discard", replan=mode, seed=7, **dyn))
-    full = run_scenarios(scenarios, scale, device=device)
+    full = run_scenarios(scenarios, scale, engine="scan", device=device)
     rows = []
     for r, sc in zip(full, scenarios):
         row = {**{k: r.get(k) for k in ("kind", "rate", "replan", "acc",
@@ -736,6 +938,192 @@ def _bitwise(a: dict, b: dict, keys=("test_acc", "test_loss")) -> bool:
                         zip(a["device_loss"], b["device_loss"])))
 
 
+# the sweep engine's grids (benchmarks.run.scenario_batched): paper-
+# density streams, the regime where per-point overheads dominate a sweep
+SCENARIO_DENSITY = 4.0
+SCENARIO_GRIDS = {
+    # 3 network sizes x 6 seeds (the paper's error bars): 3 buckets
+    "fig5": [dict(n=n, seed=s, iid=False) for n in (5, 10, 20)
+             for s in range(6)],
+    # churn rates x replan-on-event against plan-once
+    "dynamics": [dict(p_exit=r, p_entry=r, replan=rp, seed=7)
+                 for r in (0.02, 0.1) for rp in ("oracle", "once")],
+    # three planner views of one churned network
+    "prediction": [dict(p_exit=0.05, p_entry=0.05, replan=m, seed=7)
+                   for m in ("oracle", "predict", "once")],
+}
+
+
+def scenario_grid(scale: BenchScale, grid: str) -> list[Scenario]:
+    """The points of one of ``SCENARIO_GRIDS``, Theorem-3 plans."""
+    return [make_scenario(scale, key={"grid": grid, **pv},
+                          error_model="discard",
+                          mean_per_round=SCENARIO_DENSITY, **pv)
+            for pv in SCENARIO_GRIDS[grid]]
+
+
+def _histories_equal(a: dict, b: dict) -> bool:
+    return bool(a["agg_round"] == b["agg_round"]
+                and np.array_equal(np.stack(a["H_agg"]),
+                                   np.stack(b["H_agg"]))
+                and _bitwise(a, b))
+
+
+def _largest_diff(a: dict, b: dict) -> float:
+    """The largest |difference| of two histories' device and test losses
+    and test accuracies."""
+    return max(float(np.abs(np.subtract(np.asarray(a[k]),
+                                        np.asarray(b[k]))).max())
+               for k in ("device_loss", "test_loss", "test_acc"))
+
+
+def _buckets(scenarios) -> list[list[int]]:
+    groups: dict = {}
+    for b, sc in enumerate(scenarios):
+        groups.setdefault(scenario_bucket_key(sc), []).append(b)
+    return list(groups.values())
+
+
+def in_bucket_equals_alone(scenarios, plans, scale, staging: str,
+                           device) -> tuple[bool, float]:
+    """Each bucket of the sweep trained together through the sweep
+    engine, then every point of it alone (S = 1) at the same staging.
+    Returns whether every history is equal bit for bit, and the largest
+    difference (:func:`_largest_diff`). Dense: every point's pad size
+    pinned to its bucket's P_b, both runs, and alone through
+    ``engine="batched"``; ragged: alone as a bucket of one."""
+    data = dataset(scale.n_train, scale.n_test)
+    ok, worst = True, 0.0
+    for idxs in _buckets(scenarios):
+        cfgs = [scenarios[b].cfg for b in idxs]
+        if staging == "dense":
+            P_b = pl.bucket_size(max(
+                F._prepare_streams(scenarios[b].cfg, data, plans[b],
+                                   scenarios[b].streams,
+                                   scenarios[b].activity,
+                                   scenarios[b].schedule)[3]
+                for b in idxs), max_inflation=pl.BUCKET_MAX_INFLATION)
+            cfgs = [dataclasses.replace(c, max_points=P_b) for c in cfgs]
+        kw = dict(staging=staging, device=device)
+        outs = F.run_network_aware_batched(
+            cfgs, data, [plans[b] for b in idxs],
+            streams=[scenarios[b].streams for b in idxs],
+            activities=[scenarios[b].activity for b in idxs],
+            schedules=[scenarios[b].schedule for b in idxs], **kw)
+        for cfg, b, hb in zip(cfgs, idxs, outs):
+            sc = scenarios[b]
+            if staging == "dense":
+                alone = F.run_network_aware(
+                    cfg, data, sc.traces, sc.adj, plans[b],
+                    streams=sc.streams, activity=sc.activity,
+                    schedule=sc.schedule, engine="batched", device=device)
+            else:
+                alone = F.run_network_aware_batched(
+                    [cfg], data, [plans[b]], streams=[sc.streams],
+                    activities=[sc.activity], schedules=[sc.schedule],
+                    **kw)[0]
+            ok &= _histories_equal(alone, hb)
+            worst = max(worst, _largest_diff(alone, hb))
+    return bool(ok), worst
+
+
+def _uniq_dispatches(rows) -> list:
+    out = []
+    for r in rows:
+        d = r.get("dispatch")
+        if d is not None and d not in out:
+            out.append(d)
+    return out
+
+
+def scenario_batched(scale: BenchScale, device=None) -> dict:
+    """The sweep engine against the per-point loop
+    (``benchmarks.run.scenario_batched``): for each grid of
+    ``SCENARIO_GRIDS``, the cost-model-dispatched sweep
+    run first (nothing of it run yet: "cold"), then the forced loop on
+    the scan engine, then ``scale.repeats`` warm repeats of each; both
+    get the same plans. Rows: wall times and speedups, each bucket's
+    dispatch, the bucket programs run (≤ the buckets), the phase times
+    of the fastest warm dispatched sweep, the largest accuracy gap to
+    the loop (the sweep engine sums eq. (4) in a fixed order, the scan
+    an einsum), and on fig5 the in-bucket-equals-alone checks under
+    dense and ragged staging."""
+    device = resolve_device(device)
+    repeats = max(int(scale.repeats), 1)
+    rows = []
+    for gname in SCENARIO_GRIDS:
+        scenarios = scenario_grid(scale, gname)
+        t = time.perf_counter()
+        plans = solve_scenario_plans(scenarios, device=device)
+        solve_s = time.perf_counter() - t
+        n_buckets = len(_buckets(scenarios))
+
+        def timed(**kw):
+            t = time.perf_counter()
+            out = run_scenarios(scenarios, scale, plans=plans,
+                                device=device, **kw)
+            synchronize(device)
+            return time.perf_counter() - t, out
+
+        b0 = eng.batched_compile_count()
+        disp_cold_s, disp = timed(engine="auto")
+        programs = eng.batched_compile_count() - b0
+        loop_cold_s, loop = timed(engine="auto", batch=False)
+        loop_warm_s = min(timed(engine="auto", batch=False)[0]
+                          for _ in range(repeats))
+        disp_warm_s, phases, disp_warm = None, None, disp
+        for _ in range(repeats):
+            eng.reset_phase_timings()
+            dt, out = timed(engine="auto")
+            if disp_warm_s is None or dt < disp_warm_s:
+                disp_warm_s, phases, disp_warm = (dt, eng.phase_timings(),
+                                                  out)
+        acc_gap = max(max(abs(a - b) for a, b in zip(lr["acc_curve"],
+                                                     br["acc_curve"]))
+                      for lr, br in zip(loop, disp_warm))
+        alone = {st: (in_bucket_equals_alone(scenarios, plans, scale, st,
+                                             device)
+                      if gname == "fig5" else (None, None))
+                 for st in ("dense", "ragged")}
+        rows.append({
+            "grid": gname, "points": len(scenarios),
+            "buckets": n_buckets,
+            "staged_histories_bitwise": alone["dense"][0],
+            "staged_max_diff": alone["dense"][1],
+            "ragged_alone_bitwise": alone["ragged"][0],
+            "ragged_alone_max_diff": alone["ragged"][1],
+            "dispatch_cold": _uniq_dispatches(disp),
+            "solve_s": solve_s,
+            "loop_cold_s": loop_cold_s, "dispatched_cold_s": disp_cold_s,
+            "loop_warm_s": loop_warm_s, "dispatched_warm_s": disp_warm_s,
+            "speedup_cold": loop_cold_s / disp_cold_s,
+            "speedup_warm": loop_warm_s / disp_warm_s,
+            "warm_repeats": repeats,
+            "warm_phases": phases,
+            "dispatch_warm": _uniq_dispatches(disp_warm),
+            "dispatched_train_programs": programs,
+            "train_programs_leq_buckets": bool(programs <= n_buckets),
+            "acc_curves_equal": bool(all(
+                lr["acc_curve"] == br["acc_curve"]
+                for lr, br in zip(loop, disp_warm))),
+            "acc_curve_gap": acc_gap})
+    by = {r["grid"]: r for r in rows}
+    headline = {
+        "min_grid_speedup_warm": min(r["speedup_warm"] for r in rows),
+        "train_programs_leq_buckets": bool(all(
+            r["train_programs_leq_buckets"] for r in rows)),
+        "max_acc_curve_gap": max(r["acc_curve_gap"] for r in rows)}
+    if "fig5" in by:
+        f = by["fig5"]
+        headline.update(
+            fig5_speedup_cold=f["speedup_cold"],
+            fig5_speedup_warm=f["speedup_warm"],
+            fig5_buckets=f["buckets"],
+            fig5_staged_histories_bitwise=f["staged_histories_bitwise"],
+            fig5_ragged_alone_bitwise=f["ragged_alone_bitwise"])
+    return {"rows": rows, "headline": headline}
+
+
 FAULT_ARMS = (("clean", {}),
               ("corrupt10_guarded", dict(faults="corrupt", fault_rate=0.10)),
               ("corrupt10_unguarded", dict(faults="corrupt", fault_rate=0.10,
@@ -765,7 +1153,8 @@ def fault_tolerance(scale: BenchScale, device=None) -> dict:
                  for arm, kw in FAULT_ARMS]
     plans = solve_scenario_plans(scenarios, iters=300, seed=0,
                                  device=device)
-    full = run_scenarios(scenarios, scale, plans=plans, device=device)
+    full = run_scenarios(scenarios, scale, plans=plans, engine="scan",
+                         device=device)
     rows = [{"arm": r["arm"], "acc": r["acc"],
              "avg_active": r["avg_active"],
              "cost_total": r["cost"]["total"],
@@ -1185,7 +1574,8 @@ TABLES = {"table2": table2_accuracy, "table3": table3_settings,
           "fig9": fig9_exit, "fig10": fig10_entry,
           "thm5": thm5_value_of_offloading, "dynamics": network_dynamics,
           "prediction": network_prediction, "faults": fault_tolerance,
-          "sparse_scale": sparse_scale, "hier_scale": hier_scale}
+          "sparse_scale": sparse_scale, "hier_scale": hier_scale,
+          "scenario_batched": scenario_batched}
 
 
 def main(argv=None) -> dict:
@@ -1198,6 +1588,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--max-n", type=int, default=0,
                     help="cap on sparse_scale's and hier_scale's n "
                          "(0: their full 102,400)")
+    ap.add_argument("--repeat", type=int, default=1,
+                    help="warm repeats of scenario_batched's sweeps")
     ap.add_argument("--out", default=None, metavar="PATH",
                     help="also write the JSON here (never under results/)")
     args = ap.parse_args(argv)
@@ -1211,7 +1603,7 @@ def main(argv=None) -> dict:
         raise SystemExit(f"--out {args.out}: results/ holds the "
                          "reference's artifacts; write elsewhere")
     scale = dataclasses.replace(QUICK if args.quick else DEFAULT,
-                                max_n=args.max_n)
+                                max_n=args.max_n, repeats=args.repeat)
     device = resolve_device(args.device)
     out = {"device": str(device), "scale": dataclasses.asdict(scale)}
     for name in names:

@@ -17,6 +17,11 @@ the guard (``--unguarded`` turns it off) and gated by ``--quorum``;
 ``--checkpoint PATH`` snapshots the scan engine at every window
 boundary and ``--resume PATH`` continues such a snapshot bit for bit.
 
+``--engine batched`` trains through the sweep engine with one scenario
+(exact pad sizes; eq. (4) as a sequential sum, through the
+segment-reduce kernel's row form on the card); ``--engine sharded``
+waits for multi-GPU.
+
 The flags and defaults are those of ``python -m repro.launch.train``,
 plus ``--device`` (``cuda`` by default; ``cpu`` runs the same path on
 the CPU, with the kernels' plain versions). Flags whose code is not
@@ -87,7 +92,6 @@ def solve_setting(setting: str, traces, adj, D, error_model="discard",
 def _check_ported(args) -> None:
     checks = [
         (args.mode == "lm", "--mode lm", 14, LM_TRAINING),
-        (args.engine == "batched", "--engine batched", 11, "sweep engine"),
         (args.engine == "sharded", "--engine sharded", 12, "multi-GPU"),
         (args.sanitize, "--sanitize", 13, "tooling"),
     ]

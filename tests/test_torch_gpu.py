@@ -732,3 +732,93 @@ def test_tiered_flat_l1_is_flat_scan_bitwise_on_card(cuda):
     assert h1["agg_round"] == h0["agg_round"]
     for k in ("device_loss", "test_loss", "test_acc", "H_agg"):
         assert np.array_equal(np.asarray(h1[k]), np.asarray(h0[k])), k
+
+
+# ---------------------------------------------------------------------------
+# gradients through kernel 2 and the sweep engine on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("with_scale", [False, True])
+def test_segment_sum_grads_on_card_equal_plain(cuda, with_scale):
+    """Autograd through the kernels (backward: a gather) against autograd
+    through their plain versions on the same card, bit for bit."""
+    g = torch.Generator().manual_seed(11)
+    m, P, G = 300, 37, 9
+    data = torch.randn(m, P, generator=g)
+    ids = torch.randint(-1, G + 1, (m,), generator=g).to(torch.int32)
+    scale = torch.rand(m, generator=g)
+    cot = torch.randn(G, P, generator=g).to(cuda)
+
+    def grads(fn):
+        d = data.to(cuda).requires_grad_(True)
+        s = scale.to(cuda).requires_grad_(True) if with_scale else None
+        out = fn(d, ids.to(cuda), s)
+        return torch.autograd.grad(out, (d, s) if with_scale else (d,), cot)
+
+    got = grads(lambda d, i, s: sr.segment_sum_rows(d, i, G, scale=s))
+    want = grads(lambda d, i, s: sr.segment_sum_rows_plain(d, i, G,
+                                                           scale=s))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    d = data[:, 0].contiguous().to(cuda).requires_grad_(True)
+    got, = torch.autograd.grad(sr.segment_sum(d, ids.to(cuda), G), d,
+                               cot[:, 0].contiguous())
+    d2 = data[:, 0].contiguous().to(cuda).requires_grad_(True)
+    want, = torch.autograd.grad(sr.segment_sum_plain(d2, ids.to(cuda), G),
+                                d2, cot[:, 0].contiguous())
+    assert torch.equal(got, want)
+
+
+def test_row_gather_backward_on_card_equals_cpu(cuda):
+    """The ragged round's gather: its backward on the card (the row
+    kernel, each device's rows in ascending order, the trash id adding
+    nothing) equals the CPU's sequential row sum bit for bit."""
+    g = torch.Generator().manual_seed(12)
+    M, R = 40, 300
+    W = torch.randn(M, 13, 5, generator=g)
+    cell = torch.randint(0, M + 1, (R,), generator=g).to(torch.int32)
+    cot = torch.randn(R, 13, 5, generator=g)
+    out = []
+    for dev in ("cpu", cuda):
+        c = cell.to(dev)
+        Wt = W.to(dev).requires_grad_(True)
+        rows = eng._RowGather.apply(Wt, c, torch.clamp(c, max=M - 1).long(),
+                                    eng._layout(c, M))
+        out.append(torch.autograd.grad(rows, Wt, cot.to(dev))[0].cpu())
+    assert torch.equal(out[0], out[1])
+
+
+@pytest.mark.parametrize("staging", ["dense", "ragged"])
+def test_small_bucket_on_card_matches_cpu(cuda, staging):
+    from repro_torch.core import federated as F
+    from repro_torch.data import pipeline as pl
+    from repro_torch.data.synthetic import make_image_dataset
+
+    data = make_image_dataset(n_train=1200, n_test=400, seed=0)
+    cfgs, plans, streams = [], [], []
+    for n, seed in ((4, 0), (6, 1), (6, 2)):
+        rng = np.random.default_rng(seed)
+        traces = costs.synthetic_costs(n, 12, rng)
+        streams.append(pl.poisson_streams(n, 12, data[1], rng=rng))
+        plans.append(movement.greedy_linear(
+            traces, topology.fully_connected(n), backend="numpy"))
+        cfgs.append(F.FedConfig(n=n, T=12, tau=4, eta=0.05, model="mlp",
+                                seed=seed))
+    fs = [None, _fault_schedule(), None]
+    runs = [F.run_network_aware_batched(
+        cfgs, data, plans, streams=streams, staging=staging, faults=fs,
+        quorum=0.3, device=dev) for dev in (cuda, "cpu")]
+    for got, want in zip(*runs):
+        assert got["agg_round"] == want["agg_round"]
+        assert got["agg_quorum_ok"] == want["agg_quorum_ok"]
+        assert got["agg_survivors"] == want["agg_survivors"]
+        np.testing.assert_array_equal(np.stack(got["H_agg"]),
+                                      np.stack(want["H_agg"]))
+        np.testing.assert_allclose(np.stack(got["device_loss"]),
+                                   np.stack(want["device_loss"]),
+                                   rtol=2e-3, atol=1e-4)
+        np.testing.assert_allclose(got["test_loss"], want["test_loss"],
+                                   rtol=2e-3, atol=1e-4)
+        np.testing.assert_allclose(got["test_acc"], want["test_acc"],
+                                   atol=1e-2)

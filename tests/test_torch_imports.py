@@ -36,6 +36,8 @@ def test_modules_found():
     assert "repro_torch.core.schedule" in MODULES
     assert "repro_torch.launch.tables" in MODULES
     assert "repro_torch.checkpoint.checkpoint" in MODULES
+    assert "repro_torch.core.costmodel" in MODULES
+    assert "repro_torch.kernels._grad" in MODULES
     assert len(MODULES) > 40
 
 

@@ -72,12 +72,13 @@ def test_cli_cost_equals_reference_cli(capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--setting", "E", "--sanitize"],
-    ["--error-model", "sqrt", "--engine", "batched"],
-    ["--faults", "drop", "--engine", "batched"],
+    ["--error-model", "sqrt", "--engine", "sharded"],
+    ["--faults", "drop", "--engine", "sharded"],
     ["--tiers", "2@4,1@8", "--faults", "crash", "--engine", "sharded"],
     ["--checkpoint", "x", "--sanitize"],
-    ["--resume", "x", "--engine", "batched"], ["--sanitize"],
-    ["--engine", "batched"], ["--engine", "sharded"], ["--mode", "lm"],
+    ["--resume", "x", "--engine", "sharded"], ["--sanitize"],
+    ["--engine", "batched", "--sanitize"], ["--engine", "sharded"],
+    ["--mode", "lm"],
 ])
 def test_cli_unported_flags_name_their_roadmap_item(flags):
     with pytest.raises(SystemExit, match="ROADMAP.md, queue 1 item"):
