@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; it
-imports no JAX. It builds every CUDA kernel of the fog and serving
-paths from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source,
-all started together), then runs eighteen phases and fails (exit 1,
-no result line) if any of them fails:
+imports no JAX. It builds every CUDA kernel of the fog, serving and
+training paths from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
+source, all started together), then runs nineteen phases and fails
+(exit 1, no result line) if any of them fails:
 
 (a) the Theorem-3 kernel against its plain PyTorch version on the
     card, at a sweep of shapes plus tie and isolated-row cases, rows
@@ -217,7 +217,31 @@ no result line) if any of them fails:
     S·n_b) bit for bit its plain version on the CPU, timed beside its
     byte bound, ``index_add_`` and the plain version (two more
     ``sites``), and the gradient of ``segment_sum_rows`` through the
-    kernel equal to the gradient through the plain version on the card.
+    kernel equal to the gradient through the plain version on the card;
+(s) model-zoo training: (s1) the gradients through the flash-attention
+    and SSD-scan Functions (kernel forward, plain version recomputed in
+    the backward) bit for bit those of autograd through the plain
+    versions alone, for a fixed cotangent, at (i)'s shape classes (MHA,
+    GQA 2:1, MQA, causal, windows, rows that see no key: zero gradient)
+    in float32 and bfloat16, and the scan at two (H, P, N, chunk), all
+    finite, one launch a call and none from the backward; (s2) zamba2-7b
+    at full width cut to 18 layers (two hybrid groups; 1.84 B float32
+    parameters drawn on the card), AdamW at the CLI's lr on B=2 x S=2048
+    token batches routed and weighted by ``lm_movement_inputs``: the
+    first step's gradients through the kernels against those through the
+    plain versions and against a float64 gradient, then a cold and three
+    warm ``make_train_step`` steps with every launch counter set to 0
+    just before each and read just after (exactly 2 attention and 18
+    scan launches, finite loss and grad_norm), step time, tokens/s and
+    peak memory, a step split into forward, backward and optimizer by
+    CUDA events, each Function's backward (the plain recompute) timed on
+    the step's inputs, and a profiled step (top kernels, the backward
+    nodes' device time, the idle share) (B = 1 if B = 2 does not fit,
+    logged); (s3) ``--mode lm`` for the smoke configs of qwen3-14b,
+    mamba2-1.3b and zamba2-7b, 5 steps, and ``--lm-tau 2``, on the card
+    and on the CPU from the same parameters, at the CLI's defaults and
+    with SGD (see ``phase_s_cli`` for what each holds), exact launch
+    counts, and the MoE and enc-dec archs refused naming their items.
 
 The line before the last is the JSON list of kernels; the one before it
 the card's name and power limit; the last line is the result.
@@ -3044,6 +3068,476 @@ def phase_r_kernel(torch, np, card, sr, cuda, sites):
     return out
 
 
+# ---------------------------------------------------------------------------
+# (s) model-zoo training: gradients through kernels 3 and 4, zamba2-7b at
+# full width, the smoke configs and the --mode lm CLI
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 18        # zamba2-7b cut in depth only: two hybrid groups
+TRAIN_B, TRAIN_S = 2, 2048
+TRAIN_LR = 3e-3          # the CLI's --lr, AdamW (its --optimizer)
+TRAIN_TIMED = 3
+TRAIN_LOSS_RTOL = 1e-4   # kernels against plain versions, one step
+TRAIN_NORM_RTOL = 1e-3
+TRAIN_MIN_COS = 0.9999
+LM_ARCHS = ("qwen3-14b", "mamba2-1.3b", "zamba2-7b")
+LM_ARGV = ["--mode", "lm", "--steps", "5"]   # the rest at the CLI defaults
+LM_RTOL = 1e-4
+LM_SGD = ["--optimizer", "sgd", "--lr", "0.01"]
+# (B, H, KH, Sq, Sk, hd, causal, window, dtype): (i)'s shape classes
+GRAD_ATTN = [
+    (1, 4, 4, 256, 256, 64, True, None, "float32"),      # MHA
+    (2, 4, 2, 200, 200, 112, True, None, "float32"),     # GQA 2:1
+    (1, 8, 1, 128, 160, 128, False, None, "float32"),    # MQA
+    (1, 4, 2, 300, 300, 112, True, 128, "float32"),      # window
+    (1, 2, 2, 200, 64, 100, False, 32, "float32"),       # rows 95.. blind
+    (1, 4, 2, 256, 256, 64, True, 32, "bfloat16"),
+    (2, 2, 1, 128, 40, 112, False, 16, "bfloat16"),      # rows 55.. blind
+]
+# (B, H, S, P, N, chunk)
+GRAD_SSD = [(2, 8, 256, 64, 64, 128), (1, 3, 192, 32, 128, 64)]
+
+
+def _blind_rows(Sq, Sk, causal, window):
+    """Query rows that no key can see."""
+    rows = []
+    for i in range(Sq):
+        hi = min(i, Sk - 1) if causal else Sk - 1
+        lo = max(i - window + 1, 0) if window else 0
+        if hi < lo:
+            rows.append(i)
+    return rows
+
+
+def phase_s_grads(torch, fa, sd, cuda, card):
+    """(s1) Gradients through the attention and scan Functions (the
+    kernel forward, the plain version recomputed backward) against
+    autograd through the plain versions alone, on the card, for a fixed
+    cotangent: bitwise, finite, zero on rows that see no key, one launch
+    a call and none from the backward."""
+    checked = 0
+    for case in GRAD_ATTN:
+        B, H, KH, Sq, Sk, hd, causal, window, dt = case
+        dtype = getattr(torch, dt)
+        seed = 100 + checked
+        q = _randn(torch, (B, H, Sq, hd), seed, cuda).to(dtype)
+        k = _randn(torch, (B, KH, Sk, hd), seed + 1, cuda).to(dtype)
+        v = _randn(torch, (B, KH, Sk, hd), seed + 2, cuda).to(dtype)
+        g = _randn(torch, (B, H, Sq, hd), seed + 3, cuda).to(dtype)
+        km = fa.default_kv_map(H, KH).to(cuda)
+        a1 = [t.clone().requires_grad_() for t in (q, k, v)]
+        a2 = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = fa.launches
+        got = torch.autograd.grad(
+            fa.flash_attention(*a1, km, causal=causal, window=window), a1, g)
+        launched = fa.launches - before
+        want = torch.autograd.grad(
+            fa.flash_attention_plain(*a2, km, causal=causal, window=window),
+            a2, g)
+        torch.cuda.synchronize()
+        blind = _blind_rows(Sq, Sk, causal, window)
+        ok = (launched == 1
+              and all(torch.equal(x, y) for x, y in zip(got, want))
+              and all(bool(torch.isfinite(x).all()) and x.dtype == dtype
+                      for x in got)
+              and (not blind or not bool(got[0][:, :, blind].any())))
+        if not ok:
+            raise AssertionError(f"(s1) attention {case}: gradients through "
+                                 f"the kernel differ from plain autograd, "
+                                 f"are not finite, or launched {launched}")
+        checked += 1
+    for case in GRAD_SSD:
+        B, H, S, P, N, chunk = case
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            seed = 200 + checked
+            ins = [_randn(torch, (B, H, S, P), seed, cuda, 0.3).to(dtype),
+                   -_randn(torch, (B, H, S), seed + 1, cuda, 0.3).abs(),
+                   _randn(torch, (B, S, N), seed + 2, cuda, 0.3).to(dtype),
+                   _randn(torch, (B, S, N), seed + 3, cuda, 0.3).to(dtype)]
+            g = _randn(torch, (B, H, S, P), seed + 4, cuda)
+            a1 = [t.clone().requires_grad_() for t in ins]
+            a2 = [t.clone().requires_grad_() for t in ins]
+            before = sd.launches
+            got = torch.autograd.grad(sd.ssd_scan(*a1, chunk=chunk), a1, g)
+            launched = sd.launches - before
+            want = torch.autograd.grad(sd.ssd_scan_plain(*a2, chunk=chunk),
+                                       a2, g)
+            torch.cuda.synchronize()
+            ok = (launched == 1
+                  and all(torch.equal(x, y) for x, y in zip(got, want))
+                  and all(bool(torch.isfinite(x).all()) and x.dtype == t.dtype
+                          for x, t in zip(got, ins)))
+            if not ok:
+                raise AssertionError(f"(s1) ssd_scan {case} {dt}: gradients "
+                                     "through the kernels differ from plain "
+                                     f"autograd, or launched {launched}")
+            checked += 1
+    log(f"(s1) gradients through flash_attention ({len(GRAD_ATTN)} cases: "
+        f"MHA, GQA 2:1, MQA, causal, windows, rows with no key, f32 and "
+        f"bf16) and ssd_scan ({2 * len(GRAD_SSD)} cases, f32 and bf16) equal "
+        f"plain autograd on the card bit for bit, finite, blind rows 0, "
+        f"one launch a call and none from the backward [{card}]")
+
+
+def _lm_modules():
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import make_token_dataset
+    from repro_torch.launch import steps, train
+    from repro_torch.models import transformer as T
+    from repro_torch.models.module import init_params, param_count
+    from repro_torch.optim import optimizers as topt
+    return (get_config, make_token_dataset, steps, train, T, init_params,
+            param_count, topt)
+
+
+def _split_step(torch, St, T, topt, cfg, opt, params, state, batch):
+    """One train step as ``make_train_step`` takes it (microbatches 1),
+    its forward, backward and optimizer (divide, clip, update, apply)
+    timed by CUDA events. Returns the ms of each part."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    b = St.route_batch(batch)
+    ev[0].record()
+    p = topt.tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, _ = T.loss_fn(p, b, cfg)
+    wsum = torch.clamp(b["weights"].sum(), min=1.0)
+    ev[1].record()
+    grads = topt.tree_unflatten(p, torch.autograd.grad(
+        loss * wsum, topt.tree_leaves(p)))
+    ev[2].record()
+    del p, loss
+    grads = topt.tree_map(lambda g: g / wsum, grads)
+    grads, _ = topt.clip_by_global_norm(grads, 1.0)
+    ups, state = opt.update(grads, state, params)
+    del grads
+    params = topt.apply_updates(params, ups)
+    ev[3].record()
+    torch.cuda.synchronize()
+    return params, state, {name: ev[i].elapsed_time(ev[i + 1]) for i, name
+                           in enumerate(("forward", "backward", "optimizer"))}
+
+
+def _recompute_ms(torch, fa, sd, first, flush):
+    """The backward of each Function on the first inputs the step gave
+    it: the plain version recomputed under autograd, by CUDA events."""
+    out = {}
+    (q, k, v), kw = first["attention"]
+    qa = [t.detach().requires_grad_() for t in (q, k, v)]
+    gq = torch.ones_like(q)
+
+    def attn():
+        y = fa.flash_attention_plain(*qa, kw["kv_map"], causal=kw.get(
+            "causal", True), window=kw.get("window"))
+        torch.autograd.grad(y, qa, gq)
+
+    out["attention"] = _time_ms(torch, attn, (), flush, reps=5)
+    args, kw = first["ssd"]
+    sa = [t.detach().requires_grad_() for t in args]
+    gy = torch.ones(args[0].shape, dtype=torch.float32, device=args[0].device)
+
+    def ssd():
+        torch.autograd.grad(sd.ssd_scan_plain(*sa, chunk=kw.get(
+            "chunk", 128)), sa, gy)
+
+    out["ssd"] = _time_ms(torch, ssd, (), flush, reps=5)
+    return out
+
+
+def _profile_step(torch, step, params, state, batch, top=10):
+    """One train step under torch.profiler: the top CUDA kernels by
+    device time, the device time of the two Functions' backward nodes
+    (the plain recomputes), and the device's busy time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) + \
+                e.device_time_total / 1e3
+    nodes = {}
+    for e in prof.key_averages():
+        for name in ("_FlashAttentionBackward", "_SSDScanBackward"):
+            if e.key.endswith(name) and "evaluate_function" in e.key:
+                nodes[name] = e.device_time_total / 1e3
+    busy = sum(kernels.values())
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1])[:top]
+    return params, state, {"wall_ms": wall_ms, "busy_ms": busy,
+                           "top": [(n[:60], round(ms, 3)) for n, ms in ranked],
+                           "backward_nodes_ms": nodes}
+
+
+def phase_s_train(torch, np, card, counters, ops, fa, sd, cuda):
+    """(s2) zamba2-7b training at full width, cut to 18 layers: AdamW at
+    the CLI's lr, make_train_step on B x S token batches with the plan's
+    weights and route; launch counts a step, finite metrics, the time
+    split, the profile, the recomputes' share, and one step's gradients
+    through the kernels against the plain versions. B = 2 unless the
+    card's memory refuses it, then B = 1 (logged with the reason)."""
+    import gc
+
+    for B in (TRAIN_B, TRAIN_B // 2):
+        try:
+            return _train_full_width(torch, np, card, counters, ops, fa, sd,
+                                     cuda, B)
+        except torch.cuda.OutOfMemoryError as e:
+            if B == 1:
+                raise
+            log(f"(s2) B={B} x S={TRAIN_S} does not fit on the card: "
+                f"{str(e).splitlines()[0]}; halving B [{card}]")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _train_full_width(torch, np, card, counters, ops, fa, sd, cuda, B):
+    (get_config, make_token_dataset, St, train, T, init_params,
+     param_count, topt) = _lm_modules()
+    torch.cuda.empty_cache()
+    cfg = get_config(SERVE_ARCH).with_overrides(num_layers=TRAIN_LAYERS)
+    n_params = param_count(T.specs(cfg))
+    t0 = time.perf_counter()
+    params = init_params(T.specs(cfg), seed=SEED, device=cuda)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_batches = 1 + TRAIN_TIMED + 2
+    _, _, routes, weights = train.lm_movement_inputs(
+        1, B, n_batches, np.random.default_rng(SEED))
+    toks = make_token_dataset(n_batches * B * (TRAIN_S + 1) + 1,
+                              cfg.vocab_size, seed=SEED)
+    def batch(it):
+        return train.lm_batch(toks, it, B, TRAIN_S, weights, routes, cuda)
+
+    _kernels_against_plain(torch, St, topt, ops, fa, sd, cfg, params,
+                           St.route_batch(batch(0)), card)
+    opt = topt.adamw(TRAIN_LR)
+    state = opt.init(params)
+    step = St.make_train_step(cfg, opt)
+    want = {"flash_attention": TRAIN_LAYERS // cfg.attn_every,
+            "ssd_scan": TRAIN_LAYERS, "offload_greedy": 0,
+            "segment_reduce": 0}
+    first = {}
+
+    def keep(name, real):
+        def call(*args, **kw):
+            first.setdefault(name, ([a.detach() for a in args], kw))
+            return real(*args, **kw)
+        return call
+
+    torch.cuda.reset_peak_memory_stats()
+    secs, metrics = [], []
+    for it in range(1 + TRAIN_TIMED):
+        b = batch(it)
+        with _ops_as(ops, {"attention": keep("attention", ops.attention),
+                           "ssd": keep("ssd", ops.ssd)}):
+            for c in counters.values():
+                c.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, b)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            launches = {n: c.launches for n, c in counters.items()}
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        if launches != want:
+            raise AssertionError(f"(s2) step {it} launched {launches}; "
+                                 f"expected {want}")
+        if not all(np.isfinite(metrics[-1])):
+            raise AssertionError(f"(s2) step {it}: loss, grad_norm "
+                                 f"{metrics[-1]}")
+    peak = torch.cuda.max_memory_allocated()
+    warm = sorted(secs[1:])[len(secs[1:]) // 2]
+    params, state, split = _split_step(torch, St, T, topt, cfg, opt, params,
+                                       state, batch(1 + TRAIN_TIMED))
+    flush = flush_buffer(torch, "cuda")
+    recompute = _recompute_ms(torch, fa, sd, first, flush)
+    del flush, first
+    params, state, prof = _profile_step(torch, step, params, state,
+                                        batch(2 + TRAIN_TIMED))
+    step_ms = 1e3 * warm
+    share = (want["flash_attention"] * recompute["attention"]
+             + want["ssd_scan"] * recompute["ssd"]) / step_ms
+    nodes = prof["backward_nodes_ms"]
+    tps = B * TRAIN_S / warm
+    log(f"(s2) {SERVE_ARCH} at full width, {TRAIN_LAYERS} layers "
+        f"({n_params} parameters, float32, drawn on the card in "
+        f"{init_s:.3f} s), AdamW lr {TRAIN_LR}, B={B} x S={TRAIN_S}: "
+        f"steps (host clock after a sync) cold {secs[0]:.4f} s, warm "
+        f"{[round(x, 4) for x in secs[1:]]} s (median {warm:.4f} s, "
+        f"{tps:.1f} tokens/s), loss / grad_norm {metrics}, "
+        f"max_memory_allocated {peak} B, launches a step {want} [{card}]")
+    log(f"(s2) split of one step by CUDA events: forward "
+        f"{split['forward']:.2f} ms, backward {split['backward']:.2f} ms, "
+        f"optimizer {split['optimizer']:.2f} ms; the plain recomputes in "
+        f"the backward: attention {recompute['attention']:.3f} ms x "
+        f"{want['flash_attention']}, scan {recompute['ssd']:.3f} ms x "
+        f"{want['ssd_scan']}, {100 * share:.2f}% of the warm step [{card}]")
+    log(f"(s2) profiled step (the profiler's host overhead in its wall "
+        f"{prof['wall_ms']:.2f} ms): device busy {prof['busy_ms']:.2f} ms, "
+        f"idle share of the warm step {1 - prof['busy_ms'] / step_ms:.4f}; "
+        f"backward nodes (device ms, the plain recomputes) {nodes} "
+        f"({100 * sum(nodes.values()) / step_ms:.2f}% of the warm step); "
+        f"top kernels (ms) {prof['top']} [{card}]")
+    del state, params
+    torch.cuda.empty_cache()
+    return {"attention": want["flash_attention"], "ssd": want["ssd_scan"],
+            "B": B}
+
+
+def _grads_on_host(torch, St, topt, ops, plain_fns, cfg, params, b):
+    """``steps.grads_of`` (through ``plain_fns`` in place of the kernels
+    when given), its leaves moved to the host so that three trees of
+    7.4 GB need no room on the card; and the loss."""
+    ctx = _ops_as(ops, plain_fns) if plain_fns else contextlib.nullcontext()
+    with ctx:
+        g, m, _ = St.grads_of(params, b, cfg)
+    leaves = [x.cpu() for x in topt.tree_leaves(g)]
+    del g
+    torch.cuda.empty_cache()
+    return leaves, float(m["ce"])
+
+
+def _grad_stats(torch, ga, gb, device):
+    """Global norms of two leaf lists, and per leaf the cosine and the
+    relative distance ||a - b|| / ||b||, in float64."""
+    def norm(g):
+        return sum(float(x.double().square().sum()) for x in g) ** 0.5
+
+    cos, rel = [], []
+    for x, y in zip(ga, gb):
+        x = x.to(device).double().reshape(-1)
+        y = y.to(device).double().reshape(-1)
+        nx, ny = float(x.norm()), float(y.norm())
+        cos.append(1.0 if nx == ny == 0 else
+                   float(x @ y) / max(nx * ny, 1e-300))
+        rel.append(float((x - y).norm()) / max(ny, 1e-300))
+    return norm(ga), norm(gb), cos, rel
+
+
+def _kernels_against_plain(torch, St, topt, ops, fa, sd, cfg, params, b,
+                           card):
+    """The first step's gradients through the kernels, through their
+    plain versions, and through the plain versions in float64. Held:
+    the kernels against the plain versions, loss within TRAIN_LOSS_RTOL
+    and every leaf's cosine at least TRAIN_MIN_COS; against float64,
+    every leaf of the kernels' gradient no further than twice the plain
+    float32 gradient's farthest leaf, and the global norm within
+    TRAIN_NORM_RTOL or within that distance, whichever is larger (at
+    full width the plain float32 leaves lie up to ~1e-2 from float64:
+    18 layers amplify float32 rounding)."""
+    plain = _plain_ops(torch, fa, sd)
+    # the plain versions keep (B, H, S, S) scores and (l, l) decay
+    # matrices for their backward: recompute each block (remat "full",
+    # the same arithmetic, bit for bit on the card)
+    remat = cfg.with_overrides(remat="full")
+    g_k, loss_k = _grads_on_host(torch, St, topt, ops, None, cfg, params, b)
+    g_p, loss_p = _grads_on_host(torch, St, topt, ops, plain, remat, params,
+                                 b)
+    p64 = topt.tree_map(lambda t: t.double(), params)
+    g_64, loss_64 = _grads_on_host(torch, St, topt, ops, plain, remat, p64,
+                                   b)
+    del p64
+    torch.cuda.empty_cache()
+    dev = params["ln_f"].device
+    gn_k, gn_p, cos, _ = _grad_stats(torch, g_k, g_p, dev)
+    _, gn_64, _, rel_k = _grad_stats(torch, g_k, g_64, dev)
+    _, _, _, rel_p = _grad_stats(torch, g_p, g_64, dev)
+    del g_k, g_p, g_64
+    norm_tol = max(TRAIN_NORM_RTOL, 2 * max(rel_p))
+    log(f"(s2) the first step's gradients, kernels / plain / plain in "
+        f"float64: loss {loss_k} / {loss_p} / {loss_64}, global norm "
+        f"{gn_k} / {gn_p} / {gn_64}; kernels against plain: least per-leaf "
+        f"cosine {min(cos)} over {len(cos)} leaves; farthest leaf from "
+        f"float64 (relative L2): kernels {max(rel_k)}, plain {max(rel_p)}; "
+        f"the norm held to {norm_tol} of float64's [{card}]")
+    if not (abs(loss_k - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p)
+            and min(cos) >= TRAIN_MIN_COS
+            and max(rel_k) <= 2 * max(rel_p)
+            and abs(gn_k - gn_64) <= norm_tol * gn_64):
+        raise AssertionError("(s2) the step through the kernels and the "
+                             "step through the plain versions disagree")
+
+
+def _lm_run(train, argv, init):
+    """``train.main(argv)`` with ``init_params`` replaced by ``init``, its
+    output kept off stdout."""
+    import io
+
+    real = train.init_params
+    train.init_params = init
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            return train.main(argv)
+    finally:
+        train.init_params = real
+
+
+def phase_s_cli(torch, np, card, counters, ops):
+    """(s3) --mode lm for three smoke configs and --lm-tau 2, on the card
+    and on the CPU from the same parameters (drawn on the CPU), and the
+    archs it refuses. With LM_SGD every step's loss within LM_RTOL; at
+    the CLI's defaults (AdamW) the first step's loss within LM_RTOL and
+    every loss finite. The hybrid smoke config's trajectory is chaotic
+    under AdamW at lr 3e-3 and under SGD at lr 0.05: on the CPU alone, a
+    1e-7 relative move of the initial parameters moves its 3rd-5th
+    losses by 1e-4 to 1.6e-3 (AdamW's first update is about ±lr on
+    every weight whatever its gradient's size, so a rounding difference
+    that flips a near-zero gradient's sign is a whole step). SGD at lr
+    0.01 moves them by < 5e-7. Launch counts exact, moved_frac equal."""
+    (_, _, _, train, T, init_params, _, topt) = _lm_modules()
+
+    def drawn(specs, seed, _dtype, device):
+        p = init_params(specs, seed, torch.float32, "cpu")
+        return topt.tree_map(lambda t: t.to(device), p)
+
+    runs = [(a, x) for a in LM_ARCHS for x in ([], LM_SGD)] + \
+        [("zamba2-7b", ["--lm-tau", "2"] + x) for x in ([], LM_SGD)]
+    for arch, extra in runs:
+        argv = LM_ARGV + ["--arch", arch] + extra
+        for c in counters.values():
+            c.reset_launches()
+        on_card = _lm_run(train, argv, drawn)
+        launches = {n: c.launches for n, c in counters.items()}
+        on_cpu = _lm_run(train, argv + ["--device", "cpu"], drawn)
+        a, b = np.array(on_card["losses"]), np.array(on_cpu["losses"])
+        rel = np.abs(a - b) / np.abs(b)
+        held = rel if "sgd" in extra else rel[:1]
+        log(f"(s3) --mode lm --arch {arch} {' '.join(extra)}: losses card "
+            f"{on_card['losses']}, CPU {on_cpu['losses']}, relative "
+            f"difference {rel.tolist()} (held at {LM_RTOL}: "
+            f"{'every step' if 'sgd' in extra else 'the first step'}), "
+            f"moved_frac {on_card['moved_frac']} / {on_cpu['moved_frac']}, "
+            f"device {on_card['device']}, launches {launches} [{card}]")
+        if len(a) != len(b) or not np.isfinite(a).all() \
+                or held.max() > LM_RTOL \
+                or on_card["moved_frac"] != on_cpu["moved_frac"] \
+                or on_card["device"] != "cuda":
+            raise AssertionError(f"(s3) {arch} {extra}: card and CPU "
+                                 "disagree")
+        cfg = train.get_config(arch, smoke=True)
+        steps = len(a) * (2 if "--lm-tau" in extra else 1)
+        n_attn = (cfg.num_layers // cfg.attn_every if cfg.attn_every else
+                  0 if cfg.ssm_state else cfg.num_layers)
+        n_ssd = cfg.num_layers if cfg.ssm_state else 0
+        if (launches["flash_attention"], launches["ssd_scan"]) != \
+                (steps * n_attn, steps * n_ssd):
+            raise AssertionError(f"(s3) {arch} {extra} launched {launches}")
+    for arch, item in (("mixtral-8x7b", "14b"), ("whisper-large-v3", "14c")):
+        try:
+            train.main(["--mode", "lm", "--arch", arch])
+        except SystemExit as e:
+            if f"queue 1 item {item}" not in str(e):
+                raise AssertionError(f"(s3) {arch} refused with {e}") from e
+            log(f"(s3) --mode lm --arch {arch} refused: {e} [{card}]")
+        else:
+            raise AssertionError(f"(s3) --mode lm --arch {arch} ran")
+
+
 def main() -> int:
     import torch
 
@@ -3172,6 +3666,15 @@ def main() -> int:
         del sites
         torch.cuda.empty_cache()
 
+    def s_():
+        phase_s_grads(torch, fa, sd, cuda, card)
+        train = phase_s_train(torch, np, card, counters, ops, fa, sd, cuda)
+        kernels.setdefault("flash_attention", {})["train_step_launches"] = \
+            train["attention"]
+        kernels.setdefault("ssd_scan", {})["train_step_launches"] = \
+            train["ssd"]
+        phase_s_cli(torch, np, card, counters, ops)
+
     def p():
         phase_p_fog(torch, np, card, counters, state["c_train_s"])
         phase_p_tiered(torch, np, card, counters, ops, sr)
@@ -3190,7 +3693,8 @@ def main() -> int:
               ("j", j), ("k", k_), ("l", l_),
               ("m", lambda: phase_m_smoke_configs(torch, np, card, counters,
                                                   cuda)),
-              ("n", n_), ("o", o), ("p", p), ("q", q), ("r", r)]
+              ("n", n_), ("o", o), ("p", p), ("q", q), ("r", r),
+              ("s", s_)]
     failed = []
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -9,6 +9,8 @@ so the same seed gives bitwise-equal traces:
 * ``testbed_like``  — correlated traces emulating the paper's Raspberry-Pi
   measurements: a latent "device quality" factor shared by compute and
   link speed, plus AR(1) temporal noise, scaled to [0, 1].
+* ``ici``           — per-point move and compute seconds between the
+  model zoo's data shards (``launch/train.py --mode lm``).
 
 :class:`EdgeCostTraces` holds the same traces over a static link
 support in O(T·(n+E)) memory, for device counts where (T, n, n) link
@@ -204,3 +206,40 @@ def with_capacity(traces: CostTraces, cap_node: float,
         cap_link=np.full_like(traces.cap_link,
                               cap_link if cap_link is not None else cap_node),
     )
+
+
+def ici_costs(n: int, T: int, *, bytes_per_point: float,
+              link_bw: float = 50e9, chip_flops: float = 197e12,
+              flops_per_point: float = 1e9,
+              speed_factors: np.ndarray | None = None,
+              f_err: float = 0.7) -> CostTraces:
+    """Cost source between the data shards of the model zoo's training:
+    seconds per data point to move (``bytes_per_point / link_bw``) and
+    to process (``flops_per_point / (chip_flops · speed_factor)``).
+
+    ``link_bw`` and ``chip_flops`` are the reference's cost-model
+    constants (its ICI link and its chip's peak), kept so that the plans
+    and routes equal the reference's; they are not this card's rates.
+    ``speed_factors`` (n,) model heterogeneous throughput (co-tenancy,
+    throttling, stragglers — Theorem 2's regime)."""
+    sf = np.ones(n) if speed_factors is None else np.asarray(speed_factors)
+    c_node = np.tile(flops_per_point / (chip_flops * sf), (T, 1))
+    c_link = np.full((T, n, n), bytes_per_point / link_bw)
+    return CostTraces(
+        c_node=c_node, c_link=c_link,
+        f_err=np.full((T, n), f_err),
+        cap_node=np.full((T, n), np.inf),
+        cap_link=np.full((T, n, n), np.inf),
+    )
+
+
+def effective_link_costs(traces: CostTraces, f_shift: bool = False
+                         ) -> np.ndarray:
+    """Paper §IV-A2: with the linear error model, redefining
+    c_ij(t) <- c_ij(t) + f_i(t) - f_j(t+1) folds the offload terms of the
+    error cost into the transmission cost."""
+    if not f_shift:
+        return traces.c_link
+    f = traces.f_err
+    f_next = np.concatenate([f[1:], f[-1:]], axis=0)
+    return traces.c_link + f[:, :, None] - f_next[:, None, :]

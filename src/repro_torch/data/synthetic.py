@@ -2,9 +2,12 @@
 
 ``make_image_dataset`` — a 10-class, 28×28 MNIST-like classification
 task: each class is a mixture of 3 smooth prototype patterns; samples get
-random shifts, per-pixel noise and amplitude jitter. A copy of
-:func:`repro.data.synthetic.make_image_dataset`: the same seed gives
-bitwise-equal arrays.
+random shifts, per-pixel noise and amplitude jitter.
+``make_token_dataset`` — synthetic LM token streams (Zipf unigrams with a
+deterministic bigram rule) for the model zoo's training.
+
+Copies of :mod:`repro.data.synthetic`: the same seed gives bitwise-equal
+arrays.
 """
 from __future__ import annotations
 
@@ -46,3 +49,19 @@ def make_image_dataset(n_train: int = 60_000, n_test: int = 10_000,
     x_tr, y_tr = gen(n_train, rng)
     x_te, y_te = gen(n_test, np.random.default_rng(seed + 1))
     return x_tr, y_tr, x_te, y_te
+
+
+def make_token_dataset(n_tokens: int, vocab: int, seed: int = 0,
+                       zipf_a: float = 1.2) -> np.ndarray:
+    """Zipf unigrams + a deterministic bigram successor rule on half the
+    positions, so a trained LM has signal to learn. int32 (n_tokens,)."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    p = ranks ** (-zipf_a)
+    p /= p.sum()
+    base = rng.choice(vocab, size=n_tokens, p=p).astype(np.int32)
+    succ = rng.permutation(vocab).astype(np.int32)  # bigram rule
+    use_rule = rng.random(n_tokens) < 0.5
+    out = base.copy()
+    out[1:][use_rule[1:]] = succ[out[:-1][use_rule[1:]]]
+    return out

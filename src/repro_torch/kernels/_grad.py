@@ -1,15 +1,16 @@
-"""The guard of the kernel wrappers that have no backward yet.
+"""Gradients around kernels that fill their outputs through ``ctypes``,
+which autograd cannot see through.
 
-Their CUDA kernels fill an output tensor through ``ctypes``, so autograd
-cannot see through them, and a gradient would stop there without a
-word. Until their backward is ported (ROADMAP.md, queue 1 item 14a)
-they refuse inputs that require grad, on the card and on the CPU alike.
+:func:`recompute_grads` is the backward of flash attention and the SSD
+scan: their plain versions run again on the saved inputs under autograd.
+:func:`refuse_grad` guards ``segment_max``, the one wrapper without a
+backward (no ported path differentiates a segment max), so that a
+gradient does not stop there without a word, on the card and on the CPU
+alike.
 """
 from __future__ import annotations
 
 import torch
-
-BACKWARD_ITEM = "ROADMAP.md, queue 1 item 14a"
 
 
 def refuse_grad(what: str, *tensors) -> None:
@@ -17,5 +18,18 @@ def refuse_grad(what: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{what} has no backward yet ({BACKWARD_ITEM}); call it on "
-            "inputs that do not require grad, or under torch.no_grad()")
+            f"{what} has no backward; call it on inputs that do not "
+            "require grad, or under torch.no_grad()")
+
+
+def recompute_grads(plain, saved, needs, grad_out, **kw):
+    """The gradients of ``plain(*saved, **kw)`` for the cotangent
+    ``grad_out`` with respect to the tensors in ``saved`` whose ``needs``
+    entry is True (None for the others), by running ``plain`` again
+    under autograd."""
+    ins = [t.detach().requires_grad_(w) for t, w in zip(saved, needs)]
+    with torch.enable_grad():
+        out = plain(*ins, **kw)
+    grads = iter(torch.autograd.grad(
+        out, [t for t, w in zip(ins, needs) if w], grad_out))
+    return tuple(next(grads) if w else None for w in needs)

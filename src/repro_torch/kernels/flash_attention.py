@@ -17,6 +17,16 @@ a CPU tensor it runs :func:`flash_attention_plain`, the plain PyTorch
 version of ``ref.flash_attention_ref`` with the explicit head map, which
 the card also uses as the kernel's yardstick.
 
+Gradients: :func:`flash_attention` is a ``torch.autograd.Function`` on
+both devices. Its forward is the kernel (card) or the plain version
+(CPU); it saves only q, k and v, and its backward runs
+:func:`flash_attention_plain` again on them under autograd, so dq, dk
+and dv are autograd's gradients of the plain version: a row that no key
+can see gets zero gradient, several q heads add into the K/V head they
+share, and each gradient has its input's type. The reference trains
+through its jnp attention, never through its Pallas kernel, so there is
+no backward kernel to port; this recompute stands in for one.
+
 ``launches`` counts kernel launches (never plain-version calls), so a
 run can show that it went through the kernel.
 """
@@ -28,7 +38,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._grad import refuse_grad
+from repro_torch.kernels._grad import recompute_grads
 
 launches = 0
 
@@ -51,13 +61,21 @@ def widen(x):
 
 def flash_attention_plain(q, k, v, kv_map, *, causal=True, window=None):
     """Materialised scores in float32 (float64 stays float64), masked
-    softmax, fully masked rows -> 0; the result in q's type."""
+    softmax, fully masked rows -> 0; the result in q's type. K and V must
+    be finite (a non-finite entry of one K/V head reaches every q head
+    through the one-hot product)."""
     out_dtype = q.dtype
     q, k, v = widen(q), widen(k), widen(v)
     hd = q.shape[-1]
     Sq, Sk = q.shape[2], k.shape[2]
-    idx = kv_map.long()
-    kx, vx = k[:, idx], v[:, idx]
+    # q head h reads K/V head kv_map[h] through a one-hot product, exact
+    # for finite K/V: its backward adds the q heads that share a K/V head
+    # by a matrix product, in a fixed order (an indexed gather's backward
+    # adds them by scatter, in no fixed order on several CPU threads)
+    sel = torch.nn.functional.one_hot(kv_map.to(k.device).long(),
+                                      k.shape[1]).to(k.dtype)
+    kx = torch.einsum("hg,bgsd->bhsd", sel, k)
+    vx = torch.einsum("hg,bgsd->bhsd", sel, v)
     s = torch.einsum("bhqd,bhkd->bhqk", q, kx) / math.sqrt(hd)
     qp = torch.arange(Sq, device=q.device)[:, None]
     kp = torch.arange(Sk, device=q.device)[None, :]
@@ -66,8 +84,12 @@ def flash_attention_plain(q, k, v, kv_map, *, causal=True, window=None):
         ok &= kp <= qp
     if window is not None:
         ok &= kp > qp - window
-    p = torch.softmax(s.masked_fill(~ok, float("-inf")), dim=-1)
-    p = torch.nan_to_num(p, nan=0.0)
+    # a row with no visible key takes finite scores into the softmax and
+    # is zeroed after it, so its output is 0 and its gradient 0 (a
+    # softmax of all -inf would give NaN, and its backward NaN too)
+    blind = ~ok.any(dim=-1, keepdim=True)
+    p = torch.softmax(s.masked_fill(~ok & ~blind, float("-inf")), dim=-1)
+    p = p.masked_fill(~ok, 0.0)
     return torch.einsum("bhqk,bhkd->bhqd", p, vx).to(out_dtype)
 
 
@@ -109,10 +131,8 @@ def flash_attention(q, k, v, kv_map=None, *, causal=True, window=None):
     copied to the card at every call, or already on q's card, where the
     caller guarantees them in [0, KH) (a check there would wait for the
     card). The kernel on CUDA tensors (one launch), the plain version on
-    CPU tensors. Inputs that require grad raise: there is no backward
-    yet."""
-    global launches
-    refuse_grad("flash_attention", q, k, v)
+    CPU tensors. Differentiable in q, k and v (the backward recomputes
+    the plain version)."""
     if kv_map is None:
         H, KH = q.shape[1], k.shape[1]
         if KH < 1 or H % KH:
@@ -125,11 +145,39 @@ def flash_attention(q, k, v, kv_map=None, *, causal=True, window=None):
     on_card = kv_map.device == q.device and q.device.type == "cuda"
     kv_map = (kv_map if on_card else kv_map.cpu()).to(torch.int32)
     _check(q, k, v, kv_map, window, check_entries=not on_card)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, kv_map, causal=causal,
-                                     window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {q.device}")
+    return _FlashAttention.apply(q, k, v, kv_map.to(q.device), causal,
+                                 window)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(q, k, v, kv_map, causal, window):
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, kv_map, causal=causal,
+                                         window=window)
+        return _launch(q, k, v, kv_map, causal, window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, kv_map, causal, window = inputs
+        ctx.save_for_backward(q, k, v, kv_map)
+        ctx.causal, ctx.window = causal, window
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, kv_map = ctx.saved_tensors
+        grads = recompute_grads(flash_attention_plain, (q, k, v, kv_map),
+                                (*ctx.needs_input_grad[:3], False), grad_out,
+                                causal=ctx.causal, window=ctx.window)
+        return (*grads, None, None)
+
+
+def _launch(q, k, v, kv_map, causal, window):
+    """One launch of the CUDA kernel on checked inputs, kv_map on q's
+    card."""
+    global launches
     for name, a in (("q", q), ("k", k), ("v", v)):
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -138,7 +186,7 @@ def flash_attention(q, k, v, kv_map=None, *, causal=True, window=None):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    km = kv_map.to(q.device).contiguous()
+    km = kv_map.contiguous()
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 \

@@ -36,7 +36,7 @@ grad_out[ids[i]] · scale[i]``, 0 for an out-of-range id, and
 ``grad_scale[i] = ⟨grad_out[ids[i]], data[i]⟩``), as the reference
 takes them from ``jax.ops.segment_sum``'s transpose. Take them with
 ``torch.autograd.grad`` or ``.backward()``; the Functions have no
-``torch.func`` rule. :func:`segment_max` has no backward yet and
+``torch.func`` rule. :func:`segment_max` has no backward and
 refuses inputs that require grad.
 
 ``launches`` counts kernel launches (never plain-version calls), so a
@@ -295,7 +295,7 @@ def segment_sum(data, ids, num_segments: int, *, layout=None):
 def segment_max(data, ids, num_segments: int, *, layout=None):
     """``out[s] = max data[ids == s]`` (−inf for an empty segment); the
     same arguments and dispatch as :func:`segment_sum`. Data that
-    requires grad raises: there is no backward yet."""
+    requires grad raises: there is no backward."""
     refuse_grad("segment_max", data)
     return _reduce("max", data, ids, num_segments, layout)
 

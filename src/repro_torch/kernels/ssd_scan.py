@@ -25,6 +25,15 @@ reference's ``ssm.ssd_chunked`` in the kernel's layout, with the
 inter-chunk recurrence written as a decay matrix over chunks (no
 sequential loop), which the card also uses as the kernel's yardstick.
 
+Gradients: :func:`ssd_scan` is a ``torch.autograd.Function`` on both
+devices. Its forward is the kernels (card) or the plain version (CPU);
+it saves only its inputs, and its backward runs :func:`ssd_scan_plain`
+again on them under autograd, so the gradients of xdt, a, Bm and Cm are
+autograd's gradients of the plain version, each of its input's type (a
+stays float32). The reference trains through its jnp ``ssd_chunked``,
+never through its Pallas kernel, so there is no backward kernel to
+port; this recompute stands in for one.
+
 ``launches`` counts calls that launched the kernels (one per call, for
 its four CUDA kernels; never plain-version calls), so a run can show
 that it went through them.
@@ -37,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._grad import refuse_grad
+from repro_torch.kernels._grad import recompute_grads
 
 launches = 0
 
@@ -127,20 +136,43 @@ def ssd_scan(xdt, a, Bm, Cm, *, chunk: int = 128):
     """xdt (B,H,S,P), Bm/Cm (B,S,N) float32 or bfloat16, a (B,H,S)
     float32 -> y (B,H,S,P) float32. The kernels on CUDA tensors (four
     CUDA kernels, counted as one launch), the plain version on CPU
-    tensors. Inputs that require grad raise: there is no backward yet."""
-    global launches
-    refuse_grad("ssd_scan", xdt, a, Bm, Cm)
+    tensors. Differentiable in all four inputs (the backward recomputes
+    the plain version)."""
     _check(xdt, a, Bm, Cm)
-    B_, H, S, P = xdt.shape
-    N = Bm.shape[-1]
-    if S == 0:
+    if xdt.shape[2] == 0:
         return torch.zeros(xdt.shape, dtype=torch.float32,
                            device=xdt.device)
-    l = _chunk(S, chunk)
-    if xdt.device.type == "cpu":
-        return ssd_scan_plain(xdt, a, Bm, Cm, chunk=l)
-    if xdt.device.type != "cuda":
+    if xdt.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {xdt.device}")
+    return _SSDScan.apply(xdt, a, Bm, Cm, _chunk(xdt.shape[2], chunk))
+
+
+class _SSDScan(torch.autograd.Function):
+    @staticmethod
+    def forward(xdt, a, Bm, Cm, chunk):
+        if xdt.device.type == "cpu":
+            return ssd_scan_plain(xdt, a, Bm, Cm, chunk=chunk)
+        return _launch(xdt, a, Bm, Cm, chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:4])
+        ctx.chunk = inputs[4]
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        grads = recompute_grads(ssd_scan_plain, ctx.saved_tensors,
+                                ctx.needs_input_grad[:4], grad_y,
+                                chunk=ctx.chunk)
+        return (*grads, None)
+
+
+def _launch(xdt, a, Bm, Cm, l):
+    """One call of the four CUDA kernels on checked inputs, S > 0, l the
+    chunk."""
+    global launches
+    B_, H, S, P = xdt.shape
+    N = Bm.shape[-1]
     for name, t in (("xdt", xdt), ("a", a), ("Bm", Bm), ("Cm", Cm)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")

@@ -117,6 +117,10 @@ def run(argv=None) -> dict:
         return run_prefill(own)
     args = train.parse_args(rest + ["--device", own.device,
                                     "--seed", str(own.seed)])
+    if args.mode != "fog":
+        raise SystemExit("launch.breakdown times the fog path (or the "
+                         "prefill, --prefill ARCH); --mode lm runs in "
+                         "launch.train")
     train._check_ported(args)
     device = resolve_device(args.device)
     pb = train.build_problem(args)

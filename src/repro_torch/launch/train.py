@@ -22,6 +22,18 @@ boundary and ``--resume PATH`` continues such a snapshot bit for bit.
 segment-reduce kernel's row form on the card); ``--engine sharded``
 waits for multi-GPU.
 
+``--mode lm`` trains a model of the zoo (dense, ssm and hybrid
+families) on synthetic tokens, the batches routed and weighted by a
+Theorem-3 plan across ``--data-shards`` shards, with the train step or,
+with ``--lm-tau`` > 1, FedAvg rounds of τ local steps:
+
+    python -m repro_torch.launch.train --mode lm --arch zamba2-7b \
+        --steps 40 --batch 8 --seq 128
+
+As in the reference, ``--smoke`` is on whatever the command line says
+(the smoke config of ``--arch``, ``--layers`` overriding its depth), and
+the shard count is ``min(--data-shards, cards)``.
+
 The flags and defaults are those of ``python -m repro.launch.train``,
 plus ``--device`` (``cuda`` by default; ``cpu`` runs the same path on
 the CPU, with the kernels' plain versions). Flags whose code is not
@@ -34,23 +46,24 @@ import json
 import time
 
 import numpy as np
+import torch
 
+from repro_torch.configs.registry import get_config
 from repro_torch.core import estimator as est
 from repro_torch.core import faults as fl
 from repro_torch.core import federated as F
 from repro_torch.core import movement as mv
-from repro_torch.core.costs import (synthetic_costs, testbed_like_costs,
-                                    with_capacity)
+from repro_torch.core.costs import (ici_costs, synthetic_costs,
+                                    testbed_like_costs, with_capacity)
 from repro_torch.core.hierarchy import TierTree
 from repro_torch.core.topology import make_schedule, make_topology
 from repro_torch.data import pipeline as pl
-from repro_torch.data.synthetic import make_image_dataset
+from repro_torch.data.synthetic import make_image_dataset, make_token_dataset
 from repro_torch.device import resolve_device
-
-
-# what --mode lm waits for; serving the model zoo is launch/serve.py
-LM_TRAINING = ("model zoo, training slice: train step, optimizers, "
-               "FedAvg")
+from repro_torch.launch import steps as St
+from repro_torch.models import transformer as T
+from repro_torch.models.module import init_params
+from repro_torch.optim import optimizers as opt_lib
 
 
 def _unported(what: str, item: int, title: str) -> SystemExit:
@@ -90,8 +103,12 @@ def solve_setting(setting: str, traces, adj, D, error_model="discard",
 
 
 def _check_ported(args) -> None:
+    if args.mode == "lm":
+        missing = T.unported_item(get_config(args.arch, smoke=True))
+        if missing:
+            raise _unported(f"--mode lm --arch {args.arch}", *missing)
+        return
     checks = [
-        (args.mode == "lm", "--mode lm", 14, LM_TRAINING),
         (args.engine == "sharded", "--engine sharded", 12, "multi-GPU"),
         (args.sanitize, "--sanitize", 13, "tooling"),
     ]
@@ -256,6 +273,117 @@ def run_fog(args) -> dict:
     return {**out, "plan": plan, "history": hist}
 
 
+def lm_movement_inputs(n_shards: int, batch: int, T_rounds: int,
+                       rng: np.random.Generator, het: float = 0.5):
+    """Movement plan across data shards -> per-round (route, weights).
+
+    Shards have heterogeneous per-point costs (straggler factors); links
+    are cheap and uniform. The Theorem-3 rule decides which shards'
+    samples move; a round's route (B,) int32 permutes the global batch
+    so that each shard's samples sit with the shard that processes
+    them, and its weights (B,) float32, in routed order, zero the
+    discarded ones. Returns (plan, traces, routes, weights), numpy, as
+    the reference's."""
+    speed = 1.0 + het * rng.standard_normal(n_shards).clip(-0.9, 4.0)
+    traces = ici_costs(n_shards, T_rounds, bytes_per_point=4 * 2048,
+                       flops_per_point=5e9, speed_factors=speed.clip(0.2),
+                       f_err=1e9)  # critical task: never discard
+    # c_node and c_link scaled alike, to magnitudes where plans move data
+    traces.c_node[:] *= 1e6
+    traces.c_link[:] *= 1e6
+    adj = make_topology("full", n_shards, rng)
+    plan = mv.greedy_linear(traces, adj)
+    per_shard = batch // n_shards
+    routes, weights = [], []
+    for t in range(T_rounds):
+        dest = np.repeat(np.arange(n_shards), per_shard)
+        for i in range(n_shards):
+            j = int(np.argmax(plan.s[t, i]))
+            if j != i:  # shard i's samples processed by shard j
+                dest[i * per_shard:(i + 1) * per_shard] = j
+        order = np.argsort(dest, kind="stable")
+        routes.append(order.astype(np.int32))
+        w = np.ones(batch, np.float32)
+        for i in range(n_shards):
+            w[i * per_shard:(i + 1) * per_shard] = 1.0 - plan.r[t, i]
+        weights.append(w[order])
+    return plan, traces, routes, weights
+
+
+def lm_batch(toks, it: int, batch: int, seq: int, weights, routes,
+             device) -> dict:
+    """Step ``it``'s batch: ``batch`` rows of ``seq`` + 1 tokens, cut
+    into inputs and next-token labels, with the plan's weights and
+    route, on ``device``."""
+    off = it * batch * (seq + 1)
+    chunk = toks[off: off + batch * (seq + 1)].reshape(batch, seq + 1)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return {"tokens": dev(chunk[:, :-1]), "labels": dev(chunk[:, 1:]),
+            "weights": dev(weights[it]), "route": dev(routes[it])}
+
+
+def run_lm(args) -> dict:
+    """Model-zoo training: token data → movement plan across the data
+    shards → ``--steps`` train steps (or FedAvg rounds of ``--lm-tau``
+    local steps) → the reference's summary JSON (mode, arch, loss_first,
+    loss_last, steps_per_s, moved_frac). Returns it with the loss of
+    every step (every round under FedAvg) under ``"losses"`` and the
+    device under ``"device"``."""
+    _check_ported(args)
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if args.layers:
+        cfg = cfg.with_overrides(num_layers=args.layers)
+    shards = min(args.data_shards, torch.cuda.device_count() or 1)
+    rng = np.random.default_rng(args.seed)
+    toks = make_token_dataset(args.steps * args.batch * (args.seq + 1) + 1,
+                              cfg.vocab_size, seed=args.seed)
+    params = init_params(T.specs(cfg), args.seed, torch.float32, device)
+    opt = opt_lib.get_optimizer(args.optimizer, args.lr)
+    opt_state = opt.init(params)
+    plan, _, routes, weights = lm_movement_inputs(shards, args.batch,
+                                                  args.steps, rng)
+
+    def batch_at(it):
+        return lm_batch(toks, it, args.batch, args.seq, weights, routes,
+                        device)
+
+    losses = []
+    t0 = time.time()
+    if args.lm_tau > 1:
+        # FedAvg with tau local steps a round (paper eqs. (3)-(4))
+        from repro_torch.distributed.fedavg import make_fedavg_round
+
+        rnd = make_fedavg_round(cfg, opt, args.lm_tau, n_shards=shards)
+        for r in range(args.steps // args.lm_tau):
+            bs = [St.route_batch(batch_at(r * args.lm_tau + i))
+                  for i in range(args.lm_tau)]
+            stacked = {k: torch.stack([b[k] for b in bs])
+                       for k in bs[0] if k != "route"}
+            params, opt_state, loss = rnd(params, opt_state, stacked)
+            losses.append(float(loss))
+            print(f"round {r:3d} (tau={args.lm_tau}) loss {losses[-1]:.4f}",
+                  flush=True)
+    else:
+        step_fn = St.make_train_step(cfg, opt)
+        for it in range(args.steps):
+            params, opt_state, m = step_fn(params, opt_state, batch_at(it))
+            losses.append(float(m["loss"]))
+            if it % max(args.steps // 10, 1) == 0:
+                print(f"step {it:4d} loss {losses[-1]:.4f}", flush=True)
+    dt = time.time() - t0
+    out = {"mode": "lm", "arch": args.arch, "loss_first": losses[0],
+           "loss_last": float(np.mean(losses[-5:])),
+           "steps_per_s": args.steps / dt,
+           "moved_frac": float((plan.s * (1 - np.eye(shards))).sum()
+                               / plan.s.shape[0] / shards)}
+    print(json.dumps(out, indent=2))
+    return {**out, "losses": losses, "device": str(device)}
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["fog", "lm"], default="fog")
@@ -317,14 +445,26 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--checkpoint", default=None, metavar="PATH")
     ap.add_argument("--resume", default=None, metavar="CKPT")
     ap.add_argument("--sanitize", action="store_true")
+    # lm
+    ap.add_argument("--arch", default="qwen3-14b")
+    ap.add_argument("--smoke", action="store_true", default=True,
+                    help="the smoke config of --arch (on whatever the "
+                         "command line says, as in the reference)")
+    ap.add_argument("--layers", type=int, default=0)
+    ap.add_argument("--steps", type=int, default=40)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--data-shards", type=int, default=1)
+    ap.add_argument("--lm-tau", type=int, default=1,
+                    help="FedAvg local steps per aggregation (lm mode)")
+    ap.add_argument("--optimizer", default="adamw")
+    ap.add_argument("--lr", type=float, default=3e-3)
     return ap.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.mode == "lm":
-        raise _unported("--mode lm", 14, LM_TRAINING)
-    return run_fog(args)
+    return run_fog(args) if args.mode == "fog" else run_lm(args)
 
 
 if __name__ == "__main__":

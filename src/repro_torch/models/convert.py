@@ -2,7 +2,8 @@
 
 :func:`params_from_jax` is for the paper's MNIST models (and
 :func:`scan_state_from_jax` for a scan-engine checkpoint of them),
-:func:`lm_params_from_jax` for the model zoo.
+:func:`lm_params_from_jax` for the model zoo and
+:func:`opt_state_from_jax` for its optimizer states.
 
 The reference CNN (``repro.models.mnist``) is NHWC with HWIO kernels and
 flattens its last feature map in (h, w, c) order; the port is NCHW with
@@ -48,6 +49,23 @@ def lm_params_from_jax(tree, *, device=None):
     if np.issubdtype(a.dtype, np.floating):
         a = a.astype(np.float32)
     return torch.from_numpy(np.array(a, order="C")).to(device)
+
+
+def opt_state_from_jax(state, *, device=None):
+    """A reference optimizer state (``repro.optim.optimizers``: sgd's
+    ``{count}``, momentum's ``{mu, count}``, adamw's ``{m, v, count}``,
+    as numpy) -> the port's (:mod:`repro_torch.optim.optimizers`):
+    moments as float32 trees like the parameters, ``count`` a 0-d int32
+    tensor, on ``device``; so both packages can continue from the same
+    state."""
+    unknown = set(state) - {"m", "v", "mu", "count"}
+    if unknown:
+        raise ValueError(f"not an optimizer state: keys {sorted(unknown)}")
+    out = {k: lm_params_from_jax(v, device=device)
+           for k, v in state.items() if k != "count"}
+    out["count"] = torch.tensor(int(np.asarray(state["count"])),
+                                dtype=torch.int32, device=device)
+    return out
 
 
 def scan_state_from_jax(state: dict, *, device=None) -> dict:

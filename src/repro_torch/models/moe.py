@@ -2,7 +2,7 @@
 
 Only the specs are ported, so that the spec tree of every architecture
 equals the reference's. The MoE layer itself (GShard top-k dispatch) is
-not ported yet: ROADMAP.md, queue 1 item 14.
+not ported yet: ROADMAP.md, queue 1 item 14b.
 """
 from __future__ import annotations
 

@@ -4,7 +4,8 @@ hybrid families (the port of :mod:`repro.models.transformer`).
 The interface is the reference's:
 
 * ``specs(cfg)``                          parameter spec tree (every family)
-* ``forward(params, batch, cfg)``         logits (prefill)
+* ``forward(params, batch, cfg)``         logits (train / prefill)
+* ``loss_fn(params, batch, cfg)``         weighted next-token cross-entropy
 * ``init_cache_specs(cfg, batch, seq)``   decode-cache spec tree
 * ``decode_step(params, cache, batch, pos, cfg)`` one-token serve step
 
@@ -12,12 +13,16 @@ Stacked layers keep the reference's leading ``layers`` axis; where the
 reference scans over it, the port loops in Python over views of each
 layer. The hybrid family loops over ``num_layers // attn_every`` groups:
 ``attn_every`` SSM blocks, then the one SHARED attention+MLP block.
-The moe, encdec and vlm families have specs only: their forward and
-decode are ROADMAP.md queue 1 item 14.
+``cfg.remat == "full"`` recomputes each block (and each hybrid group)
+in the backward, where the reference wraps the same bodies in
+``jax.checkpoint``. The moe family waits for ROADMAP.md queue 1 item
+14b, encdec and vlm for item 14c: they have specs only.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -27,12 +32,28 @@ from repro_torch.models.module import Spec
 PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
+# the ROADMAP.md queue 1 items that port the families still missing
+MOE_ITEM = ("14b", "MoE")
+ENCDEC_VLM_ITEM = ("14c", "enc-dec and VLM")
+
+
+def unported_item(cfg) -> tuple[str, str] | None:
+    """(item, title) of the ROADMAP.md item that ports ``cfg``'s family,
+    or None when the port runs it."""
+    if cfg.num_experts:
+        return MOE_ITEM
+    if cfg.vision_patches or cfg.family not in PORTED_FAMILIES:
+        return ENCDEC_VLM_ITEM
+    return None
+
+
 def _check_family(cfg) -> None:
-    if cfg.family not in PORTED_FAMILIES or cfg.num_experts \
-            or cfg.vision_patches:
+    missing = unported_item(cfg)
+    if missing:
+        item, title = missing
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported to "
-            f"repro_torch yet (ROADMAP.md, queue 1 item 14: model zoo); "
+            f"repro_torch yet (ROADMAP.md, queue 1 item {item}: {title}); "
             f"ported: {', '.join(PORTED_FAMILIES)}")
 
 
@@ -122,6 +143,24 @@ def _ssm_block(x, lp, cfg):
     return x + S.ssm_apply(_norm(x, lp["ln"], cfg), lp["ssm"], cfg)
 
 
+def _remat(fn, cfg):
+    """``fn`` recomputed in the backward under ``cfg.remat == "full"``
+    (the reference's ``jax.checkpoint``), else ``fn``."""
+    if cfg.remat != "full":
+        return fn
+    return lambda *a, **kw: checkpoint(fn, *a, use_reentrant=False, **kw)
+
+
+def _hybrid_group(x, blocks, shared, gi, cfg, window):
+    """One hybrid group: its ``attn_every`` SSM blocks, then the shared
+    attention+MLP block."""
+    per = cfg.attn_every
+    block = _remat(_ssm_block, cfg)
+    for j in range(per):
+        x = block(x, _layer(blocks, gi * per + j), cfg)
+    return _attn_mlp_block(x, shared, cfg, window=window)
+
+
 def forward(params, batch, cfg):
     """Returns (logits (B,S,V_pad), aux_loss): aux is 0 for the ported
     families, which have no MoE."""
@@ -129,21 +168,44 @@ def forward(params, batch, cfg):
     window = cfg.sliding_window
     x = L.embed_tokens(batch["tokens"], params["embed"], cfg)
     if cfg.family == "ssm":
+        block = _remat(_ssm_block, cfg)
         for i in range(cfg.num_layers):
-            x = _ssm_block(x, _layer(params["blocks"], i), cfg)
+            x = block(x, _layer(params["blocks"], i), cfg)
     elif cfg.family == "hybrid":
-        g, per = hybrid_shape(cfg)
+        # as in the reference, under remat each SSM block is checkpointed
+        # inside its group and the group around them
+        g, _ = hybrid_shape(cfg)
+        group = _remat(_hybrid_group, cfg)
         for gi in range(g):
-            for j in range(per):
-                x = _ssm_block(x, _layer(params["blocks"], gi * per + j), cfg)
-            x = _attn_mlp_block(x, params["shared"], cfg, window=window)
+            x = group(x, params["blocks"], params["shared"], gi, cfg, window)
     else:
+        block = _remat(_attn_mlp_block, cfg)
         for i in range(cfg.num_layers):
-            x = _attn_mlp_block(x, _layer(params["blocks"], i), cfg,
-                                window=window)
+            x = block(x, _layer(params["blocks"], i), cfg, window=window)
     x = _norm(x, params["ln_f"], cfg)
     logits = L.lm_logits(x, params["embed"], cfg)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params, batch, cfg):
+    """Weighted next-token cross-entropy, in float32.
+
+    ``batch["weights"]`` (B,) are per-sample weights from the
+    network-aware data-movement plan (0 = discarded sample); the loss is
+    normalised by the total processed weight (at least 1), as in eqs.
+    (1)/(4) of the paper. Returns (loss + 0.01·aux, {"ce", "aux"}).
+    """
+    logits, aux = forward(params, batch, cfg)
+    labels = batch["labels"].long()
+    logp = F.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    w = batch.get("weights")
+    if w is None:
+        w = torch.ones(labels.shape[:1], dtype=torch.float32,
+                       device=ll.device)
+    tok_w = w[:, None] * torch.ones_like(ll)
+    loss = -(ll * tok_w).sum() / torch.clamp(tok_w.sum(), min=1.0)
+    return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

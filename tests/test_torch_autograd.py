@@ -5,9 +5,9 @@ backward is the transpose of the sum (a gather): held bit for bit to
 autograd through their plain versions, and to ``jax.grad`` of the
 reference's ``jax.ops.segment_sum`` (the gradient of the data exactly;
 the gradient of the row weights, a sum over the row, within rtol 1e-6,
-since XLA may sum a row in another order). ``segment_max``, flash
-attention and the SSD scan have no backward yet and refuse inputs that
-require grad. The ragged round's row gather (its backward a row sum
+since XLA may sum a row in another order). ``segment_max`` has no
+backward and refuses inputs that require grad; flash attention and the
+SSD scan have one (``tests/test_torch_kernel_grad.py``). The ragged round's row gather (its backward a row sum
 that drops the trash id) equals the reference's transpose of
 ``jnp.take(mode="clip")`` bit for bit on a bucket whose phantom rows
 carry the zero gradients that their zero weights give; eq. (4)'s
@@ -103,18 +103,21 @@ def test_segment_grads_of_empty_shapes():
 
 
 def test_kernels_without_a_backward_refuse_grad():
+    """``segment_max`` is the one kernel wrapper without a backward: it
+    refuses inputs that require grad. Attention and the SSD scan, which
+    refused them before they had a backward, now give gradients."""
     from repro_torch.kernels.flash_attention import default_kv_map
 
-    x = torch.randn(1, 2, 4, 8, requires_grad=True)
-    with pytest.raises(RuntimeError, match="queue 1 item 14a"):
-        ops.attention(x, x, x)
-    a = torch.randn(1, 2, 4)
-    bm = torch.randn(1, 4, 3)
-    with pytest.raises(RuntimeError, match="queue 1 item 14a"):
-        ops.ssd(x, a, bm, bm, chunk=4)
-    with pytest.raises(RuntimeError, match="queue 1 item 14a"):
+    with pytest.raises(RuntimeError, match="segment_max has no backward"):
         ops.segment_max(torch.randn(5, requires_grad=True),
                         torch.zeros(5, dtype=torch.int32), num_segments=1)
+    x = torch.randn(1, 2, 4, 8, requires_grad=True)
+    a = torch.randn(1, 2, 4)
+    bm = torch.randn(1, 4, 3)
+    g, = torch.autograd.grad(ops.attention(x, x, x).sum(), x)
+    assert g.shape == x.shape and torch.isfinite(g).all()
+    g, = torch.autograd.grad(ops.ssd(x, a, bm, bm, chunk=4).sum(), x)
+    assert g.shape == x.shape and torch.isfinite(g).all()
     # without grad they run as before
     with torch.no_grad():
         y = ops.attention(x, x, x, kv_map=default_kv_map(2, 2))

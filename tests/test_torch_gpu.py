@@ -822,3 +822,103 @@ def test_small_bucket_on_card_matches_cpu(cuda, staging):
                                    rtol=2e-3, atol=1e-4)
         np.testing.assert_allclose(got["test_acc"], want["test_acc"],
                                    atol=1e-2)
+
+
+def _grads(y, ins, g):
+    return torch.autograd.grad(y, ins, g)
+
+
+# (s1) of chip_smoke.py: the Functions' backward is the plain version
+# recomputed, so on the same inputs and cotangent their gradients equal
+# all-plain autograd bit for bit; a row no key sees gets 0
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,hd,causal,window,dtype", [
+    (1, 4, 4, 128, 128, 64, True, None, torch.float32),
+    (2, 4, 2, 96, 96, 112, True, 32, torch.float32),
+    (1, 4, 1, 64, 80, 64, False, None, torch.float32),
+    (1, 2, 1, 64, 16, 32, False, 8, torch.float32),       # rows 23.. blind
+    (1, 4, 2, 128, 128, 64, True, None, torch.bfloat16),
+])
+def test_attention_grads_on_card_equal_plain_autograd(
+        cuda, B, H, KH, Sq, Sk, hd, causal, window, dtype):
+    q = _randn((B, H, Sq, hd), 21, cuda).to(dtype)
+    k = _randn((B, KH, Sk, hd), 22, cuda).to(dtype)
+    v = _randn((B, KH, Sk, hd), 23, cuda).to(dtype)
+    g = _randn((B, H, Sq, hd), 24, cuda).to(dtype)
+    km = fa.default_kv_map(H, KH).to(cuda)
+    a1 = [t.clone().requires_grad_() for t in (q, k, v)]
+    a2 = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = fa.launches
+    y1 = fa.flash_attention(*a1, km, causal=causal, window=window)
+    got = _grads(y1, a1, g)
+    assert fa.launches == before + 1                 # none from the backward
+    y2 = fa.flash_attention_plain(*a2, km, causal=causal, window=window)
+    want = _grads(y2, a2, g)
+    for x1, x2 in zip(got, want):
+        assert x1.dtype == dtype and bool(torch.isfinite(x1).all())
+        assert torch.equal(x1, x2)
+
+
+@pytest.mark.parametrize("B,H,S,P,N,chunk,dtype", [
+    (2, 4, 256, 64, 64, 128, torch.float32),
+    (1, 3, 64, 32, 16, 8, torch.float32),
+    (1, 2, 128, 32, 16, 32, torch.bfloat16),
+])
+def test_ssd_grads_on_card_equal_plain_autograd(cuda, B, H, S, P, N, chunk,
+                                                dtype):
+    ins = _ssd_inputs(B, H, S, P, N, cuda, dtype)
+    g = _randn((B, H, S, P), 25, cuda)
+    a1 = [t.clone().requires_grad_() for t in ins]
+    a2 = [t.clone().requires_grad_() for t in ins]
+    before = sd.launches
+    got = _grads(sd.ssd_scan(*a1, chunk=chunk), a1, g)
+    assert sd.launches == before + 1
+    want = _grads(sd.ssd_scan_plain(*a2, chunk=chunk), a2, g)
+    for x1, x2, t in zip(got, want, ins):
+        assert x1.dtype == t.dtype and bool(torch.isfinite(x1).all())
+        assert torch.equal(x1, x2)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "mamba2-1.3b", "zamba2-7b"])
+def test_smoke_train_step_on_card_matches_cpu(cuda, arch):
+    """One ``make_train_step`` of a smoke config on the card (the
+    kernels forward, their plain versions backward) against the CPU,
+    from the same parameters: loss and gradient norm within rtol 1e-4,
+    the parameters after an sgd step within 1e-4 of each leaf's largest
+    |p| (AdamW's first step is about ±lr on every entry whatever its
+    gradient's size, so rounding flips the sign of near-zero ones)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps as St
+    from repro_torch.models import transformer as T
+    from repro_torch.models.module import init_params
+    from repro_torch.optim import optimizers as topt
+
+    cfg = registry.get_config(arch, smoke=True)
+    params = init_params(T.specs(cfg), 0, torch.float32, "cpu")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+                 0, cfg.vocab_size, (4, 64)).astype(np.int32)),
+             "labels": torch.from_numpy(rng.integers(
+                 0, cfg.vocab_size, (4, 64)).astype(np.int32)),
+             "weights": torch.tensor([1.0, 0.0, 0.5, 1.0]),
+             "route": torch.tensor([2, 0, 3, 1], dtype=torch.int32)}
+    opt = topt.sgd(0.05)
+    step = St.make_train_step(cfg, opt)
+    out = {}
+    for dev in (cuda, "cpu"):
+        p = topt.tree_map(lambda t: t.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        fa.reset_launches()
+        sd.reset_launches()
+        out[str(dev)] = step(p, opt.init(p), b)
+        if dev == cuda:
+            torch.cuda.synchronize()
+            n_attn = (cfg.num_layers // cfg.attn_every if cfg.attn_every
+                      else 0 if cfg.ssm_state else cfg.num_layers)
+            assert fa.launches == n_attn
+            assert sd.launches == (cfg.num_layers if cfg.ssm_state else 0)
+    (pc, _, mc), (pp, _, mp) = out["cuda"], out["cpu"]
+    for k in ("loss", "grad_norm"):
+        assert float(mc[k]) == pytest.approx(float(mp[k]), rel=1e-4)
+    for a, b in zip(topt.tree_leaves(pc), topt.tree_leaves(pp)):
+        assert float((a.cpu() - b).abs().max()) <= \
+            1e-4 * float(b.abs().max())

@@ -38,6 +38,8 @@ def test_modules_found():
     assert "repro_torch.checkpoint.checkpoint" in MODULES
     assert "repro_torch.core.costmodel" in MODULES
     assert "repro_torch.kernels._grad" in MODULES
+    assert "repro_torch.optim.optimizers" in MODULES
+    assert "repro_torch.distributed.fedavg" in MODULES
     assert len(MODULES) > 40
 
 
@@ -111,3 +113,37 @@ def test_sparse_plane_runs_without_jax_or_repro():
                          timeout=300, cwd=SRC.parent)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok []", out.stdout
+
+
+LM_PROBE = """
+import sys
+for name in ("jax", "jaxlib", "repro", "msgpack"):
+    sys.modules[name] = None
+import torch
+from repro_torch.core.costs import effective_link_costs, ici_costs
+from repro_torch.data.synthetic import make_token_dataset
+from repro_torch.distributed.fedavg import make_fedavg_round
+from repro_torch.launch import steps, train
+from repro_torch.models.convert import opt_state_from_jax
+from repro_torch.optim import optimizers
+out = train.main(["--mode", "lm", "--device", "cpu", "--arch", "zamba2-7b",
+                  "--steps", "2", "--batch", "2", "--seq", "8",
+                  "--lm-tau", "2"])
+assert len(out["losses"]) == 1
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack")
+                and sys.modules[m] is not None)
+print("ok", loaded)
+"""
+
+
+def test_lm_training_runs_without_jax_or_repro():
+    """The model zoo's training (optimizers, train step, FedAvg round,
+    token data, the ICI costs, ``--mode lm``) in an interpreter where
+    JAX and the reference cannot be imported."""
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out = subprocess.run([sys.executable, "-c", LM_PROBE],
+                         capture_output=True, text=True, env=env,
+                         timeout=300, cwd=SRC.parent)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok []", out.stdout

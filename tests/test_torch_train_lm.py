@@ -1,0 +1,229 @@
+"""The model zoo's training path held to the reference, on the CPU.
+
+For the smoke configs of qwen3-14b (dense), mamba2-1.3b (ssm) and
+zamba2-7b (hybrid), from the reference's initial parameters carried
+across (``lm_params_from_jax``), on seeded batches with uneven weights,
+a zero-weight sample and a permuting route:
+
+* ``loss_fn`` equals the reference's within rtol 1e-5;
+* the gradient of every leaf lies within 1e-5 of the leaf's largest
+  |g| of the reference's, or within twice the port's own float32 error
+  (its distance from its float64 gradient), whichever is larger; and
+  three ``make_train_step`` steps (adamw at microbatches 1 and 2, sgd)
+  give the reference's losses and gradient norms within rtol 1e-4, or
+  within twice the distance of the port's float32 steps from its float64
+  steps. The dense family is held at 1e-5 / 1e-4 by this rule (its
+  float32 error is ~1.5e-6). The ssm and hybrid families are not: the
+  rounding of their B, C and dt projections (float32 products whose
+  summation order differs between XLA and torch) is amplified through
+  the scan, so each package's float32 gradient lies up to 1.3e-4 of
+  max|g| from the float64 one, and AdamW turns such differences in near-
+  zero gradients into whole steps;
+* ``remat="full"`` gives the loss and gradients of ``"none"`` bit for
+  bit; ``accum_shards`` raises naming ROADMAP.md item 12.
+
+The float64 runs put the kernels' plain versions in place of
+``ops.attention`` and ``ops.ssd`` (the wrappers take float32 and
+bfloat16 only).
+"""
+import contextlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as ref_registry
+from repro.launch import steps as RSt
+from repro.models import module as ref_module
+from repro.models import transformer as RT
+from repro.optim import optimizers as ropt
+from repro_torch.configs import registry
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as sd
+from repro_torch.launch import steps as St
+from repro_torch.models import transformer as T
+from repro_torch.models.convert import lm_params_from_jax
+from repro_torch.optim import optimizers as topt
+
+ARCHS = ["qwen3-14b", "mamba2-1.3b", "zamba2-7b"]
+B, S = 4, 16
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _both(arch, **overrides):
+    rc = ref_registry.get_config(arch, smoke=True)
+    tc = registry.get_config(arch, smoke=True)
+    if overrides:
+        rc, tc = rc.with_overrides(**overrides), tc.with_overrides(**overrides)
+    jp = ref_module.init_params(RT.specs(rc), jax.random.PRNGKey(0),
+                                jnp.float32)
+    return rc, tc, jp, lm_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jp))
+
+
+def _batch(cfg, seed, n=B):
+    rng = np.random.default_rng(seed)
+    w = rng.uniform(0.2, 1.5, n).astype(np.float32)
+    w[1] = 0.0                               # a discarded sample
+    return {"tokens": rng.integers(0, cfg.vocab_size, (n, S)).astype(
+                np.int32),
+            "labels": rng.integers(0, cfg.vocab_size, (n, S)).astype(
+                np.int32),
+            "weights": w,
+            "route": rng.permutation(n).astype(np.int32)}
+
+
+def _jbatch(b):
+    return {k: jnp.asarray(v) for k, v in b.items()}
+
+
+def _tbatch(b):
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+@contextlib.contextmanager
+def _plain_ops():
+    """``ops.attention`` and ``ops.ssd`` as the kernels' plain versions,
+    which also take float64."""
+    keep = ops.attention, ops.ssd
+
+    def attention(q, k, v, *, causal=True, window=None, kv_map=None):
+        return fa.flash_attention_plain(q, k, v, kv_map, causal=causal,
+                                        window=window)
+
+    def ssd(xdt, a, Bm, Cm, *, chunk=128):
+        return sd.ssd_scan_plain(xdt, a, Bm, Cm, chunk=chunk)
+
+    ops.attention, ops.ssd = attention, ssd
+    try:
+        yield
+    finally:
+        ops.attention, ops.ssd = keep
+
+
+def _f64(tree):
+    return topt.tree_map(lambda t: t.double(), tree)
+
+
+def _assert_leaves_within(got, want, own64, tol):
+    """Per leaf: |got − want| ≤ max(tol · max|want|, 2 · |got − own64|)
+    (the port's float32 result, the reference's, the port's float64)."""
+    gl, wl = topt.tree_leaves(got), jax.tree_util.tree_leaves(want)
+    ol = topt.tree_leaves(own64)
+    assert len(gl) == len(wl) == len(ol)
+    for g, w, o in zip(gl, wl, ol):
+        g, w, o = g.double().numpy(), np.asarray(w, np.float64), o.numpy()
+        bound = max(tol * float(np.abs(w).max()),
+                    2 * float(np.abs(g - o).max()))
+        assert float(np.abs(g - w).max()) <= bound
+
+
+def _within(got, want, own64, rel):
+    return abs(got - want) <= max(rel * abs(want), 2 * abs(got - own64))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_and_grads_match_reference(arch):
+    rc, tc, jp, tp = _both(arch)
+    b = _batch(tc, 1)
+    rb = RSt.route_batch(_jbatch(b))
+    tb = St.route_batch(_tbatch(b))
+
+    def lf(p):
+        return RT.loss_fn(p, rb, rc)
+
+    (rl, rm), rg = jax.jit(jax.value_and_grad(lf, has_aux=True))(jp)
+    tl, tm = T.loss_fn(tp, tb, tc)
+    assert float(tl) == pytest.approx(float(rl), rel=1e-5)
+    assert float(tm["ce"]) == pytest.approx(float(rm["ce"]), rel=1e-5)
+    assert float(tm["aux"]) == 0.0 == float(rm["aux"])
+    grads, metrics, wsum = St.grads_of(tp, tb, tc)
+    assert float(wsum) == pytest.approx(float(b["weights"].sum()), rel=1e-6)
+    with _plain_ops():
+        g64, _, _ = St.grads_of(_f64(tp), tb, tc)
+    # grads_of differentiates loss · wsum
+    _assert_leaves_within(topt.tree_map(lambda g: g / wsum, grads), rg,
+                          topt.tree_map(lambda g: g / wsum, g64), 1e-5)
+
+
+def test_loss_weights_and_route():
+    """A zero-weight sample does not count, the route re-indexes tokens
+    and labels but not weights, and an all-zero batch normalises by 1."""
+    rc, tc, jp, tp = _both("qwen3-14b")
+    b = _tbatch(_batch(tc, 2))
+    full, _ = T.loss_fn(tp, b, tc)
+    b2 = dict(b, tokens=b["tokens"].clone(), labels=b["labels"].clone())
+    b2["tokens"][1] = (b2["tokens"][1] + 7) % tc.vocab_size
+    b2["labels"][1] = (b2["labels"][1] + 3) % tc.vocab_size
+    same, _ = T.loss_fn(tp, b2, tc)
+    assert torch.equal(full, same)
+    routed = St.route_batch(b)
+    r = b["route"].long()
+    assert torch.equal(routed["tokens"], b["tokens"][r])
+    assert torch.equal(routed["weights"], b["weights"])
+    zero, m = T.loss_fn(tp, dict(b, weights=torch.zeros(B)), tc)
+    assert float(zero) == 0.0 and float(m["ce"]) == 0.0
+    assert St.route_batch({"tokens": b["tokens"]}) == {"tokens": b["tokens"]}
+
+
+@pytest.mark.parametrize("arch,opt,lr,micro", [
+    ("qwen3-14b", "adamw", 3e-3, 1), ("mamba2-1.3b", "adamw", 3e-3, 2),
+    ("zamba2-7b", "adamw", 3e-3, 1), ("zamba2-7b", "sgd", 0.05, 2),
+    ("qwen3-14b", "sgd", 0.05, 1)])
+def test_train_steps_match_reference(arch, opt, lr, micro):
+    rc, tc, jp, tp = _both(arch)
+    ro, to = ropt.get_optimizer(opt, lr), topt.get_optimizer(opt, lr)
+    rs, ts = ro.init(jp), to.init(tp)
+    p64, s64 = _f64(tp), to.init(tp)
+    rstep = jax.jit(RSt.make_train_step(rc, ro, microbatches=micro))
+    tstep = St.make_train_step(tc, to, microbatches=micro)
+    for i in range(3):
+        b = _batch(tc, 10 + i)
+        jp, rs, rm = rstep(jp, rs, _jbatch(b))
+        tp, ts, tm = tstep(tp, ts, _tbatch(b))
+        with _plain_ops():
+            p64, s64, m64 = tstep(p64, s64, _tbatch(b))
+        for k in ("loss", "grad_norm"):
+            assert _within(float(tm[k]), float(rm[k]), float(m64[k]), 1e-4), \
+                (i, k, float(tm[k]), float(rm[k]), float(m64[k]))
+    assert int(ts["count"]) == 3
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_full_is_bitwise_none(arch):
+    _, tc, _, tp = _both(arch)
+    tb = St.route_batch(_tbatch(_batch(tc, 3)))
+    g0, m0, _ = St.grads_of(tp, tb, tc)
+    g1, m1, _ = St.grads_of(tp, tb, tc.with_overrides(remat="full"))
+    assert torch.equal(m0["ce"], m1["ce"])
+    for a, b in zip(topt.tree_leaves(g0), topt.tree_leaves(g1)):
+        assert torch.equal(a, b)
+
+
+def test_config_for_shape_matches_reference():
+    from repro.configs.base import INPUT_SHAPES as RSH
+    from repro_torch.configs.base import INPUT_SHAPES as TSH
+
+    for arch in registry.all_archs():
+        for name in TSH:
+            got = St.config_for_shape(registry.get_config(arch), TSH[name])
+            want = RSt.config_for_shape(ref_registry.get_config(arch),
+                                        RSH[name])
+            assert (got.remat, got.max_positions, got.sliding_window) == \
+                (want.remat, want.max_positions, want.sliding_window)
+
+
+def test_accum_shards_names_multi_gpu():
+    _, tc, _, _ = _both("qwen3-14b")
+    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+        St.make_train_step(tc, topt.sgd(0.1), accum_shards={})
