@@ -6,7 +6,7 @@
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; it
 imports no JAX. It builds every CUDA kernel of the fog, serving and
 training paths from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
-source, all started together), then runs nineteen phases and fails
+source, all started together), then runs twenty phases and fails
 (exit 1, no result line) if any of them fails:
 
 (a) the Theorem-3 kernel against its plain PyTorch version on the
@@ -67,7 +67,10 @@ source, all started together), then runs nineteen phases and fails
     windows 32, 128 and 200, rows the window leaves with no key (must
     be 0); the SSD scan at several (H, P, N, chunk), mamba2-1.3b's full
     SSD shape (H=64, S=1024, P=64, N=128, chunk 128) and the
-    state-carry impulse. The reference's float32 tolerances: 2e-5 for
+    state-carry impulse; and the attention classes of the MoE, enc-dec
+    and VLM archs (``ZOO_ATTN``): Sq != Sk non-causal, 32 q heads padded
+    onto 20 KV heads at hd 64, GQA 4:1 with a window at hd 128. The
+    reference's float32 tolerances: 2e-5 for
     attention, 1e-4 of max|y| for the scan, whose output is float32 on
     bfloat16 inputs too; a bfloat16 attention output within one
     bfloat16 rounding (half a step) of the plain version's float32
@@ -102,10 +105,13 @@ source, all started together), then runs nineteen phases and fails
     in the log line only, the flops at 67 TFLOP/s on the CUDA cores;
     attention's kernel and plain version also against float64 (batch 0,
     q heads 0-7);
-(m) the smoke configs of zamba2-7b, mamba2-1.3b and qwen3-14b once on
-    the card and once on the CPU through the port, with the same
-    parameters: logits within 1e-4 of the largest |logit|, greedy
-    tokens equal;
+(m) the smoke configs of zamba2-7b, mamba2-1.3b, qwen3-14b,
+    olmoe-1b-7b, mixtral-8x7b, whisper-large-v3 and phi-3-vision-4.2b
+    (seeded frames and patch embeddings) once on the card and once on
+    the CPU through the port, with the same parameters: logits within
+    1e-4 of the largest |logit|, the MoE aux within 1e-6, greedy tokens
+    equal, attention launches one a decoder layer (plus the encoder and
+    cross layers of enc-dec);
 (n) planning beyond setting B: the convex solver (800 Adam steps, plain
     PyTorch) at n=200, T=20, rho=0.1, sqrt and neg_G, on setting-B and
     setting-E inputs, on the card against the port on the CPU from the
@@ -223,7 +229,9 @@ source, all started together), then runs nineteen phases and fails
     the backward) bit for bit those of autograd through the plain
     versions alone, for a fixed cotangent, at (i)'s shape classes (MHA,
     GQA 2:1, MQA, causal, windows, rows that see no key: zero gradient)
-    in float32 and bfloat16, and the scan at two (H, P, N, chunk), all
+    in float32 and bfloat16, (i)'s MoE, enc-dec and VLM classes (Sq !=
+    Sk non-causal, the 32 -> 20 padded map, hd 64, GQA 4:1 with a
+    window), and the scan at two (H, P, N, chunk), all
     finite, one launch a call and none from the backward; (s2) zamba2-7b
     at full width cut to 18 layers (two hybrid groups; 1.84 B float32
     parameters drawn on the card), AdamW at the CLI's lr on B=2 x S=2048
@@ -238,10 +246,40 @@ source, all started together), then runs nineteen phases and fails
     the step's inputs, and a profiled step (top kernels, the backward
     nodes' device time, the idle share) (B = 1 if B = 2 does not fit,
     logged); (s3) ``--mode lm`` for the smoke configs of qwen3-14b,
-    mamba2-1.3b and zamba2-7b, 5 steps, and ``--lm-tau 2``, on the card
-    and on the CPU from the same parameters, at the CLI's defaults and
-    with SGD (see ``phase_s_cli`` for what each holds), exact launch
-    counts, and the MoE and enc-dec archs refused naming their items.
+    mamba2-1.3b, zamba2-7b, olmoe-1b-7b, mixtral-8x7b, whisper-large-v3
+    and phi-3-vision-4.2b, 5 steps, and ``--lm-tau 2``, on the card and
+    on the CPU from the same parameters, at the CLI's defaults and with
+    SGD (see ``phase_s_cli`` for what each holds), exact launch counts;
+(t) the model zoo's last families at full width, float32, drawn on the
+    card from the seed, every launch counter set to 0 just before each
+    prefill or step and read just after: (t1) olmoe-1b-7b, full depth
+    (6.92 B parameters), prefill B=2 x S=4096 (exactly 16 attention
+    launches), cold and warm time, tokens/s, peak memory and the
+    profiled device-time shares of the expert GEMMs, the dispatch and
+    combine, and attention; then ``greedy_generate`` at the serve CLI's
+    defaults; (t2) mixtral-8x7b cut to 4 of 32 layers (6.07 B), B=1 x
+    S=8192 past the 4096 window (4 launches), the same numbers; (t3)
+    olmoe cut to 6 layers (2.72 B), AdamW, B=2 x S=2048 (B by reckoning
+    before the draw, logged): the first step's gradients through the
+    kernel against the plain version as (s2) holds them, the router's
+    gradient non-zero, the aux finite, then a cold and three warm steps
+    (6 launches each), split and profile; (t4) whisper-large-v3 at full
+    depth (1.72 B): prefill B=2 x 448 tokens on 1500 seeded frames (96
+    launches: 32 encoder, 32 self, 32 cross), decode at the serve
+    defaults (``encode`` and ``cross_decode_attention``), and training
+    at B=2 (96 launches a step); (t5) phi-3-vision-4.2b (3.83 B)
+    prefill B=2 x (144 patches + 3952 tokens), 32 launches, logits on
+    the text positions only; (t6) olmoe and whisper at full width cut to
+    2 layers, B=1 x S=256, capacity factor 8 (no drops): float64
+    prefill and teacher-forced decode within 2e-3 of max|logit|, the
+    float32 kernel prefill no further from float64 than twice the
+    kernel-free float32 paths, routing equal to float64's wherever the
+    top-k margin exceeds 1e-5 (smaller-margin flips logged, and the
+    positions from the first one left out); and kernel 3 timed on the
+    inputs (t1), (t2) and (t4) gave it (olmoe, mixtral's window,
+    whisper's encoder and cross attention) beside its plain version,
+    SDPA on K and V expanded to the q heads and its least time (the
+    ``sites`` of the flash_attention entry).
 
 The line before the last is the JSON list of kernels; the one before it
 the card's name and power limit; the last line is the result.
@@ -250,6 +288,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1067,6 +1106,23 @@ def bf16_excess(torch, got, want):
     return float(((got - want).abs() - room).max())
 
 
+# (B, Hp, H, KH, Sq, Sk, hd, causal, window): the MoE, enc-dec and VLM
+# archs' attention classes, q heads padded from H to Hp (padded heads
+# read KV head 0, as layers.kv_head_map maps them)
+ZOO_ATTN = [
+    (1, 32, 20, 20, 448, 1500, 64, False, None),    # whisper cross, 32 -> 20
+    (1, 32, 20, 20, 1500, 1500, 64, False, None),   # whisper encoder
+    (1, 16, 16, 16, 1024, 1024, 128, True, None),   # olmoe
+    (1, 32, 32, 8, 2048, 2048, 128, True, 512),     # mixtral: GQA 4:1, window
+]
+
+
+def padded_head_map(torch, Hp, H, KH, device):
+    """q head -> KV head with q heads H..Hp-1 padded (reading head 0)."""
+    h = torch.arange(Hp, dtype=torch.int32, device=device)
+    return torch.where(h < H, h // (H // KH), 0)
+
+
 def phase_i_new_kernels(torch, fa, sd, cuda):
     """Flash attention and the SSD scan against their plain versions: in
     float32 at the reference's float32 tolerances; a bfloat16 attention
@@ -1121,6 +1177,20 @@ def phase_i_new_kernels(torch, fa, sd, cuda):
         log(f"(i) flash_attention B={B} H={H} KH={KH} Sq={Sq} Sk={Sk} "
             f"hd={hd} causal={causal} window={window} {dtype}: max abs "
             f"err {err} (tolerance {tol}){dead}")
+    for i, (B, Hp, H, KH, Sq, Sk, hd, causal, window) in enumerate(ZOO_ATTN):
+        q = _randn(torch, (B, Hp, Sq, hd), 500 + 3 * i, cuda)
+        k = _randn(torch, (B, KH, Sk, hd), 501 + 3 * i, cuda)
+        v = _randn(torch, (B, KH, Sk, hd), 502 + 3 * i, cuda)
+        km = padded_head_map(torch, Hp, H, KH, cuda)
+        got = fa.flash_attention(q, k, v, km, causal=causal, window=window)
+        want = fa.flash_attention_plain(q, k, v, km, causal=causal,
+                                        window=window)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, atol=ATTN_TOL, rtol=ATTN_TOL)
+        log(f"(i) flash_attention B={B} H={Hp} (padded from {H}) KH={KH} "
+            f"Sq={Sq} Sk={Sk} hd={hd} causal={causal} window={window} "
+            f"float32: max abs err {err} (tolerance {ATTN_TOL})")
     ssd = [(1, 2, 128, 32, 16, 32), (2, 4, 256, 64, 64, 128),
            (1, 1, 64, 16, 128, 64), (2, 3, 64, 32, 16, 8),
            (2, 8, 1024, 64, 64, 128), (1, 4, 384, 112, 32, 96),
@@ -1288,13 +1358,18 @@ def _to_float64(torch, tree):
     return tree
 
 
-def _teacher_forced(torch, T, steps, init_params, cfg, params, toks, dtype):
+def _teacher_forced(torch, T, steps, init_params, cfg, params, toks, dtype,
+                    frames=None):
     """decode_step logits at every position of toks (B, S), the cache in
-    ``dtype`` (its SSM state spec says float32: cast to ``dtype`` too)."""
+    ``dtype`` (an SSM state's spec says float32: cast to ``dtype`` too);
+    an enc-dec arch's cross K/V from ``encode`` of ``frames``."""
     B, S = toks.shape
     cache = init_params(T.init_cache_specs(cfg, B, S), dtype=dtype,
                         device=toks.device)
-    cache["h"] = cache["h"].to(dtype)
+    if "h" in cache:
+        cache["h"] = cache["h"].to(dtype)
+    if frames is not None:
+        _, cache["cross_k"], cache["cross_v"] = T.encode(params, frames, cfg)
     decode = steps.make_decode_step(cfg)
     out = []
     for i in range(S):
@@ -1502,11 +1577,39 @@ def phase_l_timing(torch, np, fa, sd, served):
     return attn, ssd
 
 
+def attention_launches(cfg):
+    """Flash-attention launches of one forward: one a decoder layer, one
+    a hybrid group; an enc-dec arch adds its encoder and cross layers."""
+    if cfg.attn_every:
+        return cfg.num_layers // cfg.attn_every
+    if cfg.ssm_state:
+        return 0
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    return cfg.num_layers
+
+
+def seeded_frontends(torch, np, cfg, B, rng, device):
+    """Seeded ``frames`` (enc-dec) or ``patch_embeds`` (VLM) of B rows."""
+    out = {}
+    for name, n, on in (("frames", cfg.encoder_seq, cfg.family == "encdec"),
+                        ("patch_embeds", cfg.vision_patches,
+                         bool(cfg.vision_patches))):
+        if on:
+            out[name] = torch.from_numpy(rng.standard_normal(
+                (B, n, cfg.d_model)).astype(np.float32)).to(device)
+    return out
+
+
+SMOKE_ARCHS = ("zamba2-7b", "mamba2-1.3b", "qwen3-14b", "olmoe-1b-7b",
+               "mixtral-8x7b", "whisper-large-v3", "phi-3-vision-4.2b")
+
+
 def phase_m_smoke_configs(torch, np, card, counters, cuda):
     """Smoke configs on the card and on the CPU with the same params."""
     get_config, serve, _, T, init_params, _ = _serve_modules()
     cpu = torch.device("cpu")
-    for arch in ("zamba2-7b", "mamba2-1.3b", "qwen3-14b"):
+    for arch in SMOKE_ARCHS:
         cfg = get_config(arch, smoke=True)
         p_cpu = init_params(T.specs(cfg), seed=SEED, device=cpu)
         p_card = {}
@@ -1521,12 +1624,15 @@ def phase_m_smoke_configs(torch, np, card, counters, cuda):
         to_card(p_cpu, p_card)
         rng = np.random.default_rng(SEED + 2)
         toks = rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+        front = seeded_frontends(torch, np, cfg, 2, rng, cpu)
         for c in counters.values():
             c.reset_launches()
         with torch.no_grad():
-            lc, _ = T.forward(p_card, {"tokens": torch.from_numpy(toks)
-                                       .to(cuda)}, cfg)
-            lh, _ = T.forward(p_cpu, {"tokens": torch.from_numpy(toks)}, cfg)
+            lc, ac = T.forward(p_card, {"tokens": torch.from_numpy(toks)
+                                        .to(cuda), **{k: v.to(cuda) for k, v
+                                                      in front.items()}}, cfg)
+            lh, ah = T.forward(p_cpu, {"tokens": torch.from_numpy(toks),
+                                       **front}, cfg)
         launches = {n: c.launches for n, c in counters.items()}
         diff = float((lc.cpu() - lh).abs().max())
         tol = PORT_TOL * max(1.0, float(lh.abs().max()))
@@ -1534,14 +1640,15 @@ def phase_m_smoke_configs(torch, np, card, counters, cuda):
         g_card, _ = serve.greedy_generate(cfg, p_card, prompts, 8)
         g_cpu, _ = serve.greedy_generate(cfg, p_cpu, prompts, 8)
         same = bool((g_card == g_cpu).all())
-        log(f"(m) {arch} smoke card vs CPU: logits max abs diff {diff} "
-            f"(tolerance {tol}), greedy tokens equal {same}, kernel "
-            f"launches on the card's forward {launches} [{card}]")
-        if not (diff <= tol and same):
+        aux_diff = abs(float(ac) - float(ah))
+        log(f"(m) {arch} smoke card vs CPU: logits {tuple(lc.shape)} max "
+            f"abs diff {diff} (tolerance {tol}), aux {float(ac)} / "
+            f"{float(ah)}, greedy tokens equal {same}, kernel launches on "
+            f"the card's forward {launches} [{card}]")
+        if not (diff <= tol and same and aux_diff <= 1e-6):
             raise AssertionError(f"{arch} smoke: card and CPU disagree")
         want_ssd = cfg.num_layers if cfg.ssm_state else 0
-        want_attn = (cfg.num_layers // cfg.attn_every if cfg.attn_every
-                     else 0 if cfg.ssm_state else cfg.num_layers)
+        want_attn = attention_launches(cfg)
         if (launches["ssd_scan"], launches["flash_attention"]) != \
                 (want_ssd, want_attn):
             raise AssertionError(f"{arch} smoke launched {launches}")
@@ -3080,7 +3187,8 @@ TRAIN_TIMED = 3
 TRAIN_LOSS_RTOL = 1e-4   # kernels against plain versions, one step
 TRAIN_NORM_RTOL = 1e-3
 TRAIN_MIN_COS = 0.9999
-LM_ARCHS = ("qwen3-14b", "mamba2-1.3b", "zamba2-7b")
+LM_ARCHS = ("qwen3-14b", "mamba2-1.3b", "zamba2-7b", "olmoe-1b-7b",
+            "mixtral-8x7b", "whisper-large-v3", "phi-3-vision-4.2b")
 LM_ARGV = ["--mode", "lm", "--steps", "5"]   # the rest at the CLI defaults
 LM_RTOL = 1e-4
 LM_SGD = ["--optimizer", "sgd", "--lr", "0.01"]
@@ -3093,6 +3201,13 @@ GRAD_ATTN = [
     (1, 2, 2, 200, 64, 100, False, 32, "float32"),       # rows 95.. blind
     (1, 4, 2, 256, 256, 64, True, 32, "bfloat16"),
     (2, 2, 1, 128, 40, 112, False, 16, "bfloat16"),      # rows 55.. blind
+]
+# (B, Hp, H, KH, Sq, Sk, hd, causal, window, dtype): ZOO_ATTN's classes
+GRAD_ZOO = [
+    (1, 32, 20, 20, 96, 300, 64, False, None, "float32"),  # cross, 32->20
+    (1, 32, 20, 20, 200, 200, 64, False, None, "float32"),
+    (1, 32, 32, 8, 256, 256, 128, True, 64, "float32"),    # GQA 4:1 window
+    (1, 32, 20, 20, 96, 300, 64, False, None, "bfloat16"),
 ]
 # (B, H, S, P, N, chunk)
 GRAD_SSD = [(2, 8, 256, 64, 64, 128), (1, 3, 192, 32, 128, 64)]
@@ -3116,15 +3231,16 @@ def phase_s_grads(torch, fa, sd, cuda, card):
     cotangent: bitwise, finite, zero on rows that see no key, one launch
     a call and none from the backward."""
     checked = 0
-    for case in GRAD_ATTN:
-        B, H, KH, Sq, Sk, hd, causal, window, dt = case
+    cases = [(B, H, H, *rest) for B, H, *rest in GRAD_ATTN] + GRAD_ZOO
+    for case in cases:
+        B, H, H_real, KH, Sq, Sk, hd, causal, window, dt = case
         dtype = getattr(torch, dt)
         seed = 100 + checked
         q = _randn(torch, (B, H, Sq, hd), seed, cuda).to(dtype)
         k = _randn(torch, (B, KH, Sk, hd), seed + 1, cuda).to(dtype)
         v = _randn(torch, (B, KH, Sk, hd), seed + 2, cuda).to(dtype)
         g = _randn(torch, (B, H, Sq, hd), seed + 3, cuda).to(dtype)
-        km = fa.default_kv_map(H, KH).to(cuda)
+        km = padded_head_map(torch, H, H_real, KH, cuda)
         a1 = [t.clone().requires_grad_() for t in (q, k, v)]
         a2 = [t.clone().requires_grad_() for t in (q, k, v)]
         before = fa.launches
@@ -3173,9 +3289,10 @@ def phase_s_grads(torch, fa, sd, cuda, card):
                                      "through the kernels differ from plain "
                                      f"autograd, or launched {launched}")
             checked += 1
-    log(f"(s1) gradients through flash_attention ({len(GRAD_ATTN)} cases: "
-        f"MHA, GQA 2:1, MQA, causal, windows, rows with no key, f32 and "
-        f"bf16) and ssd_scan ({2 * len(GRAD_SSD)} cases, f32 and bf16) equal "
+    log(f"(s1) gradients through flash_attention ({len(cases)} cases: "
+        f"MHA, GQA 2:1 and 4:1, MQA, causal, windows, rows with no key, "
+        f"Sq != Sk non-causal, 32 q heads padded onto 20, hd 64 to 128, "
+        f"f32 and bf16) and ssd_scan ({2 * len(GRAD_SSD)} cases, f32 and bf16) equal "
         f"plain autograd on the card bit for bit, finite, blind rows 0, "
         f"one launch a call and none from the backward [{card}]")
 
@@ -3193,8 +3310,8 @@ def _lm_modules():
 
 def _split_step(torch, St, T, topt, cfg, opt, params, state, batch):
     """One train step as ``make_train_step`` takes it (microbatches 1),
-    its forward, backward and optimizer (divide, clip, update, apply)
-    timed by CUDA events. Returns the ms of each part."""
+    its forward, backward and optimizer (divide, clip, the update applied
+    in place) timed by CUDA events. Returns the ms of each part."""
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     b = St.route_batch(batch)
     ev[0].record()
@@ -3208,9 +3325,9 @@ def _split_step(torch, St, T, topt, cfg, opt, params, state, batch):
     del p, loss
     grads = topt.tree_map(lambda g: g / wsum, grads)
     grads, _ = topt.clip_by_global_norm(grads, 1.0)
-    ups, state = opt.update(grads, state, params)
+    leaves = topt.tree_leaves(grads)
     del grads
-    params = topt.apply_updates(params, ups)
+    params, state = St.apply_in_place(opt, leaves, state, params)
     ev[3].record()
     torch.cuda.synchronize()
     return params, state, {name: ev[i].elapsed_time(ev[i + 1]) for i, name
@@ -3311,7 +3428,8 @@ def _train_full_width(torch, np, card, counters, ops, fa, sd, cuda, B):
     toks = make_token_dataset(n_batches * B * (TRAIN_S + 1) + 1,
                               cfg.vocab_size, seed=SEED)
     def batch(it):
-        return train.lm_batch(toks, it, B, TRAIN_S, weights, routes, cuda)
+        return train.lm_batch(toks, it, B, TRAIN_S, weights, routes, cuda,
+                              cfg)
 
     _kernels_against_plain(torch, St, topt, ops, fa, sd, cfg, params,
                            St.route_batch(batch(0)), card)
@@ -3420,7 +3538,7 @@ def _grad_stats(torch, ga, gb, device):
 
 
 def _kernels_against_plain(torch, St, topt, ops, fa, sd, cfg, params, b,
-                           card):
+                           card, tag="s2"):
     """The first step's gradients through the kernels, through their
     plain versions, and through the plain versions in float64. Held:
     the kernels against the plain versions, loss within TRAIN_LOSS_RTOL
@@ -3449,7 +3567,7 @@ def _kernels_against_plain(torch, St, topt, ops, fa, sd, cfg, params, b,
     _, _, _, rel_p = _grad_stats(torch, g_p, g_64, dev)
     del g_k, g_p, g_64
     norm_tol = max(TRAIN_NORM_RTOL, 2 * max(rel_p))
-    log(f"(s2) the first step's gradients, kernels / plain / plain in "
+    log(f"({tag}) the first step's gradients, kernels / plain / plain in "
         f"float64: loss {loss_k} / {loss_p} / {loss_64}, global norm "
         f"{gn_k} / {gn_p} / {gn_64}; kernels against plain: least per-leaf "
         f"cosine {min(cos)} over {len(cos)} leaves; farthest leaf from "
@@ -3459,8 +3577,8 @@ def _kernels_against_plain(torch, St, topt, ops, fa, sd, cfg, params, b,
             and min(cos) >= TRAIN_MIN_COS
             and max(rel_k) <= 2 * max(rel_p)
             and abs(gn_k - gn_64) <= norm_tol * gn_64):
-        raise AssertionError("(s2) the step through the kernels and the "
-                             "step through the plain versions disagree")
+        raise AssertionError(f"({tag}) the step through the kernels and "
+                             "the step through the plain versions disagree")
 
 
 def _lm_run(train, argv, init):
@@ -3478,9 +3596,9 @@ def _lm_run(train, argv, init):
 
 
 def phase_s_cli(torch, np, card, counters, ops):
-    """(s3) --mode lm for three smoke configs and --lm-tau 2, on the card
-    and on the CPU from the same parameters (drawn on the CPU), and the
-    archs it refuses. With LM_SGD every step's loss within LM_RTOL; at
+    """(s3) --mode lm for the smoke configs of LM_ARCHS and --lm-tau 2, on
+    the card and on the CPU from the same parameters (drawn on the CPU).
+    With LM_SGD every step's loss within LM_RTOL; at
     the CLI's defaults (AdamW) the first step's loss within LM_RTOL and
     every loss finite. The hybrid smoke config's trajectory is chaotic
     under AdamW at lr 3e-3 and under SGD at lr 0.05: on the CPU alone, a
@@ -3521,21 +3639,521 @@ def phase_s_cli(torch, np, card, counters, ops):
                                  "disagree")
         cfg = train.get_config(arch, smoke=True)
         steps = len(a) * (2 if "--lm-tau" in extra else 1)
-        n_attn = (cfg.num_layers // cfg.attn_every if cfg.attn_every else
-                  0 if cfg.ssm_state else cfg.num_layers)
+        n_attn = attention_launches(cfg)
         n_ssd = cfg.num_layers if cfg.ssm_state else 0
         if (launches["flash_attention"], launches["ssd_scan"]) != \
                 (steps * n_attn, steps * n_ssd):
             raise AssertionError(f"(s3) {arch} {extra} launched {launches}")
-    for arch, item in (("mixtral-8x7b", "14b"), ("whisper-large-v3", "14c")):
-        try:
-            train.main(["--mode", "lm", "--arch", arch])
-        except SystemExit as e:
-            if f"queue 1 item {item}" not in str(e):
-                raise AssertionError(f"(s3) {arch} refused with {e}") from e
-            log(f"(s3) --mode lm --arch {arch} refused: {e} [{card}]")
-        else:
-            raise AssertionError(f"(s3) --mode lm --arch {arch} ran")
+
+
+# ---------------------------------------------------------------------------
+# (t) the model zoo's last families at full width: MoE (olmoe, mixtral),
+# enc-dec (whisper) and VLM (phi-3-vision)
+# ---------------------------------------------------------------------------
+
+OLMOE, MIXTRAL = "olmoe-1b-7b", "mixtral-8x7b"
+WHISPER, PHI3V = "whisper-large-v3", "phi-3-vision-4.2b"
+OLMOE_B, OLMOE_S = 2, 4096
+MIXTRAL_LAYERS = 4       # of 32: the full model, 186.8 GB in float32, does
+MIXTRAL_B, MIXTRAL_S = 1, 8192   # not fit one card; 8192 > the 4096 window
+PHI3V_B, PHI3V_S = 2, 4096       # 144 patch embeddings + 3952 text tokens
+WHISPER_B = 2                    # x max_positions (448) tokens, 1500 frames
+MOE_TRAIN_LAYERS = 6
+MOE_TRAIN_B, MOE_TRAIN_S = 2, 2048
+MOE_ACT_BYTES_PER_LAYER = 2.3e9  # reckoned for B=2 x S=2048 (PERF.md §4)
+CLIP_PEAK_BYTES_PER_PARAM = 20   # params, moments and two gradient trees
+                                 # (the clip's input and output)
+CHECK_LAYERS, CHECK_CF = 2, 8.0  # (t6): no token drops
+ROUTE_MARGIN = 1e-5
+# the ops whose own device time is the MoE dispatch and combine
+DISPATCH_OPS = ("aten::cumsum", "aten::sort", "aten::one_hot",
+                "aten::scatter_", "aten::index_put_", "aten::_index_put_impl_",
+                "aten::index", "aten::index_select", "aten::gather",
+                "aten::repeat_interleave")
+
+
+def _capture_attention(ops, first):
+    """ops.attention, keeping the first call's inputs of each (Sq, Sk,
+    causal) class in ``first``."""
+    real = ops.attention
+
+    def call(q, k, v, **kw):
+        first.setdefault((q.shape[2], k.shape[2], kw.get("causal", True)),
+                         ((q.detach(), k.detach(), v.detach()), kw))
+        return real(q, k, v, **kw)
+
+    return call
+
+
+def _device_shares(torch, prof):
+    """Device time of a profiled run: the whole, and the shares of the
+    expert GEMMs (aten::bmm: the forward's only batched products),
+    the MoE dispatch and combine (DISPATCH_OPS) and flash attention."""
+    total = attn = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            total += e.device_time_total
+            if "flash" in e.name.lower():
+                attn += e.device_time_total
+    by_op: dict = {}
+    for e in prof.key_averages():
+        own = getattr(e, "self_device_time_total", None)
+        if own is None:
+            own = getattr(e, "self_cuda_time_total", 0.0)
+        by_op[e.key] = by_op.get(e.key, 0.0) + own
+    gemm = by_op.get("aten::bmm", 0.0)
+    disp = sum(by_op.get(k, 0.0) for k in DISPATCH_OPS)
+    share = (lambda x: x / total) if total else (lambda x: None)
+    return {"device_ms": total / 1e3, "expert_gemm_share": share(gemm),
+            "dispatch_combine_share": share(disp),
+            "attention_share": share(attn)}
+
+
+def _prefill_cell(torch, np, card, counters, ops, cuda, tag, cfg, B, S,
+                  serve_too=True):
+    """One model at full width on the card: params drawn from the seed,
+    a prefill of B x S (S counts a VLM's patch prefix) with every launch
+    counter set to 0 just before and read just after, warm and profiled
+    reruns, then greedy serving at the serve CLI's defaults. Returns the
+    cell's numbers and the first attention inputs of each class."""
+    _, serve, steps, T, init_params, param_count = _serve_modules()
+    torch.cuda.empty_cache()
+    n_params = param_count(T.specs(cfg))
+    t0 = time.perf_counter()
+    params = init_params(T.specs(cfg), seed=SEED, device=cuda)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    S_text = S - cfg.vision_patches
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S_text)).astype(np.int32)).to(cuda),
+        **seeded_frontends(torch, np, cfg, B, rng, cuda)}
+    prefill = steps.make_prefill_step(cfg)
+    first: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    with _ops_as(ops, {"attention": _capture_attention(ops, first)}):
+        for c in counters.values():
+            c.reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            last = prefill(params, batch)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        prefill(params, batch)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        logits, aux = T.forward(params, batch, cfg)
+        torch.cuda.synchronize()
+    shares = _device_shares(torch, prof)
+    del prof
+    finite = bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux))
+    shape = tuple(logits.shape)
+    same = bool(torch.equal(logits[:, -1], last))
+    del logits, last
+    want = {"flash_attention": attention_launches(cfg), "ssd_scan": 0,
+            "offload_greedy": 0, "segment_reduce": 0}
+    cell = {"params": n_params, "init_s": init_s, "cold_s": cold,
+            "warm_s": warm, "prefill_tokens_per_s": B * S / warm,
+            "peak_bytes": peak, "launches": launches, **shares}
+    log(f"({tag}) {cfg.name} ({n_params} parameters, float32, "
+        f"{cfg.num_layers} layers{', ' + str(cfg.encoder_layers) + ' encoder layers' if cfg.encoder_layers else ''}; "
+        f"drawn on the card in {init_s:.3f} s): prefill B={B} x S={S}: "
+        f"cold {cold:.4f} s, warm {warm:.4f} s, "
+        f"{cell['prefill_tokens_per_s']:.1f} prefill tokens/s, "
+        f"max_memory_allocated {peak} B, logits {shape} finite {finite}, "
+        f"aux {float(aux)}, the prefill step's last logits equal the "
+        f"forward's {same}, launches {launches}; profiled forward: device "
+        f"{shares['device_ms']:.2f} ms, expert GEMMs (aten::bmm) "
+        f"{shares['expert_gemm_share']}, dispatch/combine "
+        f"{shares['dispatch_combine_share']}, flash attention "
+        f"{shares['attention_share']} of it [{card}]")
+    if launches != want:
+        raise AssertionError(f"({tag}) {cfg.name} prefill launched "
+                             f"{launches}; expected {want}")
+    if not finite or shape != (B, S_text, cfg.vocab_padded):
+        raise AssertionError(f"({tag}) {cfg.name}: logits {shape}, finite "
+                             f"{finite}")
+    if serve_too:
+        prompts = rng.integers(0, cfg.vocab_size,
+                               (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+        t0 = time.perf_counter()
+        out, tps = serve.greedy_generate(cfg, params, prompts, SERVE_GEN)
+        wall = time.perf_counter() - t0
+        cell["decode_tokens_per_s"] = tps
+        log(f"({tag}) {cfg.name} greedy_generate batch {SERVE_BATCH}, prompt "
+            f"{SERVE_PROMPT}, {SERVE_GEN} generated: {tps:.2f} decode "
+            f"tokens/s, wall {wall:.3f} s, sample {out[0, -8:].tolist()} "
+            f"[{card}]")
+        if out.shape != (SERVE_BATCH, SERVE_PROMPT + SERVE_GEN) \
+                or not ((out >= 0) & (out < cfg.vocab_size)).all():
+            raise AssertionError(f"({tag}) {cfg.name}: greedy_generate gave "
+                                 "tokens of the wrong shape or range")
+    del params
+    torch.cuda.empty_cache()
+    return cell, first
+
+
+def _sdpa(torch, q, k, v, kv_map, causal, window):
+    """scaled_dot_product_attention on k and v expanded to the q heads,
+    the window as a boolean mask."""
+    idx = kv_map.long().to(q.device)
+    kx, vx = k.index_select(1, idx), v.index_select(1, idx)
+    mask = None
+    if window is not None:
+        i = torch.arange(q.shape[2], device=q.device)[:, None]
+        j = torch.arange(k.shape[2], device=q.device)[None, :]
+        mask = (j > i - window) & ((j <= i) if causal else True)
+        causal = False
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, kx, vx, attn_mask=mask, is_causal=causal)
+
+
+def attention_site(torch, np, fa, name, entry, launches, flush):
+    """Kernel 3 on the inputs a main path gave it: against its plain
+    version, timed beside it, SDPA and its least time on this card."""
+    (q, k, v), kw = entry
+    kv_map, causal, window = kw["kv_map"], kw["causal"], kw["window"]
+    B, H, Sq, hd = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+
+    def kernel(q, k, v):
+        return fa.flash_attention(q, k, v, kv_map, causal=causal,
+                                  window=window)
+
+    def plain(q, k, v):
+        return fa.flash_attention_plain(q, k, v, kv_map, causal=causal,
+                                        window=window)
+
+    def library(q, k, v):
+        return _sdpa(torch, q, k, v, kv_map, causal, window)
+
+    got, want = kernel(q, k, v), plain(q, k, v)
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, atol=ATTN_TOL, rtol=ATTN_TOL)
+    lib_err = float((library(q, k, v) - want).abs().max())
+    del got, want
+    pairs = B * H * _visible_pairs(np, Sq, Sk, causal, window)
+    bounds = _bounds(4 * (2 * B * H * Sq * hd + 2 * B * KH * Sk * hd),
+                     4 * hd * pairs)
+    bounds.pop("bound_cuda_cores_ms")
+    site = {"name": name, "launches": launches, "max_abs_err": err,
+            "ms": _time_ms(torch, kernel, (q, k, v), flush, reps=10),
+            "plain_ms": _time_ms(torch, plain, (q, k, v), flush, reps=5),
+            **bounds,
+            "library_ms": _time_ms(torch, library, (q, k, v), flush,
+                                   reps=10),
+            "shape": {"B": B, "H": H, "KH": KH, "Sq": Sq, "Sk": Sk, "hd": hd,
+                      "causal": causal, "window": window,
+                      "visible_pairs": pairs}}
+    log(f"(t) flash_attention at {name} {site['shape']}: kernel "
+        f"{site['ms']} ms, plain {site['plain_ms']} ms, SDPA (k, v expanded "
+        f"to the q heads) {site['library_ms']} ms (its max abs err vs plain "
+        f"{lib_err}), least time {site['bound_ms']} ms (bound by "
+        f"{site['bound_by']}), max abs err vs plain {err}, launches on its "
+        f"path {launches}")
+    return site
+
+
+def _train_cell(torch, np, card, counters, ops, fa, sd, cuda, tag, cfg, B, S,
+                check_grads):
+    """AdamW at the CLI's lr on B x S token batches routed and weighted by
+    lm_movement_inputs (an enc-dec arch's frames seeded): (with
+    ``check_grads``) the first step's gradients
+    through the kernel against the plain version as (s2) holds them, the
+    router's gradient non-zero and the aux finite; then a cold and
+    TRAIN_TIMED warm steps with every launch counter set to 0 just before
+    each and read just after, the split and a profiled step."""
+    (get_config, make_token_dataset, St, train, T, init_params,
+     param_count, topt) = _lm_modules()
+    torch.cuda.empty_cache()
+    n_params = param_count(T.specs(cfg))
+    t0 = time.perf_counter()
+    params = init_params(T.specs(cfg), seed=SEED, device=cuda)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_batches = 1 + TRAIN_TIMED + 2
+    _, _, routes, weights = train.lm_movement_inputs(
+        1, B, n_batches, np.random.default_rng(SEED))
+    toks = make_token_dataset(n_batches * B * (S + 1) + 1, cfg.vocab_size,
+                              seed=SEED)
+
+    # seeded frames: through 32 layernorms of zero frames (the CLI's stub)
+    # the encoder's gradient grows by ~1/sqrt(eps) a layer, past float32
+    front = seeded_frontends(torch, np, cfg, B, np.random.default_rng(SEED),
+                             cuda)
+
+    def batch(it):
+        return {**train.lm_batch(toks, it, B, S, weights, routes, cuda, cfg),
+                **front}
+
+    if check_grads:
+        _kernels_against_plain(torch, St, topt, ops, fa, sd, cfg, params,
+                               St.route_batch(batch(0)), card, tag)
+        g, m, _ = St.grads_of(params, St.route_batch(batch(0)), cfg)
+        router = g["blocks"]["moe"]["router"]
+        rnorm, aux = float(router.norm()), float(m["aux"])
+        del g
+        log(f"({tag}) the first step's router gradient norm {rnorm} (all "
+            f"layers), aux {aux} [{card}]")
+        if not (np.isfinite(rnorm) and rnorm > 0 and np.isfinite(aux)):
+            raise AssertionError(f"({tag}) router gradient {rnorm}, aux {aux}")
+    opt = topt.adamw(TRAIN_LR)
+    state = opt.init(params)
+    step = St.make_train_step(cfg, opt)
+    want = {"flash_attention": attention_launches(cfg), "ssd_scan": 0,
+            "offload_greedy": 0, "segment_reduce": 0}
+    torch.cuda.empty_cache()              # the check's blocks, returned
+    torch.cuda.reset_peak_memory_stats()
+    secs, metrics = [], []
+    for it in range(1 + TRAIN_TIMED):
+        b = batch(it)
+        for c in counters.values():
+            c.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches = {n: c.launches for n, c in counters.items()}
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        if launches != want:
+            raise AssertionError(f"({tag}) step {it} launched {launches}; "
+                                 f"expected {want}")
+        if not all(np.isfinite(metrics[-1])):
+            raise AssertionError(f"({tag}) step {it}: loss, grad_norm "
+                                 f"{metrics[-1]}")
+    peak = torch.cuda.max_memory_allocated()
+    warm = sorted(secs[1:])[len(secs[1:]) // 2]
+    params, state, split = _split_step(torch, St, T, topt, cfg, opt, params,
+                                       state, batch(1 + TRAIN_TIMED))
+    params, state, prof = _profile_step(torch, step, params, state,
+                                        batch(2 + TRAIN_TIMED))
+    log(f"({tag}) {cfg.name} training ({n_params} parameters, float32, "
+        f"{cfg.num_layers} layers, drawn on the card in {init_s:.3f} s), "
+        f"AdamW lr {TRAIN_LR}, B={B} x S={S}: steps (host clock after a "
+        f"sync) cold {secs[0]:.4f} s, warm {[round(x, 4) for x in secs[1:]]}"
+        f" s (median {warm:.4f} s, {B * S / warm:.1f} tokens/s), loss / "
+        f"grad_norm {metrics}, max_memory_allocated {peak} B, launches a "
+        f"step {want}; split by CUDA events: forward "
+        f"{split['forward']:.2f} ms, backward {split['backward']:.2f} ms, "
+        f"optimizer {split['optimizer']:.2f} ms; profiled step: device busy "
+        f"{prof['busy_ms']:.2f} ms, idle share of the warm step "
+        f"{1 - prof['busy_ms'] / (1e3 * warm):.4f}, top kernels (ms) "
+        f"{prof['top']} [{card}]")
+    del state, params
+    torch.cuda.empty_cache()
+    return {"step_s": warm, "peak_bytes": peak, "B": B}
+
+
+def _moe_train_batch(torch, card, cfg):
+    """B for (t3), reckoned before the draw: the larger of the backward's
+    peak (parameters, gradients and two AdamW moments in float32 plus
+    the activations, PERF.md §4) and the clip's (two gradient trees; the
+    update is applied in place, a leaf at a time: three temporaries of
+    the largest leaf) must fit the card with 5% to spare, else B = 1
+    (logged)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.module import leaves, param_count
+
+    n = param_count(T.specs(cfg))
+    largest = max(4 * math.prod(s.shape) for _, s in leaves(T.specs(cfg)))
+    states = 16 * n
+    update = max(CLIP_PEAK_BYTES_PER_PARAM * n, states + 3 * largest)
+    total = torch.cuda.get_device_properties(0).total_memory
+    for B in (MOE_TRAIN_B, 1):
+        need = max(states + cfg.num_layers * MOE_ACT_BYTES_PER_LAYER * B / 2,
+                   update)
+        if need <= 0.95 * total or B == 1:
+            log(f"(t3) reckoned {need / 1e9:.2f} GB for B={B} x S="
+                f"{MOE_TRAIN_S} (parameters, gradients and moments "
+                f"{states / 1e9:.2f} GB + activations; the clip and the "
+                f"in-place update {update / 1e9:.2f} GB) against "
+                f"{total / 1e9:.2f} GB on the card: B={B} [{card}]")
+            return B
+
+
+def _routing(torch, rec, L):
+    """The recorded (eids, probs) of ``route`` per layer, from a prefill's
+    L calls or a decode's L calls a step: (tokens, k) and (tokens, E)."""
+    def cat(xs):
+        return torch.cat([x.reshape(-1, x.shape[-1]) for x in xs])
+
+    return [(cat([e for e, _ in rec[i::L]]), cat([p for _, p in rec[i::L]]))
+            for i in range(L)]
+
+
+def _route_diffs(torch, got, ref, k):
+    """(layer, token, margin) of every token routed to another expert set
+    than in ``ref``; the margin is ref's gap between its k-th and
+    (k+1)-th probabilities."""
+    out = []
+    for layer, ((e1, _), (e2, p2)) in enumerate(zip(got, ref)):
+        diff = (e1.sort(dim=-1).values != e2.sort(dim=-1).values).any(-1)
+        top = p2.double().sort(dim=-1, descending=True).values
+        gap = top[:, k - 1] - top[:, k]
+        for t in diff.nonzero().flatten().tolist():
+            out.append((layer, t, float(gap[t])))
+    return out
+
+
+def _check_cell(torch, np, card, ops, fa, sd, cuda, arch):
+    """(t6) prefill against teacher-forced decode with no kernel at full
+    width, cut to CHECK_LAYERS layers (and encoder layers), B=1 x
+    CHECK_S, capacity factor CHECK_CF (no token drops): in float64 within
+    DECODE_TOL of max|logit|; the float32 kernel prefill no further from
+    float64 than twice the kernel-free float32 paths; routing equal to
+    float64's wherever the top-k margin exceeds ROUTE_MARGIN (tokens at
+    or after a smaller-margin flip are logged and left out)."""
+    from repro_torch.models import moe as M
+
+    _, _, steps, T, init_params, _ = _serve_modules()
+    over = {"num_layers": CHECK_LAYERS}
+    if arch == WHISPER:
+        over["encoder_layers"] = CHECK_LAYERS
+    else:
+        over["capacity_factor"] = CHECK_CF
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(arch).with_overrides(**over)
+    V, L = cfg.vocab_size, cfg.num_layers
+    params = init_params(T.specs(cfg), seed=SEED, device=cuda)
+    cut_h = cfg.num_heads * cfg.head_dim
+    for name in ("attn", "xattn"):     # decode drops the padded heads
+        if name in params["blocks"]:
+            params["blocks"][name]["wo"][:, cut_h:] = 0
+    rng = np.random.default_rng(SEED + 3)
+    toks = torch.from_numpy(rng.integers(0, V, (1, CHECK_S)).astype(
+        np.int32)).to(cuda)
+    front = seeded_frontends(torch, np, cfg, 1, rng, cuda)
+    frames = front.get("frames")
+    rec: list = []
+    real_route = M.route
+
+    def route(*a, **kw):
+        out = real_route(*a, **kw)
+        rec.append((out[2].detach(), out[0].detach()))
+        return out
+
+    def run(fn):
+        rec.clear()
+        out = fn()
+        return out, _routing(torch, rec, L) if rec else []
+
+    plain = _plain_ops(torch, fa, sd)
+    batch = {"tokens": toks, **front}
+    M.route = route
+    try:
+        with torch.no_grad():
+            kern32, r_k = run(lambda: T.forward(params, batch, cfg)[0][..., :V])
+            with _ops_as(ops, plain):
+                plain32, r_p = run(
+                    lambda: T.forward(params, batch, cfg)[0][..., :V])
+                dec32, r_d = run(lambda: _teacher_forced(
+                    torch, T, steps, init_params, cfg, params, toks,
+                    torch.float32, frames))
+            _to_float64(torch, params)
+            b64 = {k: v.double() if v.is_floating_point() else v
+                   for k, v in batch.items()}
+            with _ops_as(ops, plain):
+                ref64, r_64 = run(
+                    lambda: T.forward(params, b64, cfg)[0][..., :V])
+                dec64, r_d64 = run(lambda: _teacher_forced(
+                    torch, T, steps, init_params, cfg, params, toks,
+                    torch.float64, b64.get("frames")))
+    finally:
+        M.route = real_route
+    del params
+    torch.cuda.empty_cache()
+    k = cfg.experts_per_token
+    flips = {name: _route_diffs(torch, r, r_64, k) for name, r in
+             (("kernel prefill", r_k), ("plain prefill", r_p),
+              ("decode", r_d), ("float64 decode", r_d64))} if r_64 else {}
+    hard = [(n, f) for n, fs in flips.items() for f in fs
+            if f[2] > ROUTE_MARGIN]
+    cut = min([f[1] for fs in flips.values() for f in fs] + [CHECK_S])
+    top = float(ref64.abs().max())
+    tol = DECODE_TOL * top
+    d64 = float((dec64 - ref64)[:, :cut].abs().max())
+    err = {name: float((x.double() - ref64)[:, :cut].abs().max())
+           for name, x in (("kernel prefill", kern32),
+                           ("plain prefill", plain32), ("decode", dec32))}
+    tol32 = max(tol, 2 * max(err["plain prefill"], err["decode"]))
+    log(f"(t6) {arch} at full width, {L} layers"
+        f"{' + ' + str(cfg.encoder_layers) + ' encoder layers' if cfg.encoder_layers else ''}"
+        f", B=1 x S={CHECK_S}{', capacity factor ' + str(CHECK_CF) if cfg.num_experts else ''}"
+        f": float64 prefill vs teacher-forced decode max abs diff {d64} "
+        f"(tolerance {tol} = {DECODE_TOL} x max|logit| {top}); float32 max "
+        f"abs diff from the float64 prefill {err} (kernel prefill tolerance "
+        f"{tol32}); routing differences from float64 (layer, token, top-k "
+        f"margin): {flips}; positions compared {cut} [{card}]")
+    if hard:
+        raise AssertionError(f"(t6) {arch}: routing differs where the "
+                             f"margin exceeds {ROUTE_MARGIN}: {hard}")
+    if not d64 <= tol:
+        raise AssertionError(f"(t6) {arch}: float64 prefill and decode "
+                             "logits differ")
+    if not err["kernel prefill"] <= tol32:
+        raise AssertionError(f"(t6) {arch}: the kernel's float32 prefill is "
+                             "further from float64 than float32 rounding "
+                             "explains")
+
+
+def phase_t_zoo(torch, np, card, counters, ops, fa, sd, cuda):
+    """(t1)-(t6), then kernel 3 at the new shapes. Returns the sites."""
+    from repro_torch.configs.registry import get_config
+
+    flush = flush_buffer(torch, "cuda")
+    sites = []
+    cells = {}
+
+    def time_sites(first, names, launches):
+        for key, name in names.items():
+            sites.append(attention_site(torch, np, fa, name, first.pop(key),
+                                        launches, flush))
+        first.clear()
+        torch.cuda.empty_cache()
+
+    cells["t1"], first = _prefill_cell(torch, np, card, counters, ops, cuda,
+                                       "t1", get_config(OLMOE), OLMOE_B,
+                                       OLMOE_S)
+    time_sites(first, {(OLMOE_S, OLMOE_S, True): "olmoe-1b-7b prefill"},
+               cells["t1"]["launches"]["flash_attention"])
+    cfg = get_config(MIXTRAL).with_overrides(num_layers=MIXTRAL_LAYERS)
+    cells["t2"], first = _prefill_cell(torch, np, card, counters, ops, cuda,
+                                       "t2", cfg, MIXTRAL_B, MIXTRAL_S)
+    time_sites(first, {(MIXTRAL_S, MIXTRAL_S, True): "mixtral-8x7b prefill"},
+               cells["t2"]["launches"]["flash_attention"])
+    cfg = get_config(OLMOE).with_overrides(num_layers=MOE_TRAIN_LAYERS)
+    cells["t3"] = _train_cell(torch, np, card, counters, ops, fa, sd, cuda,
+                              "t3", cfg, _moe_train_batch(torch, card, cfg),
+                              MOE_TRAIN_S, check_grads=True)
+    cfg = get_config(WHISPER)
+    S_w = cfg.max_positions
+    cells["t4"], first = _prefill_cell(torch, np, card, counters, ops, cuda,
+                                       "t4", cfg, WHISPER_B, S_w)
+    time_sites(first, {(cfg.encoder_seq, cfg.encoder_seq, False):
+                       "whisper-large-v3 encoder",
+                       (S_w, cfg.encoder_seq, False):
+                       "whisper-large-v3 cross"},
+               cells["t4"]["launches"]["flash_attention"])
+    cells["t4_train"] = _train_cell(torch, np, card, counters, ops, fa, sd,
+                                    cuda, "t4", cfg, WHISPER_B, S_w,
+                                    check_grads=False)
+    cells["t5"], _ = _prefill_cell(torch, np, card, counters, ops, cuda, "t5",
+                                   get_config(PHI3V), PHI3V_B, PHI3V_S,
+                                   serve_too=False)
+    for arch in (OLMOE, WHISPER):
+        _check_cell(torch, np, card, ops, fa, sd, cuda, arch)
+    log(f"(t) cells {json.dumps(cells, default=float)} [{card}]")
+    return sites
 
 
 def main() -> int:
@@ -3675,6 +4293,10 @@ def main() -> int:
             train["ssd"]
         phase_s_cli(torch, np, card, counters, ops)
 
+    def t():
+        kernels["flash_attention"]["sites"] = phase_t_zoo(
+            torch, np, card, counters, ops, fa, sd, cuda)
+
     def p():
         phase_p_fog(torch, np, card, counters, state["c_train_s"])
         phase_p_tiered(torch, np, card, counters, ops, sr)
@@ -3694,7 +4316,7 @@ def main() -> int:
               ("m", lambda: phase_m_smoke_configs(torch, np, card, counters,
                                                   cuda)),
               ("n", n_), ("o", o), ("p", p), ("q", q), ("r", r),
-              ("s", s_)]
+              ("s", s_), ("t", t)]
     failed = []
     for name, fn in phases:
         t0 = time.perf_counter()

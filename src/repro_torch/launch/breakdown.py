@@ -79,7 +79,7 @@ def _timed(fn, device, reps: int, top: int) -> dict:
 
 def run_prefill(own) -> dict:
     from repro_torch.configs.registry import get_config
-    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.launch.steps import frontend_inputs, make_prefill_step
     from repro_torch.models import transformer as T
     from repro_torch.models.module import init_params
 
@@ -89,11 +89,12 @@ def run_prefill(own) -> dict:
     rng = np.random.default_rng(own.seed)
     toks = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (own.batch, own.seq)).astype(np.int32)).to(device)
+    batch = {"tokens": toks, **frontend_inputs(cfg, own.batch, device)}
     prefill = make_prefill_step(cfg)
 
     def fn():
         with torch.no_grad():
-            prefill(params, {"tokens": toks})
+            prefill(params, batch)
 
     out = _timed(fn, device, own.reps, own.top)
     out["prefill_tokens_per_s_warm"] = [own.batch * own.seq / w

@@ -32,7 +32,7 @@ import torch
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs.registry import get_config
 from repro_torch.device import resolve_device, synchronize
-from repro_torch.launch.steps import make_decode_step
+from repro_torch.launch.steps import frontend_inputs, make_decode_step
 from repro_torch.models import transformer as T
 from repro_torch.models.module import init_params
 
@@ -41,7 +41,8 @@ from repro_torch.models.module import init_params
 def greedy_generate(cfg, params, prompts: np.ndarray, gen: int,
                     cache_len: int | None = None, should_stop=None):
     """prompts (B, P) int32; returns (tokens (B, P+gen') numpy int32,
-    decode tokens/s). Runs on the device of ``params``.
+    decode tokens/s). Runs on the device of ``params``. An enc-dec arch
+    first encodes zero frames into the cache's cross K/V.
 
     ``should_stop`` — optional zero-argument callable polled before
     every decode step; True ends generation at that token boundary,
@@ -50,6 +51,9 @@ def greedy_generate(cfg, params, prompts: np.ndarray, gen: int,
     B, P = prompts.shape
     cache = init_params(T.init_cache_specs(cfg, B, cache_len or (P + gen)),
                         device=device)
+    if cfg.family == "encdec":
+        frames = frontend_inputs(cfg, B, device)["frames"]
+        _, cache["cross_k"], cache["cross_v"] = T.encode(params, frames, cfg)
     step = make_decode_step(cfg)
 
     def next_token(tok, pos):

@@ -36,6 +36,21 @@ def config_for_shape(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
     return cfg.with_overrides(**kw) if kw else cfg
 
 
+def frontend_inputs(cfg: ModelConfig, batch: int, device) -> dict:
+    """The stubbed frontends' inputs as the reference's CLIs feed them,
+    zeros: ``frames`` (B, encoder_seq, D) for an enc-dec arch,
+    ``patch_embeds`` (B, vision_patches, D) for a VLM; {} otherwise."""
+    out = {}
+    if cfg.family == "encdec":
+        out["frames"] = torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                                    dtype=torch.float32, device=device)
+    if cfg.vision_patches:
+        out["patch_embeds"] = torch.zeros(
+            (batch, cfg.vision_patches, cfg.d_model), dtype=torch.float32,
+            device=device)
+    return out
+
+
 def route_batch(batch):
     """Apply the data-movement plan: re-index every per-sample entry of
     the batch but ``weights`` (already in routed order) by ``route``."""
@@ -66,6 +81,31 @@ def grads_of(params, batch, cfg):
     return grads, {k: v.detach() for k, v in metrics.items()}, wsum
 
 
+def apply_in_place(optimizer: opt_lib.Optimizer, grads: list, state,
+                   params):
+    """``optimizer.update`` then ``opt_lib.apply_updates``, leaf by leaf,
+    written into ``params`` and the moments of ``state`` in place (the
+    reference jits its train step with ``donate_argnums=(0, 1)``): the
+    same arithmetic, with one leaf's new moments and update beside the
+    state at a time instead of three new trees. ``grads`` is a list of
+    leaves in ``tree_leaves`` order, emptied as it is used. Returns
+    (params, state)."""
+    moments = {k: opt_lib.tree_leaves(v) for k, v in state.items()
+               if k != "count"}
+    new = None
+    for i, p in enumerate(opt_lib.tree_leaves(params)):
+        g, grads[i] = grads[i], None
+        ups, new = optimizer.update(
+            g, {**{k: m[i] for k, m in moments.items()},
+                "count": state["count"]}, p)
+        for k, m in moments.items():
+            m[i].copy_(new[k])
+        p.add_(ups)
+    if new is not None:
+        state["count"] = new["count"]
+    return params, state
+
+
 def make_train_step(cfg: ModelConfig, optimizer: opt_lib.Optimizer,
                     clip_norm: float = 1.0, microbatches: int = 1,
                     accum_shards=None):
@@ -74,7 +114,8 @@ def make_train_step(cfg: ModelConfig, optimizer: opt_lib.Optimizer,
 
     The batch is routed, the gradient of the weighted loss taken and
     divided by max(Σ weights, 1), clipped to ``clip_norm`` by global
-    norm and applied. ``microbatches`` > 1 accumulates float32 gradients
+    norm and applied in place (:func:`apply_in_place`: ``params`` and
+    ``opt_state`` are donated and returned). ``microbatches`` > 1 accumulates float32 gradients
     over M equal slices of the routed batch, one after another (the
     reference's ``lax.scan``), so activation memory drops by about M.
     ``accum_shards`` (the reference's ZeRO-2 accumulator shardings)
@@ -113,9 +154,10 @@ def make_train_step(cfg: ModelConfig, optimizer: opt_lib.Optimizer,
             del acc
             loss = torch.sum(torch.stack(losses)) / denom
         grads, gnorm = opt_lib.clip_by_global_norm(grads, clip_norm)
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        del grads
-        params = opt_lib.apply_updates(params, updates)
+        leaves = opt_lib.tree_leaves(grads)
+        del grads                         # each leaf freed once applied
+        params, opt_state = apply_in_place(optimizer, leaves, opt_state,
+                                           params)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}
 
     return train_step

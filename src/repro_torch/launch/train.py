@@ -22,8 +22,8 @@ boundary and ``--resume PATH`` continues such a snapshot bit for bit.
 segment-reduce kernel's row form on the card); ``--engine sharded``
 waits for multi-GPU.
 
-``--mode lm`` trains a model of the zoo (dense, ssm and hybrid
-families) on synthetic tokens, the batches routed and weighted by a
+``--mode lm`` trains a model of the zoo (any registry arch) on
+synthetic tokens, the batches routed and weighted by a
 Theorem-3 plan across ``--data-shards`` shards, with the train step or,
 with ``--lm-tau`` > 1, FedAvg rounds of τ local steps:
 
@@ -103,11 +103,8 @@ def solve_setting(setting: str, traces, adj, D, error_model="discard",
 
 
 def _check_ported(args) -> None:
-    if args.mode == "lm":
-        missing = T.unported_item(get_config(args.arch, smoke=True))
-        if missing:
-            raise _unported(f"--mode lm --arch {args.arch}", *missing)
-        return
+    if args.mode == "lm":             # as in the reference, lm mode reads
+        return                        # none of the fog flags
     checks = [
         (args.engine == "sharded", "--engine sharded", 12, "multi-GPU"),
         (args.sanitize, "--sanitize", 13, "tooling"),
@@ -311,10 +308,11 @@ def lm_movement_inputs(n_shards: int, batch: int, T_rounds: int,
 
 
 def lm_batch(toks, it: int, batch: int, seq: int, weights, routes,
-             device) -> dict:
+             device, cfg) -> dict:
     """Step ``it``'s batch: ``batch`` rows of ``seq`` + 1 tokens, cut
     into inputs and next-token labels, with the plan's weights and
-    route, on ``device``."""
+    route, on ``device``, and the zero inputs of ``cfg``'s stubbed
+    frontend (``steps.frontend_inputs``), as in the reference."""
     off = it * batch * (seq + 1)
     chunk = toks[off: off + batch * (seq + 1)].reshape(batch, seq + 1)
 
@@ -322,7 +320,8 @@ def lm_batch(toks, it: int, batch: int, seq: int, weights, routes,
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     return {"tokens": dev(chunk[:, :-1]), "labels": dev(chunk[:, 1:]),
-            "weights": dev(weights[it]), "route": dev(routes[it])}
+            "weights": dev(weights[it]), "route": dev(routes[it]),
+            **St.frontend_inputs(cfg, batch, device)}
 
 
 def run_lm(args) -> dict:
@@ -349,7 +348,7 @@ def run_lm(args) -> dict:
 
     def batch_at(it):
         return lm_batch(toks, it, args.batch, args.seq, weights, routes,
-                        device)
+                        device, cfg)
 
     losses = []
     t0 = time.time()

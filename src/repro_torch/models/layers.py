@@ -11,9 +11,10 @@ Conventions are the reference's:
 
 Prefill attention always goes through :func:`repro_torch.kernels.ops.
 attention` (the hand-written flash kernel on the card, its plain
-version on the CPU), in the kernel's (B, H, S, hd) layout; the
-reference's choice between full and blocked attention is one function
-here. Decode attention is plain torch, as in the reference.
+version on the CPU), in the kernel's (B, H, S, hd) layout, cross
+attention (Sq != Sk, non-causal) included; the reference's choice
+between full and blocked attention is one function here. Decode
+attention, self and cross, is plain torch, as in the reference.
 """
 from __future__ import annotations
 
@@ -126,16 +127,18 @@ def attention_specs(cfg, layers_axis: int | None = None) -> dict:
     return p
 
 
-def _project_qkv(x, p, cfg):
-    """Project to q (B,S,Hp,hd) and k, v (B,S,KH,hd)."""
+def _project_qkv(x, p, cfg, kv_input=None):
+    """Project to q (B,S,Hp,hd) and k, v (B,Skv,KH,hd); K and V come from
+    ``kv_input`` (B,Skv,D) when given (cross attention), else from x."""
     B, S, _ = x.shape
     hd = cfg.head_dim
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    kv_in = x if kv_input is None else kv_input
+    q, k, v = x @ p["wq"], kv_in @ p["wk"], kv_in @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, S, cfg.num_heads_padded, hd)
-    k = k.reshape(B, S, cfg.num_kv_heads, hd)
-    v = v.reshape(B, S, cfg.num_kv_heads, hd)
+    k = k.reshape(B, kv_in.shape[1], cfg.num_kv_heads, hd)
+    v = v.reshape(B, kv_in.shape[1], cfg.num_kv_heads, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
@@ -151,13 +154,15 @@ def kv_head_map(cfg, device=None) -> torch.Tensor:
     return torch.where(h < H, h // (H // KH), 0)
 
 
-def attention_apply(x, p, cfg, *, causal=True, positions=None, window=None):
-    """Train/prefill self-attention for one layer. x (B,S,D) -> (B,S,D).
-    The scores go through ``ops.attention`` in the kernel's (B,H,S,hd)
-    layout, with the reference's padded-head map."""
+def attention_apply(x, p, cfg, *, causal=True, kv_input=None,
+                    positions=None, window=None):
+    """Train/prefill attention for one layer. x (B,S,D) -> (B,S,D). Self
+    attention, or cross attention against ``kv_input`` (B,Skv,D), which
+    takes no RoPE. The scores go through ``ops.attention`` in the
+    kernel's (B,H,S,hd) layout, with the reference's padded-head map."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(x, p, cfg)
-    if cfg.rope:
+    q, k, v = _project_qkv(x, p, cfg, kv_input=kv_input)
+    if cfg.rope and kv_input is None:
         pos = positions if positions is not None else \
             torch.arange(S, device=x.device)
         cos, sin = rope_cos_sin(pos, cfg.head_dim, cfg.rope_theta)
@@ -230,6 +235,40 @@ def decode_attention(x, p, cfg, cache, pos: int, *, window=None):
     og = torch.einsum("bgrs,bgsh->bgrh", pr, v)
     out = og.reshape(B, 1, H * hd) @ p["wo"][:H * hd]
     return out, cache
+
+
+def cross_decode_attention(x, p, cfg, k, v):
+    """Decode-time cross attention against the encoder's K/V. x (B,1,D);
+    k, v (B,KH,S_enc,hd): no cache write, every position visible. Plain
+    torch with the padded q heads dropped, as in the reference."""
+    B = x.shape[0]
+    hd, H, KH = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(B, 1, cfg.num_heads_padded, hd)[:, :, :H, :]
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+    qg = q.reshape(B, KH, H // KH, hd)
+    s = upcast(torch.einsum("bgrh,bgsh->bgrs", qg, k)) / math.sqrt(hd)
+    pr = torch.softmax(s, dim=-1).to(x.dtype)
+    og = torch.einsum("bgrs,bgsh->bgrh", pr, v)
+    return og.reshape(B, 1, H * hd) @ p["wo"][:H * hd]
+
+
+def cross_kv(enc_out, p, cfg):
+    """The cross-attention K/V of one decoder layer from the encoder's
+    output: enc_out (B,S_enc,D) -> k, v (B,KH,S_enc,hd)."""
+    B, Se, _ = enc_out.shape
+    hd, KH = cfg.head_dim, cfg.num_kv_heads
+    k, v = enc_out @ p["wk"], enc_out @ p["wv"]
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    k = k.reshape(B, Se, KH, hd).transpose(1, 2)
+    v = v.reshape(B, Se, KH, hd).transpose(1, 2)
+    if cfg.qk_norm:
+        k = rmsnorm(k, p["k_norm"])
+    return k, v
 
 
 # ---------------------------------------------------------------------------

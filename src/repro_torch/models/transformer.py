@@ -1,22 +1,24 @@
-"""Model composition for the dense, Mamba2 (ssm) and Zamba2-style
-hybrid families (the port of :mod:`repro.models.transformer`).
+"""Model composition: decoder LMs (dense and MoE), Mamba2 (ssm), the
+Zamba2-style hybrid, the Whisper-style encoder-decoder and the VLM's
+patch-embedding prefix (the port of :mod:`repro.models.transformer`).
 
 The interface is the reference's:
 
-* ``specs(cfg)``                          parameter spec tree (every family)
-* ``forward(params, batch, cfg)``         logits (train / prefill)
+* ``specs(cfg)``                          parameter spec tree
+* ``forward(params, batch, cfg)``         (logits, aux) (train / prefill)
 * ``loss_fn(params, batch, cfg)``         weighted next-token cross-entropy
+* ``encode(params, frames, cfg)``         enc-dec encoder + cross K/V
 * ``init_cache_specs(cfg, batch, seq)``   decode-cache spec tree
 * ``decode_step(params, cache, batch, pos, cfg)`` one-token serve step
 
 Stacked layers keep the reference's leading ``layers`` axis; where the
 reference scans over it, the port loops in Python over views of each
-layer. The hybrid family loops over ``num_layers // attn_every`` groups:
-``attn_every`` SSM blocks, then the one SHARED attention+MLP block.
-``cfg.remat == "full"`` recomputes each block (and each hybrid group)
-in the backward, where the reference wraps the same bodies in
-``jax.checkpoint``. The moe family waits for ROADMAP.md queue 1 item
-14b, encdec and vlm for item 14c: they have specs only.
+layer, and sums the per-layer MoE aux losses as the reference sums its
+scan's. The hybrid family loops over ``num_layers // attn_every``
+groups: ``attn_every`` SSM blocks, then the one SHARED attention+MLP
+block. ``cfg.remat == "full"`` recomputes each block (and each hybrid
+group) in the backward, where the reference wraps the same bodies in
+``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -28,33 +30,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.module import Spec
-
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
-
-
-# the ROADMAP.md queue 1 items that port the families still missing
-MOE_ITEM = ("14b", "MoE")
-ENCDEC_VLM_ITEM = ("14c", "enc-dec and VLM")
-
-
-def unported_item(cfg) -> tuple[str, str] | None:
-    """(item, title) of the ROADMAP.md item that ports ``cfg``'s family,
-    or None when the port runs it."""
-    if cfg.num_experts:
-        return MOE_ITEM
-    if cfg.vision_patches or cfg.family not in PORTED_FAMILIES:
-        return ENCDEC_VLM_ITEM
-    return None
-
-
-def _check_family(cfg) -> None:
-    missing = unported_item(cfg)
-    if missing:
-        item, title = missing
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported to "
-            f"repro_torch yet (ROADMAP.md, queue 1 item {item}: {title}); "
-            f"ported: {', '.join(PORTED_FAMILIES)}")
 
 
 # ---------------------------------------------------------------------------
@@ -124,6 +99,18 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _layers(tree, n: int) -> list:
+    """The n layers of a stacked parameter tree, as views split once by
+    ``torch.unbind``: its backward stacks the n layers' gradients into
+    one leaf-sized tensor, where indexing each layer (``_layer``) would
+    add a zero-padded leaf-sized gradient per layer (olmoe-1b-7b's six
+    layers: 3 GB each for every expert weight)."""
+    if isinstance(tree, dict):
+        per = {k: _layers(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
 # ---------------------------------------------------------------------------
 # Forward (prefill)
 # ---------------------------------------------------------------------------
@@ -133,10 +120,25 @@ def _norm(x, p, cfg):
     return L.apply_norm(x, p, cfg.norm)
 
 
-def _attn_mlp_block(x, lp, cfg, *, window=None):
+def _zero_aux(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _attn_mlp_block(x, lp, cfg, *, causal=True, window=None, enc_out=None,
+                    cross=False):
+    """One decoder block (attention, cross attention against ``enc_out``
+    when ``cross``, then the MLP or the MoE layer); returns (x, aux)."""
     x = x + L.attention_apply(_norm(x, lp["ln1"], cfg), lp["attn"], cfg,
-                              causal=True, window=window)
-    return x + L.mlp_apply(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg)
+                              causal=causal, window=window)
+    if cross:
+        x = x + L.attention_apply(_norm(x, lp["ln_x"], cfg), lp["xattn"],
+                                  cfg, causal=False, kv_input=enc_out)
+    if cfg.num_experts:
+        h, aux = M.moe_apply(_norm(x, lp["ln2"], cfg), lp["moe"], cfg)
+    else:
+        h, aux = L.mlp_apply(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg), \
+            _zero_aux(x)
+    return x + h, aux
 
 
 def _ssm_block(x, lp, cfg):
@@ -151,40 +153,80 @@ def _remat(fn, cfg):
     return lambda *a, **kw: checkpoint(fn, *a, use_reentrant=False, **kw)
 
 
-def _hybrid_group(x, blocks, shared, gi, cfg, window):
-    """One hybrid group: its ``attn_every`` SSM blocks, then the shared
-    attention+MLP block."""
-    per = cfg.attn_every
+def _blocks(x, stacked, n: int, cfg, **kw):
+    """The ``n`` stacked attention blocks in turn; returns (x, the sum of
+    their aux losses)."""
+    block = _remat(_attn_mlp_block, cfg)
+    auxs = []
+    for lp in _layers(stacked, n):
+        x, aux = block(x, lp, cfg, **kw)
+        auxs.append(aux)
+    return x, torch.stack(auxs).sum()
+
+
+def _hybrid_group(x, group, shared, cfg, window):
+    """One hybrid group: its SSM blocks (the layers of ``group``), then
+    the shared attention+MLP block."""
     block = _remat(_ssm_block, cfg)
-    for j in range(per):
-        x = block(x, _layer(blocks, gi * per + j), cfg)
-    return _attn_mlp_block(x, shared, cfg, window=window)
+    for lp in group:
+        x = block(x, lp, cfg)
+    return _attn_mlp_block(x, shared, cfg, window=window)[0]
+
+
+def _embed_input(params, batch, cfg):
+    """Tokens, after the projected patch embeddings when the config has
+    a vision prefix -> (B, S_total, D)."""
+    x = L.embed_tokens(batch["tokens"], params["embed"], cfg)
+    if cfg.vision_patches:
+        vis = (batch["patch_embeds"] @ params["vis_proj"]).to(x.dtype)
+        x = torch.cat([vis, x], dim=1)
+    return x
+
+
+def _encoder(params, frames, cfg):
+    """The enc-dec encoder stack (non-causal) and its final norm."""
+    enc, _ = _blocks(frames, params["enc"]["blocks"], cfg.encoder_layers,
+                     cfg, causal=False)
+    return _norm(enc, params["enc"]["ln_f"], cfg)
 
 
 def forward(params, batch, cfg):
-    """Returns (logits (B,S,V_pad), aux_loss): aux is 0 for the ported
-    families, which have no MoE."""
-    _check_family(cfg)
+    """Returns (logits (B,S,V_pad), aux_loss): aux is the sum of the MoE
+    layers' load-balance losses (0 without experts). An enc-dec batch
+    carries ``frames`` (B, encoder_seq, D), a VLM batch ``patch_embeds``
+    (B, vision_patches, D); a VLM's logits cover its text positions."""
     window = cfg.sliding_window
-    x = L.embed_tokens(batch["tokens"], params["embed"], cfg)
-    if cfg.family == "ssm":
+    if cfg.family == "encdec":
+        enc = _encoder(params, batch["frames"], cfg)
+        x = L.embed_tokens(batch["tokens"], params["embed"], cfg)
+        x, aux = _blocks(x, params["blocks"], cfg.num_layers, cfg,
+                         enc_out=enc, cross=True)
+    elif cfg.family == "ssm":
+        x = _embed_input(params, batch, cfg)
         block = _remat(_ssm_block, cfg)
-        for i in range(cfg.num_layers):
-            x = block(x, _layer(params["blocks"], i), cfg)
+        for lp in _layers(params["blocks"], cfg.num_layers):
+            x = block(x, lp, cfg)
+        aux = _zero_aux(x)
     elif cfg.family == "hybrid":
         # as in the reference, under remat each SSM block is checkpointed
         # inside its group and the group around them
-        g, _ = hybrid_shape(cfg)
+        x = _embed_input(params, batch, cfg)
+        g, per = hybrid_shape(cfg)
+        layers = _layers(params["blocks"], cfg.num_layers)
         group = _remat(_hybrid_group, cfg)
         for gi in range(g):
-            x = group(x, params["blocks"], params["shared"], gi, cfg, window)
+            x = group(x, layers[gi * per:(gi + 1) * per], params["shared"],
+                      cfg, window)
+        aux = _zero_aux(x)
     else:
-        block = _remat(_attn_mlp_block, cfg)
-        for i in range(cfg.num_layers):
-            x = block(x, _layer(params["blocks"], i), cfg, window=window)
+        x = _embed_input(params, batch, cfg)
+        x, aux = _blocks(x, params["blocks"], cfg.num_layers, cfg,
+                         window=window)
     x = _norm(x, params["ln_f"], cfg)
     logits = L.lm_logits(x, params["embed"], cfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.vision_patches:
+        logits = logits[:, cfg.vision_patches:, :]      # text positions
+    return logits, aux
 
 
 def loss_fn(params, batch, cfg):
@@ -208,6 +250,17 @@ def loss_fn(params, batch, cfg):
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
 
+def encode(params, frames, cfg):
+    """Encoder pass of an enc-dec arch: (enc_out (B,S_enc,D), cross_k,
+    cross_v), the cross K/V stacked over the decoder layers as
+    (L,B,KH,S_enc,hd): the decode-time cross-attention cache."""
+    enc = _encoder(params, frames, cfg)
+    kv = [L.cross_kv(enc, lp, cfg)
+          for lp in _layers(params["blocks"]["xattn"], cfg.num_layers)]
+    return enc, torch.stack([k for k, _ in kv]), \
+        torch.stack([v for _, v in kv])
+
+
 # ---------------------------------------------------------------------------
 # Decode (serve step)
 # ---------------------------------------------------------------------------
@@ -220,7 +273,6 @@ def cache_len_for(cfg, seq_len: int) -> int:
 
 
 def init_cache_specs(cfg, batch: int, seq_len: int) -> dict:
-    _check_family(cfg)
     cl = cache_len_for(cfg, seq_len)
     if cfg.family == "ssm":
         return S.init_ssm_cache_specs(cfg, batch, cfg.num_layers)
@@ -229,7 +281,15 @@ def init_cache_specs(cfg, batch: int, seq_len: int) -> dict:
         c = S.init_ssm_cache_specs(cfg, batch, cfg.num_layers)
         c["attn"] = L.init_cache_specs(cfg, batch, cl, g, groups_axis="groups")
         return c
-    return L.init_cache_specs(cfg, batch, cl, cfg.num_layers)
+    c = L.init_cache_specs(cfg, batch, cl, cfg.num_layers)
+    if cfg.family == "encdec":
+        # the encoder's K/V for every decoder layer, filled by ``encode``
+        for name in ("cross_k", "cross_v"):
+            c[name] = Spec((cfg.num_layers, batch, cfg.num_kv_heads,
+                            cfg.encoder_seq, cfg.head_dim),
+                           ("layers", "batch", None, "cache_seq", None),
+                           init="zeros")
+    return c
 
 
 def _ssm_decode_block(x, params, cache, i, cfg):
@@ -240,18 +300,32 @@ def _ssm_decode_block(x, params, cache, i, cfg):
 
 
 def _attn_mlp_decode(x, lp, cfg, cache, pos, window):
+    """One block's decode step; an enc-dec block adds cross attention
+    against the encoder's K/V in its cache (no cache write)."""
     h, _ = L.decode_attention(_norm(x, lp["ln1"], cfg), lp["attn"], cfg,
                               cache, pos, window=window)
     x = x + h
-    return x + L.mlp_apply(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg)
+    if cfg.family == "encdec":
+        x = x + L.cross_decode_attention(_norm(x, lp["ln_x"], cfg),
+                                         lp["xattn"], cfg, cache["cross_k"],
+                                         cache["cross_v"])
+    if cfg.num_experts:
+        h, _ = M.moe_apply(_norm(x, lp["ln2"], cfg), lp["moe"], cfg)
+    else:
+        h = L.mlp_apply(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg)
+    return x + h
 
 
 def decode_step(params, cache, batch, pos: int, cfg):
     """One-token decode. batch['tokens'] (B,1). Updates the cache in
-    place and returns (logits (B,1,V_pad), cache)."""
-    _check_family(cfg)
+    place and returns (logits (B,1,V_pad), cache). A VLM decodes text
+    only, as in the reference; an MoE layer dispatches the B tokens of
+    the step with its own capacity."""
     window = cfg.sliding_window
-    x = L.embed_tokens(batch["tokens"], params["embed"], cfg)
+    tok = batch["tokens"]
+    x = L.embed_tokens(tok, params["embed"], cfg, positions=(
+        torch.full((1,), pos, dtype=torch.long, device=tok.device)
+        if cfg.pos_embed == "learned" else None))
     if cfg.family == "ssm":
         for i in range(cfg.num_layers):
             x = _ssm_decode_block(x, params, cache, i, cfg)

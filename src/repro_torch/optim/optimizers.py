@@ -53,14 +53,16 @@ def tree_map(fn, tree, *rest):
 def tree_unflatten(tree, leaves):
     """A tree shaped like ``tree`` whose leaves are ``leaves``, taken in
     :func:`tree_leaves` order."""
-    it = iter(leaves)
+    return _unflatten(tree, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        return next(it)
 
-    return build(tree)
+def _unflatten(node, it):
+    # a module-level recursion: a recursive closure would be a reference
+    # cycle that keeps ``leaves`` (a whole gradient tree) alive until the
+    # cyclic collector runs
+    if isinstance(node, dict):
+        return {k: _unflatten(node[k], it) for k in sorted(node)}
+    return next(it)
 
 
 def value_and_grad(fn, params):
@@ -136,10 +138,14 @@ def adamw(lr: float | Callable, b1: float = 0.9, b2: float = 0.95,
         c2 = 1 - b2 ** step.float()
 
         def upd(m_, v_, p):
-            u = (m_ / c1) / (torch.sqrt(v_ / c2) + eps)
+            # the reference's (m/c1) / (sqrt(v/c2) + eps), its in-place
+            # steps on fresh temporaries: one leaf-sized temporary at a
+            # time beside the update, the same arithmetic in the same order
+            u = torch.sqrt(v_ / c2).add_(eps)
+            u = (m_ / c1).div_(u)
             if weight_decay:
-                u = u + weight_decay * p.float()
-            return (-eta * u).to(p.dtype)
+                u = u.add_(weight_decay * p.float())
+            return u.mul_(-eta).to(p.dtype)
 
         ups = tree_map(upd, m, v, params)
         return ups, {"m": m, "v": v, "count": step}

@@ -878,14 +878,29 @@ def test_ssd_grads_on_card_equal_plain_autograd(cuda, B, H, S, P, N, chunk,
         assert torch.equal(x1, x2)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "mamba2-1.3b", "zamba2-7b"])
+def _attention_launches(cfg):
+    """Flash-attention launches of one forward: one a decoder layer, one
+    a hybrid group; an enc-dec arch adds its encoder and cross layers."""
+    if cfg.attn_every:
+        return cfg.num_layers // cfg.attn_every
+    if cfg.ssm_state:
+        return 0
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    return cfg.num_layers
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "mamba2-1.3b", "zamba2-7b",
+                                  "olmoe-1b-7b", "whisper-large-v3"])
 def test_smoke_train_step_on_card_matches_cpu(cuda, arch):
     """One ``make_train_step`` of a smoke config on the card (the
     kernels forward, their plain versions backward) against the CPU,
     from the same parameters: loss and gradient norm within rtol 1e-4,
     the parameters after an sgd step within 1e-4 of each leaf's largest
     |p| (AdamW's first step is about ±lr on every entry whatever its
-    gradient's size, so rounding flips the sign of near-zero ones)."""
+    gradient's size, so rounding flips the sign of near-zero ones); a
+    key bias (whisper), whose gradient is 0 in exact arithmetic, moved
+    by no more than 1e-6·lr on either device."""
     from repro_torch.configs import registry
     from repro_torch.launch import steps as St
     from repro_torch.models import transformer as T
@@ -901,8 +916,13 @@ def test_smoke_train_step_on_card_matches_cpu(cuda, arch):
                  0, cfg.vocab_size, (4, 64)).astype(np.int32)),
              "weights": torch.tensor([1.0, 0.0, 0.5, 1.0]),
              "route": torch.tensor([2, 0, 3, 1], dtype=torch.int32)}
-    opt = topt.sgd(0.05)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (4, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    lr = 0.05
+    opt = topt.sgd(lr)
     step = St.make_train_step(cfg, opt)
+    before = dict(_named_leaves(topt.tree_map(lambda t: t.clone(), params)))
     out = {}
     for dev in (cuda, "cpu"):
         p = topt.tree_map(lambda t: t.to(dev), params)
@@ -912,13 +932,92 @@ def test_smoke_train_step_on_card_matches_cpu(cuda, arch):
         out[str(dev)] = step(p, opt.init(p), b)
         if dev == cuda:
             torch.cuda.synchronize()
-            n_attn = (cfg.num_layers // cfg.attn_every if cfg.attn_every
-                      else 0 if cfg.ssm_state else cfg.num_layers)
-            assert fa.launches == n_attn
+            assert fa.launches == _attention_launches(cfg)
             assert sd.launches == (cfg.num_layers if cfg.ssm_state else 0)
     (pc, _, mc), (pp, _, mp) = out["cuda"], out["cpu"]
     for k in ("loss", "grad_norm"):
         assert float(mc[k]) == pytest.approx(float(mp[k]), rel=1e-4)
-    for a, b in zip(topt.tree_leaves(pc), topt.tree_leaves(pp)):
+    for (name, a), (_, b) in zip(_named_leaves(pc), _named_leaves(pp)):
+        if name.endswith("/bk"):
+            # a bias added to every key shifts a query's scores by one
+            # constant, which the softmax ignores: its gradient is 0 in
+            # exact arithmetic and rounding noise on either device
+            for x in (a.cpu(), b):
+                assert float((x - before[name]).abs().max()) <= 1e-6 * lr
+            continue
         assert float((a.cpu() - b).abs().max()) <= \
             1e-4 * float(b.abs().max())
+
+
+def _named_leaves(tree, path=""):
+    """(path, leaf) pairs of a nested dict, keys in sorted order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{path}/{k}")
+    else:
+        yield path, tree
+
+
+# the MoE layer (plain torch) on the card against the CPU: the routing
+# exactly (ties to the lowest expert, as jax.lax.top_k), the output
+# within 2e-5 of max|out|, the aux loss within 1e-6
+@pytest.mark.parametrize("case", ["tie", "padded", "drops"])
+def test_moe_apply_on_card_matches_cpu(cuda, case):
+    from repro_torch.configs import registry
+    from repro_torch.models import moe as M
+    from repro_torch.models.module import init_params
+
+    kw = {"tie": dict(num_experts=64, experts_per_token=8, d_model=64,
+                      d_ff=32, num_heads=4, capacity_factor=8.0),
+          "padded": dict(moe_pad_experts=8, moe_groups=2),
+          "drops": dict(capacity_factor=0.25)}[case]
+    cfg = registry.get_config("olmoe-1b-7b", smoke=True).with_overrides(**kw)
+    p = init_params(M.moe_specs(cfg), 0, torch.float32, "cpu")
+    if case == "tie":
+        p["router"].zero_()
+    x = _randn((2, 48, cfg.d_model), 31, "cpu")
+    C = M.expert_capacity(96, cfg)
+    G = cfg.moe_groups
+    routes, outs = [], []
+    for dev in (cuda, "cpu"):
+        pd = {k: v.to(dev) for k, v in p.items()}
+        xd = x.to(dev)
+        routes.append([t.cpu() for t in M.route(
+            xd.reshape(G, -1, cfg.d_model), pd["router"], cfg, C)[2:]])
+        outs.append([t.cpu() for t in M.moe_apply(xd, pd, cfg)])
+    for a, b in zip(*routes):
+        assert torch.equal(a, b)
+    if case == "tie":
+        assert (routes[0][0] == torch.arange(8)).all()
+    (oc, ac), (oh, ah) = outs
+    assert float((oc - oh).abs().max()) <= 2e-5 * float(oh.abs().max())
+    assert abs(float(ac) - float(ah)) <= 1e-6
+    if case == "padded":
+        pd = {k: v.to(cuda).requires_grad_() for k, v in p.items()}
+        M.moe_apply(x.to(cuda), pd, cfg)[0].sum().backward()
+        E = cfg.num_experts
+        for name in ("w_gate", "w_up", "w_down"):
+            assert not pd[name].grad[E:].any()
+            assert bool(pd[name].grad[:E].abs().max() > 0)
+
+
+def test_cross_decode_attention_on_card_matches_cpu(cuda):
+    """Whisper's decode-time cross attention (plain torch, padded q heads
+    dropped) on the card against the CPU, within 2e-5 of max|out|."""
+    from repro_torch.configs import registry
+    from repro_torch.models import layers as L
+    from repro_torch.models.module import init_params
+
+    cfg = registry.get_config("whisper-large-v3", smoke=True).with_overrides(
+        num_heads=6, num_kv_heads=2, tp_pad=8)
+    p = init_params(L.attention_specs(cfg), 0, torch.float32, "cpu")
+    x = _randn((3, 1, cfg.d_model), 41, "cpu")
+    enc = _randn((3, cfg.encoder_seq, cfg.d_model), 42, "cpu")
+    out = []
+    for dev in (cuda, "cpu"):
+        pd = {k: v.to(dev) for k, v in p.items()}
+        k, v = L.cross_kv(enc.to(dev), pd, cfg)
+        out.append(L.cross_decode_attention(x.to(dev), pd, cfg, k, v).cpu())
+    assert out[0].shape == (3, 1, cfg.d_model)
+    assert float((out[0] - out[1]).abs().max()) <= \
+        2e-5 * float(out[1].abs().max())

@@ -8,13 +8,18 @@
   kernels' plain versions), ``decode_step`` over 8 tokens and
   ``greedy_generate`` agree with the reference's for the smoke configs
   of zamba2-7b (hybrid), mamba2-1.3b (ssm), qwen3-14b and
-  phi4-mini-3.8b (dense). Logits within 1e-4 of the largest |logit|
-  (both float32 on the CPU; the tolerance covers summation order in the
-  products and the scans); greedy tokens exactly;
+  phi4-mini-3.8b (dense), olmoe-1b-7b and mixtral-8x7b (MoE),
+  whisper-large-v3 (enc-dec, the decode's cross K/V from ``encode``)
+  and phi-3-vision-4.2b (VLM, seeded patch embeddings). Logits within
+  1e-4 of the largest |logit| (both float32 on the CPU; the tolerance
+  covers summation order in the products and the scans), the MoE aux
+  loss within 1e-6; greedy tokens exactly;
 * the port's own decode matches its forward (the reference's contract,
-  ``tests/test_models_smoke.py``, atol/rtol 2e-3), also with padded
-  heads and a sliding-window ring cache;
-* the families this slice does not port raise NotImplementedError.
+  ``tests/test_models_smoke.py``, atol/rtol 2e-3, MoE at capacity
+  factor 8 so that no token drops), also with padded heads, a
+  sliding-window ring cache, learned positions (whisper) and the VLM's
+  text-only decoder;
+* every registry arch runs forward, its cache and a decode step.
 """
 import dataclasses
 
@@ -40,10 +45,14 @@ from repro_torch.models import transformer as T
 from repro_torch.models.convert import lm_params_from_jax
 
 ARCHS = registry.all_archs()
-SERVED = ["zamba2-7b", "mamba2-1.3b", "qwen3-14b", "phi4-mini-3.8b"]
-UNPORTED = ["mixtral-8x7b", "olmoe-1b-7b", "whisper-large-v3",
-            "phi-3-vision-4.2b"]
+SERVED = ["zamba2-7b", "mamba2-1.3b", "qwen3-14b", "phi4-mini-3.8b",
+          "olmoe-1b-7b", "mixtral-8x7b", "whisper-large-v3",
+          "phi-3-vision-4.2b"]
+# the families the model zoo's last slice ported
+LATE = ["mixtral-8x7b", "olmoe-1b-7b", "whisper-large-v3",
+        "phi-3-vision-4.2b"]
 REL_TOL = 1e-4
+AUX_TOL = 1e-6
 
 
 def _both(arch, **overrides):
@@ -67,6 +76,28 @@ def _close(got, want, rel=REL_TOL):
 def _tokens(cfg, B, S, seed):
     rng = np.random.default_rng(seed)
     return rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def _inputs(cfg, B, S, seed):
+    """Seeded tokens, with seeded ``frames`` (enc-dec) or ``patch_embeds``
+    (VLM), as numpy."""
+    rng = np.random.default_rng(seed)
+    b = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    if cfg.family == "encdec":
+        b["frames"] = rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.vision_patches:
+        b["patch_embeds"] = rng.standard_normal(
+            (B, cfg.vision_patches, cfg.d_model)).astype(np.float32)
+    return b
+
+
+def _j(b):
+    return {k: jnp.asarray(v) for k, v in b.items()}
+
+
+def _t(b):
+    return {k: torch.from_numpy(v) for k, v in b.items()}
 
 
 @pytest.mark.parametrize("smoke", [False, True])
@@ -136,6 +167,48 @@ def test_lm_params_from_jax_round_trip():
             np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _same_tree(port, tree):
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    for path, leaf in flat:
+        got = port
+        for key in path:
+            got = got[key.key]
+        want = np.asarray(leaf)
+        assert got.shape == want.shape
+        assert got.dtype == (torch.float32 if want.dtype.kind == "f"
+                             else torch.int32)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("arch,overrides", [
+    ("olmoe-1b-7b", {"moe_pad_experts": 8}), ("mixtral-8x7b", {}),
+    ("whisper-large-v3", {}), ("phi-3-vision-4.2b", {})])
+def test_lm_params_from_jax_carries_moe_encdec_vlm_trees(arch, overrides):
+    """Parameters (padded experts too), caches (cross K/V) and an AdamW
+    state of the MoE, enc-dec and VLM trees come across leaf for leaf."""
+    from repro.optim import optimizers as ropt
+    from repro_torch.models.convert import opt_state_from_jax
+
+    rc = ref_registry.get_config(arch, smoke=True)
+    if overrides:
+        rc = rc.with_overrides(**overrides)
+    jp = ref_module.init_params(RT.specs(rc), jax.random.PRNGKey(2),
+                                jnp.float32)
+    jc = ref_module.init_params(RT.init_cache_specs(rc, 2, 8),
+                                jax.random.PRNGKey(2), jnp.float32)
+    for tree in (jp, jc):
+        _same_tree(lm_params_from_jax(jax.tree_util.tree_map(np.asarray,
+                                                             tree)), tree)
+    state = ropt.adamw(1e-3).init(jp)
+    state = jax.tree_util.tree_map(lambda a: np.asarray(a) + 0.5, state)
+    ported = opt_state_from_jax(state)
+    for k in ("m", "v"):
+        _same_tree(ported[k], state[k])
+    assert int(ported["count"]) == int(state["count"])
+    if overrides:
+        assert ported["m"]["blocks"]["moe"]["w_gate"].shape[1] == 8
+
+
 def test_init_params_laws_and_seeding():
     cfg = registry.get_config("zamba2-7b", smoke=True)
     a = module.init_params(T.specs(cfg), seed=5)
@@ -162,10 +235,13 @@ def test_init_params_laws_and_seeding():
 @pytest.mark.parametrize("arch", SERVED)
 def test_forward_matches_reference(arch):
     rc, tc, jp, tp = _both(arch)
-    toks = _tokens(rc, 2, 32, seed=1)
-    want, _ = RT.forward(jp, {"tokens": jnp.asarray(toks)}, rc)
-    got, aux = T.forward(tp, {"tokens": torch.from_numpy(toks)}, tc)
-    assert got.shape == (2, 32, tc.vocab_padded) and float(aux) == 0.0
+    b = _inputs(rc, 2, 32, seed=1)
+    want, want_aux = RT.forward(jp, _j(b), rc)
+    got, aux = T.forward(tp, _t(b), tc)
+    assert got.shape == (2, 32, tc.vocab_padded)
+    assert aux.dtype == torch.float32
+    assert abs(float(aux) - float(want_aux)) <= AUX_TOL
+    assert (float(aux) > 0) == bool(tc.num_experts)
     _close(got, want)
 
 
@@ -184,9 +260,9 @@ def test_forward_matches_reference_with_padded_heads():
 @pytest.mark.parametrize("arch", SERVED)
 def test_prefill_step_matches_reference(arch):
     rc, tc, jp, tp = _both(arch)
-    toks = _tokens(rc, 2, 16, seed=3)
-    want = ref_steps.make_prefill_step(rc)(jp, {"tokens": jnp.asarray(toks)})
-    got = steps.make_prefill_step(tc)(tp, {"tokens": torch.from_numpy(toks)})
+    b = _inputs(rc, 2, 16, seed=3)
+    want = ref_steps.make_prefill_step(rc)(jp, _j(b))
+    got = steps.make_prefill_step(tc)(tp, _t(b))
     assert got.shape == (2, tc.vocab_padded)
     _close(got, want)
 
@@ -198,6 +274,13 @@ def test_decode_step_matches_reference(arch):
     jcache = ref_module.init_params(RT.init_cache_specs(rc, 2, 16),
                                     jax.random.PRNGKey(0), jnp.float32)
     tcache = module.init_params(T.init_cache_specs(tc, 2, 16))
+    if rc.family == "encdec":        # cross K/V of the same seeded frames
+        frames = _inputs(rc, 2, 1, seed=8)["frames"]
+        _, jcache["cross_k"], jcache["cross_v"] = RT.encode(
+            jp, jnp.asarray(frames), rc)
+        _, tcache["cross_k"], tcache["cross_v"] = T.encode(
+            tp, torch.from_numpy(frames), tc)
+        _close(tcache["cross_k"], jcache["cross_k"])
     rstep = jax.jit(lambda p, c, t, i: RT.decode_step(p, c, {"tokens": t},
                                                       i, rc))
     tstep = steps.make_decode_step(tc)
@@ -227,10 +310,20 @@ def test_greedy_generate_matches_reference(arch):
     ("zamba2-7b", {}), ("mamba2-1.3b", {}), ("qwen3-14b", {}),
     ("phi4-mini-3.8b", {}), ("qwen1.5-4b", {}), ("minitron-4b", {}),
     ("qwen3-14b", {"num_heads": 6, "num_kv_heads": 2, "tp_pad": 8}),
+    ("olmoe-1b-7b", {"capacity_factor": 8.0}),
+    ("mixtral-8x7b", {"capacity_factor": 8.0}),
+    ("whisper-large-v3", {}),
+    ("whisper-large-v3", {"num_heads": 6, "num_kv_heads": 2, "tp_pad": 8}),
+    ("phi-3-vision-4.2b", {}),
 ])
 def test_decode_matches_forward(arch, overrides):
     """Teacher-forced decode reproduces the prefill logits (the
-    reference's own contract, tests/test_models_smoke.py)."""
+    reference's own contract, tests/test_models_smoke.py; MoE at
+    capacity factor 8, so that no token drops in either). Whisper's
+    decode takes its cross K/V from ``encode`` of the forward's frames
+    and its learned position from ``pos``. A VLM decodes text only, as
+    in the reference: it is held to its forward without the patch
+    prefix."""
     cfg = registry.get_config(arch, smoke=True)
     if overrides:
         cfg = cfg.with_overrides(**overrides)
@@ -239,10 +332,18 @@ def test_decode_matches_forward(arch, overrides):
         # decode drops the padded heads; prefill runs them. They agree
         # only when the padded wo rows are zero, as the reference's
         # layers.py docstring assumes (its init_params does not zero them)
-        params["blocks"]["attn"]["wo"][:, cfg.num_heads * cfg.head_dim:] = 0
-    toks = torch.from_numpy(_tokens(cfg, 1, 16, seed=6))
-    full, _ = T.forward(params, {"tokens": toks}, cfg)
+        for name in ("attn", "xattn"):
+            if name in params["blocks"]:
+                params["blocks"][name]["wo"][
+                    :, cfg.num_heads * cfg.head_dim:] = 0
+    b = _t(_inputs(cfg, 1, 16, seed=6))
+    toks = b["tokens"]
+    fwd_cfg = cfg.with_overrides(vision_patches=0)  # VLM: the text decoder
+    full, _ = T.forward(params, b, fwd_cfg)
     cache = module.init_params(T.init_cache_specs(cfg, 1, 16))
+    if cfg.family == "encdec":
+        _, cache["cross_k"], cache["cross_v"] = T.encode(params, b["frames"],
+                                                         cfg)
     outs = []
     for i in range(16):
         lg, cache = T.decode_step(params, cache, {"tokens": toks[:, i:i + 1]},
@@ -307,17 +408,27 @@ def test_sliding_window_ring_decode_matches_forward():
                                atol=2e-3, rtol=2e-3)
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
+@pytest.mark.parametrize("arch", LATE)
+def test_late_families_run_forward_cache_and_decode(arch):
+    """The MoE, enc-dec and VLM archs, once refused, run: forward with
+    the stubbed frontends' zero inputs (finite logits and aux), a cache
+    whose spec tree is the reference's, and a decode step."""
     cfg = registry.get_config(arch, smoke=True)
-    T.specs(cfg)                                # specs exist for every arch
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        T.forward({}, {"tokens": toks}, cfg)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        T.init_cache_specs(cfg, 1, 8)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        T.decode_step({}, {}, {"tokens": toks}, 0, cfg)
+    params = module.init_params(T.specs(cfg), seed=3)
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
+             **steps.frontend_inputs(cfg, 1, "cpu")}
+    logits, aux = T.forward(params, batch, cfg)
+    assert logits.shape == (1, 4, cfg.vocab_padded)
+    assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux))
+    specs = T.init_cache_specs(cfg, 1, 8)
+    assert _port_leaves(specs) == _ref_leaves(RT.init_cache_specs(
+        ref_registry.get_config(arch, smoke=True), 1, 8))
+    cache = module.init_params(specs)
+    lg, cache = T.decode_step(params, cache, {"tokens": batch["tokens"][
+        :, :1]}, 0, cfg)
+    assert lg.shape == (1, 1, cfg.vocab_padded)
+    assert bool(torch.isfinite(lg).all())
+    assert int(cache["slot_pos"][0, 0]) == 0
 
 
 def test_serve_cli_on_cpu(capsys, tmp_path):
@@ -336,12 +447,16 @@ def test_serve_cli_on_cpu(capsys, tmp_path):
         == out["sample"]
 
 
-def test_train_lm_mode_names_the_training_slice():
-    """``--mode lm`` trains the dense, ssm and hybrid families; the
-    others stop naming the item of the model zoo that ports them."""
-    for arch, item in (("mixtral-8x7b", "14b"), ("whisper-large-v3", "14c")):
-        with pytest.raises(SystemExit, match=f"queue 1 item {item}"):
-            ttrain.main(["--mode", "lm", "--device", "cpu", "--arch", arch])
+def test_train_lm_mode_takes_every_arch():
+    """``--mode lm`` refuses no registry arch; one small step runs for an
+    MoE and the enc-dec arch."""
+    for arch in ARCHS:
+        ttrain._check_ported(ttrain.parse_args(["--mode", "lm", "--arch",
+                                                arch]))
+    for arch in ("mixtral-8x7b", "whisper-large-v3"):
+        out = ttrain.main(["--mode", "lm", "--device", "cpu", "--arch", arch,
+                           "--steps", "1", "--batch", "2", "--seq", "8"])
+        assert np.isfinite(out["losses"]).all() and out["arch"] == arch
 
 
 def test_breakdown_profiles_the_prefill_step():

@@ -8,8 +8,8 @@ reference's ``--mode lm`` on the CPU.
   return the reference's initial parameters carried across: loss_first
   within rtol 1e-5, loss_last within rtol 1e-4, moved_frac equal, the
   reference's output keys, at ``--lm-tau`` 1 and 2;
-* the MoE archs stop naming ROADMAP.md item 14b, the enc-dec and VLM
-  archs item 14c.
+* the same for the MoE (olmoe with ``--data-shards 4 --lm-tau 2``),
+  enc-dec and VLM archs.
 """
 import jax
 import jax.numpy as jnp
@@ -22,6 +22,7 @@ from repro.core import costs as rcosts
 from repro.data import synthetic as rsyn
 from repro.launch import train as rtrain
 from repro.models import module as ref_module
+from repro.models import moe as RM
 from repro.models import transformer as RT
 from repro_torch.core import costs as tcosts
 from repro_torch.data import synthetic as tsyn
@@ -91,12 +92,7 @@ def _ref_params(arch, layers):
     return init
 
 
-@pytest.mark.parametrize("arch,extra", [
-    ("qwen3-14b", []), ("qwen3-14b", ["--lm-tau", "2"]),
-    ("mamba2-1.3b", ["--layers", "1", "--optimizer", "sgd", "--lr",
-                     "0.05"]),
-])
-def test_cli_matches_reference_cli(monkeypatch, capsys, arch, extra):
+def _matches_reference_cli(monkeypatch, capsys, arch, extra):
     argv = ["--mode", "lm", "--arch", arch, "--steps", "4", "--batch", "4",
             "--seq", "16", "--seed", "1"] + extra
     want = rtrain.main(argv)
@@ -115,6 +111,15 @@ def test_cli_matches_reference_cli(monkeypatch, capsys, arch, extra):
     assert '"steps_per_s"' in out
 
 
+@pytest.mark.parametrize("arch,extra", [
+    ("qwen3-14b", []), ("qwen3-14b", ["--lm-tau", "2"]),
+    ("mamba2-1.3b", ["--layers", "1", "--optimizer", "sgd", "--lr",
+                     "0.05"]),
+])
+def test_cli_matches_reference_cli(monkeypatch, capsys, arch, extra):
+    _matches_reference_cli(monkeypatch, capsys, arch, extra)
+
+
 def test_cli_defaults_and_moved_fraction():
     """The lm flags' defaults are the reference's; over 4 shards the
     plan moves some shards' samples and not all."""
@@ -128,9 +133,17 @@ def test_cli_defaults_and_moved_fraction():
     assert 0.0 < moved < 1.0
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("mixtral-8x7b", "14b"), ("olmoe-1b-7b", "14b"),
-    ("whisper-large-v3", "14c"), ("phi-3-vision-4.2b", "14c")])
-def test_unported_archs_name_their_item(arch, item):
-    with pytest.raises(SystemExit, match=f"queue 1 item {item}"):
-        ttrain.main(["--mode", "lm", "--device", "cpu", "--arch", arch])
+@pytest.mark.parametrize("arch,extra", [
+    ("mixtral-8x7b", []),
+    ("olmoe-1b-7b", ["--data-shards", "4", "--lm-tau", "2"]),
+    ("whisper-large-v3", []), ("phi-3-vision-4.2b", [])])
+def test_moe_encdec_vlm_archs_match_reference_cli(monkeypatch, capsys, arch,
+                                                 extra):
+    """The archs the model zoo's last slice ported: the MoE aux loss in
+    the loss, zero frames and patch embeddings in the batches. The
+    reference's MoE sharding constraint (``moe._maybe_shard``) is made
+    the identity it is on one device: under this jax its
+    ``with_sharding_constraint`` refuses the Manual axis of the FedAvg
+    round's ``shard_map``."""
+    monkeypatch.setattr(RM, "_maybe_shard", lambda x, *axes: x)
+    _matches_reference_cli(monkeypatch, capsys, arch, extra)

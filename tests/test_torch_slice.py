@@ -78,7 +78,7 @@ def test_cli_cost_equals_reference_cli(capsys):
     ["--checkpoint", "x", "--sanitize"],
     ["--resume", "x", "--engine", "sharded"], ["--sanitize"],
     ["--engine", "batched", "--sanitize"], ["--engine", "sharded"],
-    ["--mode", "lm", "--arch", "olmoe-1b-7b"],
+    ["--tiers", "2@4,1@8", "--sanitize"],
 ])
 def test_cli_unported_flags_name_their_roadmap_item(flags):
     with pytest.raises(SystemExit, match="ROADMAP.md, queue 1 item"):

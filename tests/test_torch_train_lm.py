@@ -1,7 +1,9 @@
 """The model zoo's training path held to the reference, on the CPU.
 
-For the smoke configs of qwen3-14b (dense), mamba2-1.3b (ssm) and
-zamba2-7b (hybrid), from the reference's initial parameters carried
+For the smoke configs of qwen3-14b (dense), mamba2-1.3b (ssm),
+zamba2-7b (hybrid), olmoe-1b-7b (MoE: the aux loss within 1e-6, the
+router's gradient) and whisper-large-v3 (enc-dec: seeded frames, the
+cross attention's and the encoder's gradients), from the reference's initial parameters carried
 across (``lm_params_from_jax``), on seeded batches with uneven weights,
 a zero-weight sample and a permuting route:
 
@@ -20,7 +22,8 @@ a zero-weight sample and a permuting route:
   max|g| from the float64 one, and AdamW turns such differences in near-
   zero gradients into whole steps;
 * ``remat="full"`` gives the loss and gradients of ``"none"`` bit for
-  bit; ``accum_shards`` raises naming ROADMAP.md item 12.
+  bit; the train step's in-place update is bit for bit ``update`` then
+  ``apply_updates``; ``accum_shards`` raises naming ROADMAP.md item 12.
 
 The float64 runs put the kernels' plain versions in place of
 ``ops.attention`` and ``ops.ssd`` (the wrappers take float32 and
@@ -48,7 +51,8 @@ from repro_torch.models import transformer as T
 from repro_torch.models.convert import lm_params_from_jax
 from repro_torch.optim import optimizers as topt
 
-ARCHS = ["qwen3-14b", "mamba2-1.3b", "zamba2-7b"]
+ARCHS = ["qwen3-14b", "mamba2-1.3b", "zamba2-7b", "olmoe-1b-7b",
+         "whisper-large-v3"]
 B, S = 4, 16
 
 
@@ -75,12 +79,14 @@ def _batch(cfg, seed, n=B):
     rng = np.random.default_rng(seed)
     w = rng.uniform(0.2, 1.5, n).astype(np.float32)
     w[1] = 0.0                               # a discarded sample
-    return {"tokens": rng.integers(0, cfg.vocab_size, (n, S)).astype(
-                np.int32),
-            "labels": rng.integers(0, cfg.vocab_size, (n, S)).astype(
-                np.int32),
-            "weights": w,
-            "route": rng.permutation(n).astype(np.int32)}
+    b = {"tokens": rng.integers(0, cfg.vocab_size, (n, S)).astype(np.int32),
+         "labels": rng.integers(0, cfg.vocab_size, (n, S)).astype(np.int32),
+         "weights": w,
+         "route": rng.permutation(n).astype(np.int32)}
+    if cfg.family == "encdec":
+        b["frames"] = rng.standard_normal(
+            (n, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return b
 
 
 def _jbatch(b):
@@ -146,7 +152,8 @@ def test_loss_and_grads_match_reference(arch):
     tl, tm = T.loss_fn(tp, tb, tc)
     assert float(tl) == pytest.approx(float(rl), rel=1e-5)
     assert float(tm["ce"]) == pytest.approx(float(rm["ce"]), rel=1e-5)
-    assert float(tm["aux"]) == 0.0 == float(rm["aux"])
+    assert abs(float(tm["aux"]) - float(rm["aux"])) <= 1e-6
+    assert (float(tm["aux"]) > 0) == bool(tc.num_experts)
     grads, metrics, wsum = St.grads_of(tp, tb, tc)
     assert float(wsum) == pytest.approx(float(b["weights"].sum()), rel=1e-6)
     with _plain_ops():
@@ -154,6 +161,13 @@ def test_loss_and_grads_match_reference(arch):
     # grads_of differentiates loss · wsum
     _assert_leaves_within(topt.tree_map(lambda g: g / wsum, grads), rg,
                           topt.tree_map(lambda g: g / wsum, g64), 1e-5)
+    # the router's and the cross attention's leaves get gradient
+    blocks = grads["blocks"]
+    for leaf in ([blocks["moe"]["router"]] if "moe" in blocks else []) + \
+            ([blocks["xattn"]["wk"], blocks["xattn"]["wq"],
+              grads["enc"]["blocks"]["attn"]["wv"]] if "xattn" in blocks
+             else []):
+        assert bool(torch.isfinite(leaf).all()) and bool(leaf.abs().max() > 0)
 
 
 def test_loss_weights_and_route():
@@ -179,7 +193,8 @@ def test_loss_weights_and_route():
 @pytest.mark.parametrize("arch,opt,lr,micro", [
     ("qwen3-14b", "adamw", 3e-3, 1), ("mamba2-1.3b", "adamw", 3e-3, 2),
     ("zamba2-7b", "adamw", 3e-3, 1), ("zamba2-7b", "sgd", 0.05, 2),
-    ("qwen3-14b", "sgd", 0.05, 1)])
+    ("qwen3-14b", "sgd", 0.05, 1), ("olmoe-1b-7b", "adamw", 3e-3, 1),
+    ("olmoe-1b-7b", "sgd", 0.05, 2), ("whisper-large-v3", "adamw", 3e-3, 2)])
 def test_train_steps_match_reference(arch, opt, lr, micro):
     rc, tc, jp, tp = _both(arch)
     ro, to = ropt.get_optimizer(opt, lr), topt.get_optimizer(opt, lr)
@@ -197,6 +212,38 @@ def test_train_steps_match_reference(arch, opt, lr, micro):
             assert _within(float(tm[k]), float(rm[k]), float(m64[k]), 1e-4), \
                 (i, k, float(tm[k]), float(rm[k]), float(m64[k]))
     assert int(ts["count"]) == 3
+
+
+@pytest.mark.parametrize("opt,kw", [
+    ("adamw", {}), ("adamw", {"weight_decay": 0.1}), ("sgd", {}),
+    ("momentum", {})])
+def test_train_step_in_place_is_update_and_apply_bitwise(opt, kw):
+    """``make_train_step`` writes the optimizer's update into the donated
+    parameters and moments leaf by leaf: bit for bit ``update`` then
+    ``apply_updates`` on the same clipped gradient, over two steps."""
+    _, tc, _, tp = _both("olmoe-1b-7b")
+    o = {"adamw": topt.adamw, "sgd": topt.sgd,
+         "momentum": topt.momentum}[opt](3e-3, **kw)
+    step = St.make_train_step(tc, o)
+    p_fun = topt.tree_map(lambda t: t.clone(), tp)
+    s_fun = o.init(p_fun)
+    p_in, s_in = tp, o.init(tp)
+    for i in range(2):
+        b = _tbatch(_batch(tc, 20 + i))
+        g, _, wsum = St.grads_of(p_fun, St.route_batch(b), tc)
+        out = step(p_in, s_in, b)
+        assert out[0] is p_in and out[1] is s_in      # donated, returned
+        g, gn = topt.clip_by_global_norm(
+            topt.tree_map(lambda x: x / wsum, g), 1.0)
+        assert torch.equal(gn, out[2]["grad_norm"])
+        ups, s_fun = o.update(g, s_fun, p_fun)
+        p_fun = topt.apply_updates(p_fun, ups)
+    for a, b_ in zip(topt.tree_leaves(p_fun), topt.tree_leaves(p_in)):
+        assert torch.equal(a, b_)
+    for k in s_fun:
+        for a, b_ in zip(topt.tree_leaves(s_fun[k]),
+                         topt.tree_leaves(s_in[k])):
+            assert torch.equal(a, b_)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
