@@ -6,7 +6,7 @@
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; it
 imports no JAX. It builds every CUDA kernel of the fog, serving and
 training paths from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
-source, all started together), then runs twenty phases and fails
+source, all started together), then runs twenty-one phases and fails
 (exit 1, no result line) if any of them fails:
 
 (a) the Theorem-3 kernel against its plain PyTorch version on the
@@ -279,7 +279,25 @@ source, all started together), then runs twenty phases and fails
     inputs (t1), (t2) and (t4) gave it (olmoe, mixtral's window,
     whisper's encoder and cross attention) beside its plain version,
     SDPA on K and V expanded to the q heads and its least time (the
-    ``sites`` of the flash_attention entry).
+    ``sites`` of the flash_attention entry);
+(u) the distribution layer: (u1) an NCCL world of one made by
+    ``launch/mesh.init_process_group``, on which the fog-scale flags run
+    with ``--engine sharded`` and with ``--engine batched``, every
+    launch counter and the port's all-reduce counter set to 0 just
+    before each run and read just after: the histories bit for bit
+    equal, kernel 2 launched as many times in both, one all-reduce of
+    the numerator and one of the H total a window in the sharded run;
+    both wall times, the all-reduce's time on the card, and kernel 2's
+    eq. (4) row sum of the sharded run timed as a ``sites`` entry;
+    (u2) the FedAvg round (qwen3-14b smoke config, τ = 2, AdamW) on that
+    group bit for bit the one-card round with one shard; (u3) the
+    analytic roofline (``launch/roofline.py``, H100 constants, float32,
+    one card) beside the warm times (j), (s2), (t1), (t3), (t4) and (t5)
+    measured: compute_useful_s, compute_s, memory_s, the dominant term
+    and mfu = compute_useful_s / the warm time; (u4) the dry run of
+    qwen3-14b ``train_4k`` on the fake (16, 16) mesh in a subprocess
+    (``python -m repro_torch.launch.dryrun``): a PASS row, its dominant
+    term and trace time.
 
 The line before the last is the JSON list of kernels; the one before it
 the card's name and power limit; the last line is the result.
@@ -289,6 +307,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1307,7 +1326,7 @@ def phase_j_serve(torch, np, card, counters, ops, cuda):
         raise AssertionError("greedy_generate gave tokens of the wrong "
                              "shape or range")
     return {"cfg": cfg, "params": params, "first": first,
-            "launches": launches}
+            "launches": launches, "warm_s": warm}
 
 
 @contextlib.contextmanager
@@ -3504,7 +3523,7 @@ def _train_full_width(torch, np, card, counters, ops, fa, sd, cuda, B):
     del state, params
     torch.cuda.empty_cache()
     return {"attention": want["flash_attention"], "ssd": want["ssd_scan"],
-            "B": B}
+            "B": B, "step_s": warm}
 
 
 def _grads_on_host(torch, St, topt, ops, plain_fns, cfg, params, b):
@@ -4153,7 +4172,263 @@ def phase_t_zoo(torch, np, card, counters, ops, fa, sd, cuda):
     for arch in (OLMOE, WHISPER):
         _check_cell(torch, np, card, ops, fa, sd, cuda, arch)
     log(f"(t) cells {json.dumps(cells, default=float)} [{card}]")
-    return sites
+    return sites, cells
+
+
+# ---------------------------------------------------------------------------
+# (u) the distribution layer: the sharded engine and the FedAvg round on
+# an NCCL world of one, the roofline beside the measured cells, the dry
+# run
+# ---------------------------------------------------------------------------
+
+FEDAVG_ARCH, FEDAVG_TAU, FEDAVG_B, FEDAVG_S = "qwen3-14b", 2, 8, 128
+DRYRUN_ARGV = ["--arch", "qwen3-14b", "--shape", "train_4k"]
+
+
+def _fedavg_rounds(torch, np, dist, cuda):
+    """(u2) one FedAvg round (the smoke config, τ = 2, AdamW at the
+    CLI's lr, batches routed and weighted as ``--mode lm`` makes them)
+    with one shard on the card and on the default group; returns both
+    (params, state, loss) and the all-reduces of the group's round."""
+    (get_config, make_token_dataset, St, train, T, init_params, _,
+     topt) = _lm_modules()
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.fedavg import make_fedavg_round
+
+    cfg = get_config(FEDAVG_ARCH, smoke=True)
+    _, _, routes, weights = train.lm_movement_inputs(
+        1, FEDAVG_B, FEDAVG_TAU, np.random.default_rng(SEED))
+    toks = make_token_dataset(FEDAVG_TAU * FEDAVG_B * (FEDAVG_S + 1) + 1,
+                              cfg.vocab_size, seed=SEED)
+    bs = [St.route_batch(train.lm_batch(toks, i, FEDAVG_B, FEDAVG_S,
+                                        weights, routes, cuda, cfg))
+          for i in range(FEDAVG_TAU)]
+    batches = {k: torch.stack([b[k] for b in bs]) for k in bs[0]
+               if k != "route"}
+    outs = []
+    for group in (None, dist.group.WORLD):
+        opt = topt.adamw(TRAIN_LR)
+        p = init_params(T.specs(cfg), SEED, torch.float32, cuda)
+        coll.reset_counts()
+        outs.append(make_fedavg_round(cfg, opt, FEDAVG_TAU, n_shards=1,
+                                      group=group)(p, opt.init(p), batches))
+    torch.cuda.synchronize()
+    return outs, coll.all_reduces, topt
+
+
+def phase_u_sharded(torch, np, card, counters, ops, sr, cuda):
+    """(u1) and (u2) on an NCCL world of one; returns kernel 2's sharded
+    eq. (4) site."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+    from repro_torch.models import mnist as mm
+
+    if dist.is_initialized():
+        raise AssertionError("a process group exists before (u)")
+    mesh_lib.init_process_group(cuda)
+    try:
+        if (dist.get_backend(), dist.get_world_size()) != ("nccl", 1):
+            raise AssertionError(f"(u1) group {dist.get_backend()} of "
+                                 f"{dist.get_world_size()} ranks")
+        T = int(FOG_ARGV[FOG_ARGV.index("--T") + 1])
+        tau = int(FOG_ARGV[FOG_ARGV.index("--tau") + 1])
+        leaves = len(mm.mlp_specs())
+        runs, keep = {}, {}
+        real_rows = ops.segment_sum_rows
+        # in turns, so that neither engine alone pays the first run's
+        # start-up; the second run of each is the one compared in time
+        for engine in ("batched", "sharded", "sharded", "batched"):
+            for c in counters.values():
+                c.reset_launches()
+            coll.reset_counts()
+            if engine == "sharded":
+                ops.segment_sum_rows = _keep_rows_by_segments(ops, keep,
+                                                              {1: 0})
+            try:
+                out = train.main(FOG_ARGV + ["--engine", engine])
+            finally:
+                ops.segment_sum_rows = real_rows
+            runs.setdefault(engine, []).append((
+                out, {n: c.launches for n, c in counters.items()},
+                coll.all_reduces))
+        (sh, sh_l, sh_ar), (ba, ba_l, ba_ar) = runs["sharded"][1], \
+            runs["batched"][1]
+        diff = _hist_diff(np, sh["history"], ba["history"])
+        same = all(
+            np.array_equal(np.asarray(r[0]["history"][k]),
+                           np.asarray(ba["history"][k]))
+            for r in runs["sharded"] + runs["batched"][:1]
+            for k in ("agg_round", "H_agg", "device_loss", "test_loss",
+                      "test_acc"))
+        want_ar = 2 * (T // tau)
+        times = {e: [round(r[0]["timing"]["train_s"], 4) for r in rs]
+                 for e, rs in runs.items()}
+        log(f"(u1) fog-scale flags on an NCCL world of one, in turns "
+            f"(batched, sharded, sharded, batched): train_s {times}; the "
+            f"second runs: --engine sharded {sh['timing']['train_s']:.4f} "
+            f"s, --engine batched {ba['timing']['train_s']:.4f} s; all four "
+            f"histories bitwise equal {same} (max |diff| device_loss, "
+            f"test_loss, test_acc {diff}); launches sharded {sh_l}, "
+            f"batched {ba_l}; all-reduces {sh_ar} (expected {want_ar}: one "
+            f"numerator and one H total a window), batched {ba_ar} "
+            f"[{card}]")
+        if not same or sh["engine"] != "sharded":
+            raise AssertionError("(u1) --engine sharded != --engine batched")
+        if any(r[1] != ba_l or r[2] != (want_ar if e == "sharded" else 0)
+               for e, rs in runs.items() for r in rs) \
+                or ba_l["segment_reduce"] != (T // tau) * (leaves + 1):
+            seen = [(e, r[1], r[2]) for e, rs in runs.items() for r in rs]
+            raise AssertionError(f"(u1) launches and all-reduces {seen}")
+        k = keep[1]
+        d, ids, G, h, lay = (k[x] for x in ("data", "ids", "G", "scale",
+                                            "layout"))
+        got = sr.segment_sum_rows(d, ids, G, scale=h, layout=lay).cpu()
+        plain = sr.segment_sum_rows_plain(d.cpu(), ids.cpu(), G,
+                                          scale=h.cpu())
+        if not _same_bits(np, got.numpy(), plain.numpy()):
+            raise AssertionError("(u1) the sharded row sum: kernel != plain "
+                                 "on the CPU")
+        flush = flush_buffer(torch, cuda)
+        site = _row_site(torch, sr, "eq. (4) sharded rows (n/ranks, P) -> 1,"
+                         " then the all-reduce", d, ids, G, h, lay,
+                         sh_l["segment_reduce"], flush)
+        site["max_abs_err"] = 0.0
+        n_num = sum(int(np.prod(shape)) for shape in mm.mlp_specs().values())
+        buf = torch.zeros(n_num, device=cuda)
+        site["all_reduce_ms"] = _time_ms(torch, lambda b: dist.all_reduce(b),
+                                         (buf,), flush)
+        site["all_reduces"] = sh_ar
+        log(f"(u1) kernel 2 at the sharded eq. (4) rows {site['shape']}: "
+            f"kernel {site['ms']} ms (bound {site['bound_ms']} ms by "
+            f"{site['bound_by']}), plain {site['plain_ms']} ms, index_add_ "
+            f"{site['library_ms']} ms; the all-reduce of the {n_num}-float "
+            f"numerator {site['all_reduce_ms']} ms on the card; bitwise the "
+            f"CPU's sequential row sum [{card}]")
+        del buf, flush
+        outs, ar, topt = _fedavg_rounds(torch, np, dist, cuda)
+        (p0, s0, l0), (p1, s1, l1) = outs
+        equal = bool(torch.equal(l0, l1)) and all(
+            torch.equal(a, b) for a, b in zip(
+                topt.tree_leaves(p0) + topt.tree_leaves(s0),
+                topt.tree_leaves(p1) + topt.tree_leaves(s1)))
+        log(f"(u2) FedAvg round ({FEDAVG_ARCH} smoke, tau {FEDAVG_TAU}, "
+            f"B={FEDAVG_B} x S={FEDAVG_S}, AdamW) on the NCCL world of one "
+            f"vs the one-card round with one shard: loss {float(l1)} / "
+            f"{float(l0)}, params, moments and loss bitwise equal {equal}, "
+            f"{ar} all-reduces [{card}]")
+        if not equal or ar != 2:
+            raise AssertionError(f"(u2) the group's round != the one-card "
+                                 f"round, or {ar} all-reduces (not the H "
+                                 f"total and one flat buffer)")
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return site
+
+
+def _encdec_useful_flops(R, cfg, B, S) -> float:
+    """2·params·tokens for an encoder-decoder prefill, with the encoder's
+    layers and the decoder's cross-attention K/V projections at the
+    B·encoder_seq frames they process and the rest at the B·S decoder
+    tokens (``roofline.analytic_roofline`` charges every parameter B·S
+    tokens, as the reference does)."""
+    pc = R._param_counts(cfg)
+    attn = pc["attn"] / (2 * cfg.num_layers + cfg.encoder_layers)
+    mlp = pc["mlp"] / (cfg.num_layers + cfg.encoder_layers)
+    at_frames = (cfg.encoder_layers * (attn + mlp) + cfg.num_layers * 2
+                 * cfg.d_model * cfg.num_kv_heads * cfg.head_dim)
+    _, active = R.params_total_active(cfg)
+    return 2.0 * (at_frames * B * cfg.encoder_seq
+                  + (active - at_frames) * B * S)
+
+
+def phase_u_roofline(np, card, state):
+    """(u3) the analytic roofline of six cells measured in (j), (s2)
+    and (t), one card, float32, beside their warm times."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import roofline as R
+
+    t = state["t"]
+    cells = [
+        ("(j) zamba2-7b prefill", get_config(SERVE_ARCH),
+         InputShape("j", PREFILL_S, PREFILL_B, "prefill"),
+         state["warm"]["j"]),
+        ("(s2) zamba2-7b 18-layer AdamW step",
+         get_config(SERVE_ARCH).with_overrides(num_layers=TRAIN_LAYERS),
+         InputShape("s2", TRAIN_S, state["s2"]["B"], "train"),
+         state["s2"]["step_s"]),
+        ("(t1) olmoe-1b-7b prefill", get_config(OLMOE),
+         InputShape("t1", OLMOE_S, OLMOE_B, "prefill"), t["t1"]["warm_s"]),
+        ("(t3) olmoe-1b-7b 6-layer AdamW step",
+         get_config(OLMOE).with_overrides(num_layers=MOE_TRAIN_LAYERS),
+         InputShape("t3", MOE_TRAIN_S, t["t3"]["B"], "train"),
+         t["t3"]["step_s"]),
+        ("(t4) whisper-large-v3 prefill", get_config(WHISPER),
+         InputShape("t4", get_config(WHISPER).max_positions, WHISPER_B,
+                    "prefill"), t["t4"]["warm_s"]),
+        ("(t5) phi-3-vision-4.2b prefill", get_config(PHI3V),
+         InputShape("t5", PHI3V_S, PHI3V_B, "prefill"), t["t5"]["warm_s"])]
+    rows = []
+    for name, cfg, shape, warm in cells:
+        r = R.analytic_roofline(cfg, shape, (1, 1))
+        note = ""
+        if cfg.family == "encdec":
+            note = (f" (the roofline's decoder-token formula "
+                    f"{r['flops_useful']:.6g} FLOP, mfu "
+                    f"{r['compute_useful_s'] / warm:.6g}, charges the "
+                    f"encoder {shape.seq_len} tokens, not its "
+                    f"{cfg.encoder_seq} frames)")
+            r = {**r, "flops_useful": _encdec_useful_flops(
+                     R, cfg, shape.global_batch, shape.seq_len)}
+            r["compute_useful_s"] = r["flops_useful"] / R.PEAK_FLOPS
+        row = {"cell": name, "warm_s": warm,
+               **{k: r[k] for k in ("flops_useful", "compute_useful_s",
+                                    "compute_s", "memory_s")},
+               "dominant": R.dominant_term(r),
+               "mfu": r["compute_useful_s"] / warm}
+        rows.append(row)
+        log(f"(u3) {name} B={shape.global_batch} x S={shape.seq_len}: "
+            f"useful {r['flops_useful']:.6g} FLOP{note}, compute_useful_s "
+            f"{r['compute_useful_s']:.6g}, compute_s {r['compute_s']:.6g}, "
+            f"memory_s {r['memory_s']:.6g}, dominant {row['dominant']}, "
+            f"warm {warm:.6g} s, mfu {row['mfu']:.6g} (at "
+            f"{R.PEAK_FLOPS:.3g} FLOP/s f32, {R.HBM_BW:.3g} B/s) [{card}]")
+        if not (0 < row["mfu"] < 1.5 and np.isfinite(row["mfu"])):
+            raise AssertionError(f"(u3) {name}: mfu {row['mfu']}")
+    return rows
+
+
+def phase_u_dryrun(card):
+    """(u4) the production dry run of one combo in a subprocess (a
+    process holds one default group): it must PASS."""
+    out = ROOT / "build" / "chip_smoke_dryrun.jsonl"
+    out.parent.mkdir(exist_ok=True)
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        *DRYRUN_ARGV, "--out", str(out)],
+                       capture_output=True, text=True, timeout=600,
+                       env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    wall = time.perf_counter() - t0
+    passed = [ln for ln in r.stdout.splitlines() if ln.startswith("PASS")]
+    if r.returncode != 0 or not passed:
+        raise AssertionError(f"(u4) dry run failed (exit {r.returncode}):"
+                             f"\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    row = json.loads(out.read_text().splitlines()[-1])
+    top = list(row["flops_by_op"].items())[:4]
+    log(f"(u4) {passed[0]}; torch {row['torch']}, dominant "
+        f"{row['dominant']}, trace_s "
+        f"{row['trace_s']}, flops_per_device {row['flops_per_device']}, "
+        f"by op (per device, logical) {json.dumps(top)}, "
+        f"bytes_per_device {row['bytes_per_device']}, collectives "
+        f"{json.dumps(row['collectives']['per_op'])}, useful_flops_ratio "
+        f"{row['useful_flops_ratio']}, subprocess wall {wall:.1f} s, device "
+        f"meta [{card}]")
+    return row
 
 
 def main() -> int:
@@ -4227,6 +4502,7 @@ def main() -> int:
 
     def j():
         state["j"] = phase_j_serve(torch, np, card, counters, ops, cuda)
+        state["warm"] = {"j": state["j"]["warm_s"]}
 
     def k_():
         phase_k_decode_check(torch, np, card, state["j"], ops, fa, sd)
@@ -4287,6 +4563,7 @@ def main() -> int:
     def s_():
         phase_s_grads(torch, fa, sd, cuda, card)
         train = phase_s_train(torch, np, card, counters, ops, fa, sd, cuda)
+        state["s2"] = train
         kernels.setdefault("flash_attention", {})["train_step_launches"] = \
             train["attention"]
         kernels.setdefault("ssd_scan", {})["train_step_launches"] = \
@@ -4294,8 +4571,14 @@ def main() -> int:
         phase_s_cli(torch, np, card, counters, ops)
 
     def t():
-        kernels["flash_attention"]["sites"] = phase_t_zoo(
+        kernels["flash_attention"]["sites"], state["t"] = phase_t_zoo(
             torch, np, card, counters, ops, fa, sd, cuda)
+
+    def u():
+        kernels["segment_reduce"].setdefault("sites", []).append(
+            phase_u_sharded(torch, np, card, counters, ops, sr, cuda))
+        phase_u_roofline(np, card, state)
+        phase_u_dryrun(card)
 
     def p():
         phase_p_fog(torch, np, card, counters, state["c_train_s"])
@@ -4316,7 +4599,7 @@ def main() -> int:
               ("m", lambda: phase_m_smoke_configs(torch, np, card, counters,
                                                   cuda)),
               ("n", n_), ("o", o), ("p", p), ("q", q), ("r", r),
-              ("s", s_), ("t", t)]
+              ("s", s_), ("t", t), ("u", u)]
     failed = []
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -28,7 +28,11 @@ loop over the flat (S·n_b) device stack, with dense or ragged staging,
 eq. (4) as one row-segment sum a leaf (kernel 2's row form on the
 card) and the whole (windows, S) grid of snapshots evaluated at once
 (:class:`AsyncEvaluator`); ``run_rounds_batched_single`` is its S = 1
-slice (``engine="batched"``).
+slice (``engine="batched"``). On a 1-D "data" ``DeviceMesh`` the sweep
+engine shards the fog-device axis across the ranks and eq. (4) becomes
+an all-reduce over the mesh's group; ``run_rounds_sharded`` is that
+S = 1 slice (``engine="sharded"``), and ``resolve_engine`` picks it for
+``"auto"`` when the default process group has more than one rank.
 
 All three take a :class:`repro_torch.core.faults.FaultSchedule`: crash
 outages join the activity, and every aggregation receives guarded
@@ -50,14 +54,27 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.data import pipeline as pl
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.distributed.collectives import (all_reduce_flat,
+                                                 all_reduce_sum)
 from repro_torch.kernels import ops
 from repro_torch.kernels import segment_reduce as sr
 from repro_torch.models import mnist as mm
 
 PRESTAGE_LIMIT_BYTES = 256 * 1024 ** 2
+
+
+def resolve_engine(engine: str) -> str:
+    """The one "auto" rule of every caller (CLI, sweeps): sharded when an
+    initialized default process group has more than one rank, scan
+    otherwise."""
+    if engine == "auto":
+        return ("sharded" if dist.is_initialized()
+                and dist.get_world_size() > 1 else "scan")
+    return engine
 
 
 def _stack(params: dict, n: int) -> dict:
@@ -910,12 +927,13 @@ def _staged_cache_put(key, args, meta) -> None:
 
 
 def _staged_fingerprint(processed_list, act_list, tau, bucket, staging,
-                        max_points, device, faults, x_tr, y_tr):
+                        max_points, device, faults, x_tr, y_tr, shard=None):
     """blake2b over everything the staged operands are a function of."""
     h = hashlib.blake2b(digest_size=16)
     mp = None if max_points is None else tuple(int(v) for v in max_points)
     h.update(repr((int(tau), bucket, staging, mp, str(device),
-                   _array_identity(x_tr), _array_identity(y_tr))).encode())
+                   _array_identity(x_tr), _array_identity(y_tr))
+                  + (() if shard is None else (shard,))).encode())
     for b, p in enumerate(processed_list):
         lens, ids = pl._cell_table(p)
         h.update(lens.tobytes())
@@ -932,9 +950,28 @@ def _staged_fingerprint(processed_list, act_list, tau, bucket, staging,
     return h.digest()
 
 
+def _rank_block(a, block, axis: int = 2):
+    """The rank's contiguous block ``[lo, hi)`` of the fog-device axis,
+    after padding that axis with zeros (phantom devices: no samples, no
+    activity) to ``n_pad``; ``a`` itself when ``block`` is None."""
+    if block is None:
+        return a
+    n_pad, lo, hi = block
+    a = _pad_axis(np.asarray(a), n_pad, axis)
+    return a[(slice(None),) * axis + (slice(lo, hi),)]
+
+
+def _pad_axis(a, size: int, axis: int):
+    if a.shape[axis] == size:
+        return a
+    pad = [(0, 0)] * a.ndim
+    pad[axis] = (0, size - a.shape[axis])
+    return np.pad(a, pad)
+
+
 def _stage_bucket_operands(processed_list, act_list, y_tr, tau, bucket,
                            staging, max_points, faults, x_dev, x_tr,
-                           device):
+                           device, shard=None):
     """The staged device operands of one bucket run, and the host
     metadata that slices the histories back out: round-major (T_b, ...)
     tensors with the scenarios inside (dense idx/yb/w (T_b, S, n_b,
@@ -943,7 +980,9 @@ def _stage_bucket_operands(processed_list, act_list, y_tr, tau, bucket,
     faults, the window-last (upload_ok, corrupt) views (windows, S,
     n_b), identity for phantom windows and devices. Pixels are gathered
     up front when that fits ``PRESTAGE_LIMIT_BYTES``, per round
-    otherwise."""
+    otherwise. ``shard`` = (ranks, rank) stages (dense only) the rank's
+    contiguous block of the device axis, padded with phantoms to a
+    multiple of ``ranks``."""
     S = len(processed_list)
     mp = list(max_points) if max_points is not None else None
     item_bytes = int(np.prod(x_tr.shape[1:], dtype=np.int64)) * 4
@@ -951,6 +990,7 @@ def _stage_bucket_operands(processed_list, act_list, y_tr, tau, bucket,
     def up(a, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
 
+    block = None
     if staging == "ragged":
         batch = pl.stage_scenario_ragged(processed_list, y_tr, act_list,
                                          tau, max_points=mp, bucket=bucket)
@@ -966,10 +1006,16 @@ def _stage_bucket_operands(processed_list, act_list, y_tr, tau, bucket,
         batch = pl.stage_scenario_batch(processed_list, y_tr, act_list,
                                         tau, max_points=mp, bucket=bucket)
         _, T_b, n_b, P_b = batch.dims
-        prestage = S * T_b * n_b * P_b * item_bytes <= PRESTAGE_LIMIT_BYTES
+        n_loc = n_b
+        if shard is not None:
+            ranks, rank = shard
+            n_loc = -(-n_b // ranks)
+            block = (n_loc * ranks, rank * n_loc, (rank + 1) * n_loc)
+        prestage = S * T_b * n_loc * P_b * item_bytes \
+            <= PRESTAGE_LIMIT_BYTES
 
-        def rounds_major(a):
-            return np.moveaxis(np.asarray(a), 0, 1)  # (T_b, S, n_b, ...)
+        def rounds_major(a):        # (T_b, S, n_b, ...), the rank's block
+            return _rank_block(np.moveaxis(np.asarray(a), 0, 1), block)
 
         idx, yb, wts = (rounds_major(a) for a in
                         (batch.idx, batch.yb, batch.w))
@@ -977,8 +1023,8 @@ def _stage_bucket_operands(processed_list, act_list, y_tr, tau, bucket,
         dims = (T_b, n_b, P_b)
     n_win = T_b // tau
     st = {"yb": up(yb, torch.int64), "w": up(wts),
-          "counts": up(np.moveaxis(batch.counts, 0, 1)),
-          "act": up(np.moveaxis(batch.act, 0, 1)),
+          "counts": up(_rank_block(np.moveaxis(batch.counts, 0, 1), block)),
+          "act": up(_rank_block(np.moveaxis(batch.act, 0, 1), block)),
           # aggregations land on window-last rounds by construction
           "agg": up(np.asarray(batch.is_agg, np.float32)
                     .reshape(S, n_win, tau)[..., -1].T),
@@ -989,8 +1035,9 @@ def _stage_bucket_operands(processed_list, act_list, y_tr, tau, bucket,
     else:
         st["idx"] = idx_dev
     if faults is not None:
-        upl_w = np.ones((S, n_win, n_b), np.float32)
-        cor_w = np.ones((S, n_win, n_b), np.float32)
+        n_all = n_b if block is None else block[0]
+        upl_w = np.ones((S, n_win, n_all), np.float32)
+        cor_w = np.ones((S, n_win, n_all), np.float32)
         for b, f in enumerate(faults):
             if f is None:
                 continue
@@ -998,10 +1045,11 @@ def _stage_bucket_operands(processed_list, act_list, y_tr, tau, bucket,
             sl = slice(tau - 1, f.T, tau)
             upl_w[b, :f.T // tau, :f.n] = upl_v[sl]
             cor_w[b, :f.T // tau, :f.n] = cor_v[sl]
-        st["upl"] = up(np.moveaxis(upl_w, 0, 1))
-        st["cor"] = up(np.moveaxis(cor_w, 0, 1))
+        st["upl"] = up(_rank_block(np.moveaxis(upl_w, 0, 1), block))
+        st["cor"] = up(_rank_block(np.moveaxis(cor_w, 0, 1), block))
     meta = {"T": list(batch.T), "n": list(batch.n),
             "is_agg": np.asarray(batch.is_agg), "T_b": T_b, "n_b": n_b,
+            "n_loc": n_b if block is None else block[2] - block[1],
             "n_win": n_win, "prestage": prestage, "dims": dims}
     return st, meta
 
@@ -1106,7 +1154,13 @@ class _BucketProgram:
     syncs and updates ``waiting``. Under faults the uploads are guarded
     and the quorum decision and the H reset move to the prologue too,
     so a window that fails its quorum keeps H accumulating. One card
-    gains no overlap from this: the order is kept for the bits."""
+    gains no overlap from this: the order is kept for the bits.
+
+    With a process ``group`` (the sharded engine), the stack holds this
+    rank's contiguous block of each scenario's devices, and eq. (4)'s
+    sums are completed across the ranks: one all-reduce of every leaf's
+    numerator (one flat buffer) and one of the H totals a window, plus
+    one of the survivor and expected counts under faults."""
 
     def __init__(self, apply_fn, eta, prestage, faults, guard, quorum,
                  staging):
@@ -1118,21 +1172,27 @@ class _BucketProgram:
         self.vrow = torch.func.vmap(_row_loss_fn(apply_fn))
         self.shapes: set = set()
 
-    def agg_sums(self, W, H, contributing, scen):
+    def agg_sums(self, W, H, contributing, scen, group=None):
         """Eq. (4)'s numerator and denominator per scenario: Σ H_i·c_i·
         w_i and Σ H_i·c_i over each scenario's n_b devices, in ascending
         device order from zero, one product and one add an entry, so a
         scenario's bits are the same alone and in a bucket (phantom
         devices add +0). ``scen`` is (ids, layout) of the rows'
-        scenarios."""
+        scenarios. With a ``group``, each rank sums its own devices and
+        the partial sums are all-reduced (a copy on one rank)."""
         ids, lay = scen
         S = H.shape[0]
         hc = (H * contributing).reshape(-1)
         num = {k: ops.segment_sum_rows(
                    p.reshape(p.shape[0], -1), ids, num_segments=S,
-                   scale=hc, layout=lay).reshape((S,) + p.shape[1:])
+                   scale=hc, layout=lay)
                for k, p in W.items()}
-        return num, ops.segment_sum(hc, ids, num_segments=S, layout=lay)
+        tot = ops.segment_sum(hc, ids, num_segments=S, layout=lay)
+        if group is not None:
+            num = dict(zip(num, all_reduce_flat(list(num.values()), group)))
+            tot = all_reduce_sum(tot, group)
+        return {k: v.reshape((S,) + W[k].shape[1:])
+                for k, v in num.items()}, tot
 
     @staticmethod
     def finalize(p_num, p_tot, p_flag, wg):
@@ -1164,7 +1224,7 @@ class _BucketProgram:
             new[k] = p - _bcast(self.eta * scale, p) * g
         return new, lsum / denom
 
-    def __call__(self, W, wg, x_dev, st, tau: int):
+    def __call__(self, W, wg, x_dev, st, tau: int, group=None):
         T_b, S, n = st["counts"].shape
         M, n_win = S * n, T_b // tau
         dev = x_dev.device
@@ -1236,12 +1296,15 @@ class _BucketProgram:
                     W, act_eff[-1].reshape(M), st["upl"][win].reshape(M),
                     st["cor"][win].reshape(M), self.guard)
                 contrib = contrib.reshape(S, n)
-                num, tot = self.agg_sums(Wu, H, contrib, scen)
+                num, tot = self.agg_sums(Wu, H, contrib, scen, group)
                 fo["surv"][win], fo["expd"][win] = p_surv, p_expd
                 fo["qok"][win] = qok_f
-                p_surv, p_expd = contrib.sum(1), act_eff[-1].sum(1)
+                counts = torch.stack([contrib.sum(1), act_eff[-1].sum(1)])
+                if group is not None:
+                    all_reduce_sum(counts, group)
+                p_surv, p_expd = counts
             else:
-                num, tot = self.agg_sums(W, H, act_eff[-1], scen)
+                num, tot = self.agg_sums(W, H, act_eff[-1], scen, group)
                 H = torch.where(agg[:, None] > 0, torch.zeros_like(H), H)
             p_num, p_tot, p_act, p_flag = num, tot, a[-1], agg
         # window w's snapshot is the global BEFORE its aggregation
@@ -1259,10 +1322,37 @@ class _BucketProgram:
 
 
 def _check_mesh(mesh) -> None:
-    if mesh not in ("auto", None):
-        raise ValueError(
-            "the port runs the sweep engine on one card: mesh must be "
-            "'auto' or None (ROADMAP.md, queue 1 item 12: multi-GPU)")
+    """"auto", None, or a 1-D "data" ``DeviceMesh``."""
+    if mesh in ("auto", None):
+        return
+    if tuple(getattr(mesh, "mesh_dim_names", None) or ()) != ("data",):
+        raise ValueError(f"mesh must be 'auto', None or a 1-D 'data' "
+                         f"DeviceMesh (launch/mesh.make_data_mesh); got "
+                         f"{mesh!r}")
+
+
+def _resolve_mesh(mesh, processed_list, bucket, device):
+    """``mesh="auto"``: a data mesh (``launch/mesh.data_mesh_for`` the
+    bucket's device count) when the default group has more than one
+    rank, else None (one card)."""
+    if mesh != "auto":
+        return mesh
+    if not (dist.is_initialized() and dist.get_world_size() > 1):
+        return None
+    from repro_torch.launch.mesh import data_mesh_for
+
+    n_max = max(p.n if isinstance(p, pl.FlatStreams) else len(p[0])
+                for p in processed_list)
+    return data_mesh_for(pl.bucket_size(
+        n_max, bucket, max_inflation=pl.BUCKET_MAX_INFLATION), device)
+
+
+def _gather_devices(t, mesh):
+    """The ranks' (..., n_loc) blocks of ``t`` joined along the last
+    axis, in rank order, on every rank of ``mesh``."""
+    parts = [torch.empty_like(t) for _ in range(mesh.size())]
+    dist.all_gather(parts, t.contiguous(), group=mesh.get_group("data"))
+    return torch.cat(parts, dim=-1)
 
 
 def run_rounds_batched(apply_fn, params_list, x_tr, y_tr, x_te, y_te,
@@ -1298,14 +1388,33 @@ def run_rounds_batched(apply_fn, params_list, x_tr, y_tr, x_te, y_te,
     window-last (upload_ok, corrupt) views ride the windows, under the
     shared ``guard`` and ``quorum`` (see :func:`run_rounds_scan`).
 
-    ``mesh``: "auto" and None both mean one card; anything else raises
-    (multi-GPU is ROADMAP.md queue 1 item 12)."""
+    ``mesh``: None is one card; a 1-D "data" ``DeviceMesh`` (dense
+    staging only) shards the device axis: the bucket's n_b devices are
+    padded with phantoms (no data, never active, H = 0) to a multiple of
+    the mesh's extent, each rank trains its contiguous block, eq. (4)'s
+    sums are all-reduced over the mesh's group, and the losses and H
+    are gathered back, so every rank returns the whole histories. On
+    one rank the run is bitwise the run with ``mesh=None``; on several
+    the cross-rank sums reassociate eq. (4). Ranks of the default group
+    outside a narrower mesh receive the histories from rank 0.
+    ``"auto"`` is a mesh when the default group has more than one rank
+    (:func:`_resolve_mesh`), else None."""
     t_stage0 = time.perf_counter()
     device = resolve_device(device)
     if staging not in ("dense", "ragged"):
         raise ValueError(f"staging must be 'dense' or 'ragged'; "
                          f"got {staging!r}")
     _check_mesh(mesh)
+    mesh = _resolve_mesh(mesh, processed_list, bucket, device)
+    shard = group = None
+    if mesh is not None:
+        if staging == "ragged":
+            raise ValueError("ragged staging runs on one card only; pass "
+                             "mesh=None (or staging='dense')")
+        if mesh.get_coordinate() is None:
+            return _share_hists(None, mesh)
+        shard = (mesh.size(), mesh.get_local_rank())
+        group = mesh.get_group("data")
     S = len(processed_list)
     use_faults = faults is not None and any(f is not None for f in faults)
     if use_faults:
@@ -1324,7 +1433,7 @@ def run_rounds_batched(apply_fn, params_list, x_tr, y_tr, x_te, y_te,
     x_dev = _to_device_cached(x_tr, device)
     cache_key = _staged_fingerprint(
         processed_list, act_list, tau, bucket, staging, max_points,
-        device, faults if use_faults else None, x_tr, y_tr)
+        device, faults if use_faults else None, x_tr, y_tr, shard)
     hit = _STAGED_CACHE.get(cache_key)
     if hit is not None:
         _STAGED_CACHE.move_to_end(cache_key)
@@ -1335,9 +1444,9 @@ def run_rounds_batched(apply_fn, params_list, x_tr, y_tr, x_te, y_te,
         st, meta = _stage_bucket_operands(
             processed_list, act_list, y_tr, tau, bucket, staging,
             max_points, faults if use_faults else None, x_dev, x_tr,
-            device)
+            device, shard)
         _staged_cache_put(cache_key, st, meta)
-    n_b = meta["n_b"]
+    n_b = meta["n_loc"]
     keys = list(params_list[0])
 
     def leaf(p, k):
@@ -1352,7 +1461,10 @@ def run_rounds_batched(apply_fn, params_list, x_tr, y_tr, x_te, y_te,
                            guard_f, quorum_f, staging)
     prog.shapes.add((S,) + meta["dims"])
     with torch.no_grad():
-        losses, H_w, wg_win, fo = prog(W0, wg0, x_dev, st, tau)
+        losses, H_w, wg_win, fo = prog(W0, wg0, x_dev, st, tau, group)
+        if mesh is not None:
+            losses = _gather_devices(losses, mesh)
+            H_w = _gather_devices(H_w, mesh)
     synchronize(device)
     t_eval0 = time.perf_counter()
     _PHASE["program_s"] += t_eval0 - t_train0
@@ -1380,7 +1492,18 @@ def run_rounds_batched(apply_fn, params_list, x_tr, y_tr, x_te, y_te,
             h["agg_quorum_ok"] = [bool(v > 0) for v in fo["qok"][wins, b]]
         hists.append(h)
     _PHASE["train_s"] += time.perf_counter() - t_train0
-    return hists
+    return hists if mesh is None else _share_hists(hists, mesh)
+
+
+def _share_hists(hists, mesh):
+    """The histories on every rank of the default group: a mesh as wide
+    as the world has them everywhere; otherwise rank 0 (a member)
+    broadcasts them to the ranks outside the mesh."""
+    if mesh.size() == dist.get_world_size():
+        return hists
+    box = [hists]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def run_rounds_batched_single(apply_fn, params, x_tr, y_tr, x_te, y_te,
@@ -1396,3 +1519,29 @@ def run_rounds_batched_single(apply_fn, params, x_tr, y_tr, x_te, y_te,
         [act_all], tau, eta, [max_pts], bucket="exact", mesh=mesh,
         staging=staging, faults=None if faults is None else [faults],
         guard=guard, quorum=quorum, device=device)[0]
+
+
+def run_rounds_sharded(apply_fn, params, x_tr, y_tr, x_te, y_te,
+                       processed, act_all, tau: int, eta: float,
+                       max_pts: int, *, mesh=None, faults=None,
+                       guard: bool = True, quorum: float = 0.0,
+                       device=None) -> dict:
+    """Device-sharded training (``engine="sharded"``): the S = 1 slice of
+    :func:`run_rounds_batched` over a 1-D "data" ``DeviceMesh`` (default:
+    ``launch/mesh.make_data_mesh`` over the default group's world, made
+    by ``launch/mesh.init_process_group`` when there is none). The n fog
+    devices are padded with phantoms to a multiple of the mesh's extent
+    and split into contiguous blocks, one a rank; eq. (4) is kernel 2's
+    row sum over the rank's devices followed by an all-reduce of the
+    numerator and of the H total. At world size 1 the history is
+    bitwise :func:`run_rounds_batched_single`'s; on more ranks it
+    matches :func:`run_rounds_scan` up to the reassociated sums."""
+    if mesh is None:
+        from repro_torch.launch.mesh import make_data_mesh
+
+        mesh = make_data_mesh(device=device)
+    return run_rounds_batched(
+        apply_fn, [params], x_tr, y_tr, x_te, y_te, [processed],
+        [act_all], tau, eta, [max_pts], bucket="exact", mesh=mesh,
+        faults=None if faults is None else [faults], guard=guard,
+        quorum=quorum, device=device)[0]

@@ -4,8 +4,11 @@
 routing, pad sizing) and hands the staged rounds to the training engine
 in :mod:`repro_torch.core.engine`: ``"scan"`` (the whole horizon on the
 device, default), ``"legacy"`` (the per-round oracle), ``"batched"``
-(the sweep engine with one scenario) or ``"auto"`` (scan: the port runs
-on one card). With ``hierarchy=`` a
+(the sweep engine with one scenario), ``"sharded"`` (that slice with
+the fog devices split across the ranks of a data mesh, eq. (4) an
+all-reduce) or ``"auto"`` (``engine.resolve_engine``: sharded when the
+default process group has more than one rank, scan otherwise). With
+``hierarchy=`` a
 :class:`repro_torch.core.hierarchy.TierTree` composes eq. (4) up its
 tiers (``"hierarchical"``, on the scan substrate).
 ``run_network_aware_batched`` trains a whole bucket of sweep points at
@@ -45,12 +48,6 @@ class FedConfig:
     max_points: int = 0          # pad size; 0 -> auto from streams
     p_exit: float = 0.0
     p_entry: float = 0.0
-
-
-# the reference's engine not ported yet, with its ROADMAP.md item: the
-# sweep engine ("batched") runs on one card; its sharded slice waits
-# for multi-GPU
-_UNPORTED_ENGINES = {"sharded": "queue 1 item 12 (multi-GPU)"}
 
 
 def run_network_aware(cfg: FedConfig, data, traces: CostTraces,
@@ -105,8 +102,10 @@ def run_network_aware(cfg: FedConfig, data, traces: CostTraces,
 
     ``engine="batched"`` runs the sweep engine with S = 1
     (:func:`repro_torch.core.engine.run_rounds_batched_single`: exact
-    pad sizes, eq. (4) as a sequential sum); ``mesh`` is passed to it
-    (None or "auto": one card). ``prepared`` — the
+    pad sizes, eq. (4) as a sequential sum) and ``engine="sharded"``
+    its slice over a data mesh; ``mesh`` is passed to either (None or
+    "auto": one card for "batched", ``launch/mesh.make_data_mesh`` for
+    "sharded"). ``prepared`` — the
     ``(streams, processed, act_all, max_pts)`` of an earlier
     :func:`_prepare_streams` call, so a sweep that prepared the
     streams to price a bucket does not prepare them twice.
@@ -127,16 +126,15 @@ def run_network_aware(cfg: FedConfig, data, traces: CostTraces,
     elif engine == "hierarchical":
         raise ValueError("engine='hierarchical' needs a hierarchy= "
                          "TierTree")
-    if engine == "auto":
-        engine = "scan"
-    if engine in _UNPORTED_ENGINES:
-        raise ValueError(f"engine={engine!r} is not ported yet (ROADMAP.md,"
-                         f" {_UNPORTED_ENGINES[engine]})")
+    engine = eng.resolve_engine(engine)
     runners = {"scan": eng.run_rounds_scan, "legacy": eng.run_rounds_legacy,
                "hierarchical": functools.partial(
                    eng.run_rounds_hierarchical, tree=hierarchy),
                "batched": functools.partial(
-                   eng.run_rounds_batched_single, mesh=mesh)}
+                   eng.run_rounds_batched_single, mesh=mesh),
+               "sharded": functools.partial(
+                   eng.run_rounds_sharded,
+                   mesh=None if mesh == "auto" else mesh)}
     if engine not in runners:
         raise ValueError(f"unknown engine {engine!r}; expected one of "
                          f"{sorted(runners)} or 'auto'")
@@ -217,7 +215,10 @@ def run_network_aware_batched(cfgs: list[FedConfig], data,
     that priced the bucket hands them down. ``faults`` — per-point
     FaultSchedules or None, under the shared ``guard`` and ``quorum``.
     ``params`` — optional per-point initial parameters (as in
-    :func:`run_network_aware`). ``mesh``: "auto" or None (one card).
+    :func:`run_network_aware`). ``mesh``: None (one card), a 1-D
+    "data" ``DeviceMesh`` (the device axis sharded across its ranks), or
+    "auto": a data mesh when the default process group has more than
+    one rank, else one card.
     ``device`` defaults to ``cuda``. Returns one history per point, the
     contract of :func:`run_network_aware`."""
     device = resolve_device(device)

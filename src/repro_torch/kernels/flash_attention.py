@@ -37,7 +37,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import PLAIN_DEVICES, _build
 from repro_torch.kernels._grad import recompute_grads
 
 launches = 0
@@ -131,7 +131,7 @@ def flash_attention(q, k, v, kv_map=None, *, causal=True, window=None):
     copied to the card at every call, or already on q's card, where the
     caller guarantees them in [0, KH) (a check there would wait for the
     card). The kernel on CUDA tensors (one launch), the plain version on
-    CPU tensors. Differentiable in q, k and v (the backward recomputes
+    CPU and meta tensors. Differentiable in q, k and v (the backward recomputes
     the plain version)."""
     if kv_map is None:
         H, KH = q.shape[1], k.shape[1]
@@ -142,11 +142,13 @@ def flash_attention(q, k, v, kv_map=None, *, causal=True, window=None):
     kv_map = torch.as_tensor(kv_map)
     if kv_map.dtype.is_floating_point or kv_map.dtype == torch.bool:
         raise TypeError(f"kv_map must hold integers; got {kv_map.dtype}")
-    on_card = kv_map.device == q.device and q.device.type == "cuda"
-    kv_map = (kv_map if on_card else kv_map.cpu()).to(torch.int32)
-    _check(q, k, v, kv_map, window, check_entries=not on_card)
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in PLAIN_DEVICES + ("cuda",):
         raise ValueError(f"no kernel for device {q.device}")
+    # a map already on q's card (or beside q on the meta device, where
+    # no entry can be read) is trusted
+    trusted = kv_map.device == q.device and q.device.type != "cpu"
+    kv_map = (kv_map if trusted else kv_map.cpu()).to(torch.int32)
+    _check(q, k, v, kv_map, window, check_entries=not trusted)
     return _FlashAttention.apply(q, k, v, kv_map.to(q.device), causal,
                                  window)
 
@@ -154,7 +156,7 @@ def flash_attention(q, k, v, kv_map=None, *, causal=True, window=None):
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(q, k, v, kv_map, causal, window):
-        if q.device.type == "cpu":
+        if q.device.type in PLAIN_DEVICES:
             return flash_attention_plain(q, k, v, kv_map, causal=causal,
                                          window=window)
         return _launch(q, k, v, kv_map, causal, window)

@@ -1,16 +1,25 @@
 """Public wrappers over the kernels (the port of :mod:`repro.kernels.ops`).
 
 The device of the tensors picks the path: CUDA tensors launch the
-hand-written kernel, CPU tensors run its plain PyTorch version. There
-is no ``use_pallas`` switch and no fallback from one to the other.
+hand-written kernel, CPU and meta tensors run its plain PyTorch
+version. There is no ``use_pallas`` switch and no fallback from one to
+the other.
+
+On DTensors (the dry run, ``launch/dryrun.py``) ``attention`` and
+``ssd`` run on each rank's own batch rows and heads
+(``sharding.on_local_shards``), the tensor-parallel layout: their plain
+versions flatten (batch, heads) into one batch of products, which
+DTensor refuses while both are sharded (torch 2.11).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed.sharding import on_local_shards
 from repro_torch.kernels import segment_reduce as sr
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import default_kv_map, flash_attention
 from repro_torch.kernels.offload_greedy import offload_greedy_batched
 from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -95,14 +104,28 @@ def attention(q, k, v, *, causal=True, window=None, kv_map=None):
     q's type. ``kv_map``
     (H,) int32 maps q heads to K/V heads; ``None`` gives ``h // (H //
     KH)``, the Pallas kernel's map."""
-    return flash_attention(q, k, v, kv_map, causal=causal, window=window)
+    if not isinstance(q, DTensor):
+        return flash_attention(q, k, v, kv_map, causal=causal, window=window)
+    if kv_map is None:
+        kv_map = default_kv_map(q.shape[1], k.shape[1])
+
+    def local(ql, kl, vl, off):
+        # the rank's q heads [off, off + Hl) read their own K/V heads
+        km = torch.as_tensor(kv_map)[off[1]:off[1] + ql.shape[1]]
+        return flash_attention(ql, kl, vl, km, causal=causal, window=window)
+
+    return on_local_shards(local, q, (k, v))
 
 
 def ssd(xdt, a, Bm, Cm, *, chunk=128):
     """Mamba2 SSD chunked scan in the reference kernel's layout: xdt
     (B,H,S,P), Bm/Cm (B,S,N) float32 or bfloat16, a (B,H,S) float32 ->
     y (B,H,S,P) float32."""
-    return ssd_scan(xdt, a, Bm, Cm, chunk=chunk)
+    if not isinstance(xdt, DTensor):
+        return ssd_scan(xdt, a, Bm, Cm, chunk=chunk)
+    return on_local_shards(
+        lambda xl, al, bl, cl, off: ssd_scan(xl, al, bl, cl, chunk=chunk),
+        xdt, (Bm, Cm), heads_too=(a,))
 
 
 def topk_neighbors(c_link, c_next, adj, *, k=2):

@@ -45,7 +45,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import PLAIN_DEVICES, _build
 from repro_torch.kernels._grad import recompute_grads
 
 launches = 0
@@ -135,14 +135,14 @@ def _check(xdt, a, Bm, Cm):
 def ssd_scan(xdt, a, Bm, Cm, *, chunk: int = 128):
     """xdt (B,H,S,P), Bm/Cm (B,S,N) float32 or bfloat16, a (B,H,S)
     float32 -> y (B,H,S,P) float32. The kernels on CUDA tensors (four
-    CUDA kernels, counted as one launch), the plain version on CPU
-    tensors. Differentiable in all four inputs (the backward recomputes
+    CUDA kernels, counted as one launch), the plain version on CPU and
+    meta tensors. Differentiable in all four inputs (the backward recomputes
     the plain version)."""
     _check(xdt, a, Bm, Cm)
     if xdt.shape[2] == 0:
         return torch.zeros(xdt.shape, dtype=torch.float32,
                            device=xdt.device)
-    if xdt.device.type not in ("cpu", "cuda"):
+    if xdt.device.type not in PLAIN_DEVICES + ("cuda",):
         raise ValueError(f"no kernel for device {xdt.device}")
     return _SSDScan.apply(xdt, a, Bm, Cm, _chunk(xdt.shape[2], chunk))
 
@@ -150,7 +150,7 @@ def ssd_scan(xdt, a, Bm, Cm, *, chunk: int = 128):
 class _SSDScan(torch.autograd.Function):
     @staticmethod
     def forward(xdt, a, Bm, Cm, chunk):
-        if xdt.device.type == "cpu":
+        if xdt.device.type in PLAIN_DEVICES:
             return ssd_scan_plain(xdt, a, Bm, Cm, chunk=chunk)
         return _launch(xdt, a, Bm, Cm, chunk)
 

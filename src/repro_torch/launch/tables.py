@@ -86,6 +86,7 @@ from repro_torch.data import pipeline as pl
 from repro_torch.data.synthetic import make_image_dataset
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import segment_reduce as sr
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.train import solve_setting
 from repro_torch.models import mnist as mm
 
@@ -420,8 +421,10 @@ def run_scenarios(scenarios: list[Scenario], scale: BenchScale, *,
     (``engine="batched"`` with ``batch=False``: one by one through the
     sweep engine). ``staging``: None (dispatch chooses; forced batched
     is dense), "auto", "dense" or "ragged". Hierarchical points always
-    train one by one on the scan substrate. ``mesh``: "auto" or None
-    (one card).
+    train one by one on the scan substrate. ``engine="auto"`` points
+    train on ``engine.resolve_engine("auto")``. ``mesh``: "auto" (a data
+    mesh when the default process group has more than one rank, else
+    one card), None (one card) or a 1-D "data" ``DeviceMesh``.
 
     Rows: the point's key, setting, cost and engine, the dispatch where
     there was one, and trained, accuracy, curves, label similarity and
@@ -435,7 +438,7 @@ def run_scenarios(scenarios: list[Scenario], scale: BenchScale, *,
     if batch is None:
         batch = engine in ("auto", "batched") and len(scenarios) > 1
     force_batched = engine == "batched" or (batch and engine != "auto")
-    point_engine = "scan" if engine == "auto" else engine
+    point_engine = eng.resolve_engine(engine)
     engines = [("batched" if batch else point_engine)] * len(scenarios)
     hists: list = [None] * len(scenarios)
     dispatches: list = [None] * len(scenarios)
@@ -494,9 +497,12 @@ def run_scenarios(scenarios: list[Scenario], scale: BenchScale, *,
                 for b, hist in zip(idxs, outs):
                     hists[b], engines[b] = hist, "batched"
             else:
+                loop_engine = eng.resolve_engine("auto")
                 for i, b in enumerate(idxs):
-                    hists[b] = one(b, engine="scan", prepared=prepared[i])
-                    engines[b] = "scan"
+                    hists[b] = one(b, engine=loop_engine,
+                                   prepared=prepared[i],
+                                   mesh=None if mesh == "auto" else mesh)
+                    engines[b] = loop_engine
             synchronize(device)
             ran = ("loop" if decision.path == "loop"
                    else f"batched-{decision.staging}")
@@ -1514,7 +1520,8 @@ def hier_scale(scale: BenchScale, device=None, *,
         "tiers": {"group_counts": list(tree.group_counts),
                   "taus": list(tree.taus),
                   "widest_bucket": tree.widest_bucket,
-                  "mesh_axes": {"data": 1}},
+                  "mesh_axes": mesh_lib.tier_mesh_axes(
+                      tree, mesh_lib.world_size())},
         "traffic": traffic,
         "peaks_bytes": peaks,
         "device_peak_bytes": {"train_hier": peak_h, "train_flat": peak_f},

@@ -20,7 +20,15 @@ boundary and ``--resume PATH`` continues such a snapshot bit for bit.
 ``--engine batched`` trains through the sweep engine with one scenario
 (exact pad sizes; eq. (4) as a sequential sum, through the
 segment-reduce kernel's row form on the card); ``--engine sharded``
-waits for multi-GPU.
+splits the fog devices across the ranks of the default process group
+(a world of one without ``torchrun``), eq. (4) an all-reduce:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --mode fog \
+        --device cpu --engine sharded --model mlp --n 5
+
+``--engine auto`` is sharded under a launcher's world of more than one
+rank and scan otherwise. Every rank runs the whole command; rank 0
+prints the summary.
 
 ``--mode lm`` trains a model of the zoo (any registry arch) on
 synthetic tokens, the batches routed and weighted by a
@@ -32,7 +40,10 @@ with ``--lm-tau`` > 1, FedAvg rounds of τ local steps:
 
 As in the reference, ``--smoke`` is on whatever the command line says
 (the smoke config of ``--arch``, ``--layers`` overriding its depth), and
-the shard count is ``min(--data-shards, cards)``.
+the shard count is ``min(--data-shards, cards)``. Under ``torchrun`` the
+cards are the world's ranks, and a FedAvg round whose shard count is the
+world size runs shard r on rank r, eq. (4) an all-reduce over the data
+mesh's group.
 
 The flags and defaults are those of ``python -m repro.launch.train``,
 plus ``--device`` (``cuda`` by default; ``cpu`` runs the same path on
@@ -43,15 +54,18 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.registry import get_config
 from repro_torch.core import estimator as est
 from repro_torch.core import faults as fl
 from repro_torch.core import federated as F
+from repro_torch.core.engine import resolve_engine
 from repro_torch.core import movement as mv
 from repro_torch.core.costs import (ici_costs, synthetic_costs,
                                     testbed_like_costs, with_capacity)
@@ -60,6 +74,7 @@ from repro_torch.core.topology import make_schedule, make_topology
 from repro_torch.data import pipeline as pl
 from repro_torch.data.synthetic import make_image_dataset, make_token_dataset
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps as St
 from repro_torch.models import transformer as T
 from repro_torch.models.module import init_params
@@ -105,13 +120,25 @@ def solve_setting(setting: str, traces, adj, D, error_model="discard",
 def _check_ported(args) -> None:
     if args.mode == "lm":             # as in the reference, lm mode reads
         return                        # none of the fog flags
-    checks = [
-        (args.engine == "sharded", "--engine sharded", 12, "multi-GPU"),
-        (args.sanitize, "--sanitize", 13, "tooling"),
-    ]
-    for bad, what, item, title in checks:
-        if bad:
-            raise _unported(what, item, title)
+    if args.sanitize:
+        raise _unported("--sanitize", 13, "tooling")
+
+
+def _print_summary(out: dict, **kw) -> None:
+    """The summary JSON, from rank 0 of the default group only."""
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(json.dumps(out, **kw))
+
+
+def fog_engine(args) -> str:
+    """``--engine`` through ``resolve_engine``, with the reference's
+    exceptions to "auto": checkpointing and tiers run on the scan
+    engine."""
+    engine = resolve_engine(args.engine)
+    if args.engine == "auto" and (args.checkpoint or args.resume
+                                  or args.tiers):
+        engine = "scan"
+    return engine
 
 
 def schedule_kind(args) -> tuple[str, float, float]:
@@ -244,7 +271,7 @@ def run_fog(args) -> dict:
     timing: dict = {}
     plan, replan = make_plan(args, pb, device, timing, faults)
     t1 = time.perf_counter()
-    engine = "scan" if args.engine == "auto" else args.engine
+    engine = fog_engine(args)
     hist = F.run_network_aware(cfg, pb["data"], traces, pb["adj"], plan,
                                streams=pb["streams"], schedule=schedule,
                                engine=engine, hierarchy=hierarchy,
@@ -266,7 +293,7 @@ def run_fog(args) -> dict:
         out["fault_summary"] = hist["fault_summary"]
         out["quorum_skips"] = int(sum(
             not ok for ok in hist.get("agg_quorum_ok", [])))
-    print(json.dumps(out, default=float, indent=2))
+    _print_summary(out, default=float, indent=2)
     return {**out, "plan": plan, "history": hist}
 
 
@@ -336,7 +363,9 @@ def run_lm(args) -> dict:
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.layers:
         cfg = cfg.with_overrides(num_layers=args.layers)
-    shards = min(args.data_shards, torch.cuda.device_count() or 1)
+    world = mesh_lib.world_size()
+    shards = min(args.data_shards,
+                 world if world > 1 else torch.cuda.device_count() or 1)
     rng = np.random.default_rng(args.seed)
     toks = make_token_dataset(args.steps * args.batch * (args.seq + 1) + 1,
                               cfg.vocab_size, seed=args.seed)
@@ -356,7 +385,16 @@ def run_lm(args) -> dict:
         # FedAvg with tau local steps a round (paper eqs. (3)-(4))
         from repro_torch.distributed.fedavg import make_fedavg_round
 
-        rnd = make_fedavg_round(cfg, opt, args.lm_tau, n_shards=shards)
+        group = None
+        if world > 1 and shards > 1:
+            if shards != world:
+                raise SystemExit(f"--data-shards {args.data_shards} gives "
+                                 f"{shards} shards on a world of {world} "
+                                 "ranks; under torchrun the shard count "
+                                 "is 1 or the world size")
+            group = mesh_lib.make_data_mesh(device=device).get_group("data")
+        rnd = make_fedavg_round(cfg, opt, args.lm_tau, n_shards=shards,
+                                group=group)
         for r in range(args.steps // args.lm_tau):
             bs = [St.route_batch(batch_at(r * args.lm_tau + i))
                   for i in range(args.lm_tau)]
@@ -379,7 +417,7 @@ def run_lm(args) -> dict:
            "steps_per_s": args.steps / dt,
            "moved_frac": float((plan.s * (1 - np.eye(shards))).sum()
                                / plan.s.shape[0] / shards)}
-    print(json.dumps(out, indent=2))
+    _print_summary(out, indent=2)
     return {**out, "losses": losses, "device": str(device)}
 
 
@@ -462,8 +500,19 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None):
+    """Parse and run. Under a launcher's world of more than one rank the
+    process group is made first, so that ``--engine auto`` sees it; a
+    group the run made (that one, or the sharded engine's world of one)
+    is destroyed at the end."""
     args = parse_args(argv)
-    return run_fog(args) if args.mode == "fog" else run_lm(args)
+    owned = not dist.is_initialized()
+    try:
+        if int(os.environ.get("WORLD_SIZE", 1)) > 1:
+            mesh_lib.init_process_group(args.device)
+        return run_fog(args) if args.mode == "fog" else run_lm(args)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

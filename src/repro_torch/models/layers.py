@@ -23,6 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import gather_dims, pin
 from repro_torch.kernels import ops
 from repro_torch.models.module import Spec
 
@@ -136,9 +137,11 @@ def _project_qkv(x, p, cfg, kv_input=None):
     q, k, v = x @ p["wq"], kv_in @ p["wk"], kv_in @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, cfg.num_heads_padded, hd)
-    k = k.reshape(B, kv_in.shape[1], cfg.num_kv_heads, hd)
-    v = v.reshape(B, kv_in.shape[1], cfg.num_kv_heads, hd)
+    # pinned: on DTensors the gradients come back in the placements the
+    # views left, which the merge of (heads, hd) needs
+    q = pin(q.reshape(B, S, cfg.num_heads_padded, hd))
+    k = pin(k.reshape(B, kv_in.shape[1], cfg.num_kv_heads, hd))
+    v = pin(v.reshape(B, kv_in.shape[1], cfg.num_kv_heads, hd))
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
@@ -224,7 +227,7 @@ def decode_attention(x, p, cfg, cache, pos: int, *, window=None):
     v[:, :, slot] = v_new[:, 0]
     slot_pos[slot] = pos
 
-    qg = q.reshape(B, KH, H // KH, hd)
+    qg = gather_dims(q, (1, 2)).reshape(B, KH, H // KH, hd)
     s = upcast(torch.einsum("bgrh,bgsh->bgrs", qg, k)) / math.sqrt(hd)
     valid = slot_pos >= 0
     if window is not None:
@@ -232,7 +235,7 @@ def decode_attention(x, p, cfg, cache, pos: int, *, window=None):
     valid |= slot_pos == pos           # the current token is always visible
     s = s.masked_fill(~valid, float("-inf"))
     pr = torch.softmax(s, dim=-1).to(x.dtype)
-    og = torch.einsum("bgrs,bgsh->bgrh", pr, v)
+    og = gather_dims(torch.einsum("bgrs,bgsh->bgrh", pr, v), (1, 2, 3))
     out = og.reshape(B, 1, H * hd) @ p["wo"][:H * hd]
     return out, cache
 
@@ -324,11 +327,17 @@ def embed_specs(cfg) -> dict:
 
 
 def embed_tokens(tokens, p, cfg, positions=None):
-    x = p["tok"][tokens.long()]
+    """Token (and learned position) embeddings by ``F.embedding``: the
+    reference's gather, whose backward is the embedding backward rather
+    than an accumulating ``index_put`` (which DTensor cannot shard over
+    batch-sharded ids in torch 2.11). A vocab-sharded DTensor table is
+    gathered for the lookup: torch 2.11 cannot carry the masked partial
+    sum of a sharded lookup back through the backward."""
+    x = F.embedding(tokens.long(), gather_dims(p["tok"], (0,)))
     if cfg.pos_embed == "learned":
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
-        x = x + p["pos"][positions]
+        x = x + F.embedding(positions, p["pos"])
     return x
 
 

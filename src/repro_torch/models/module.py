@@ -3,8 +3,9 @@
 
 A model declares its parameters as a nested dict of :class:`Spec`
 (shape, logical axis names, init law). :func:`init_params` turns such a
-tree into tensors built directly on the target device, and
-:func:`param_count` counts them. The trees, shapes and init laws are the
+tree into tensors built directly on the target device,
+:func:`abstract_params` into meta tensors, :func:`logical_axes` into its
+axis names, and :func:`param_count` counts them. The trees, shapes and init laws are the
 reference's; the random values cannot be ``jax.random``'s, so the tests
 carry the reference's parameters across instead
 (:func:`repro_torch.models.convert.lm_params_from_jax`).
@@ -103,6 +104,25 @@ def init_params(specs, seed: int = 0, dtype=torch.float32, device=None):
         return {k: build(v, f"{prefix}['{k}']") for k, v in node.items()}
 
     return build(specs, "")
+
+
+def _map_specs(fn, specs):
+    if isinstance(specs, Spec):
+        return fn(specs)
+    return {k: _map_specs(fn, v) for k, v in specs.items()}
+
+
+def logical_axes(specs):
+    """Tree of logical-axis tuples mirroring the spec tree."""
+    return _map_specs(lambda s: s.axes, specs)
+
+
+def abstract_params(specs, dtype=torch.float32):
+    """The spec tree as tensors on the meta device (shapes and dtypes,
+    no storage): the dry run's counterpart of the reference's
+    ``ShapeDtypeStruct`` tree."""
+    return _map_specs(lambda s: torch.empty(s.shape, dtype=s.dtype or dtype,
+                                            device="meta"), specs)
 
 
 def param_count(specs) -> int:

@@ -20,6 +20,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import gather_dims, pin
 from repro_torch.models.layers import upcast
 from repro_torch.models.module import Spec
 
@@ -116,7 +117,9 @@ def moe_apply(x, p, cfg):
     dest = torch.where(keep, slot, G * Ep * C).reshape(-1)
     x_rep = xt.repeat_interleave(k, dim=1).reshape(G * Tg * k, D)
     rows = x.new_zeros((G * Ep * C + 1, D)).index_put((dest,), x_rep)
-    buf = rows[:-1].view(G, Ep, C, D)
+    # on DTensors (the dry run) the buffers are gathered before they are
+    # split or merged, and pinned so that their gradients are too
+    buf = pin(gather_dims(rows[:-1], (0,)).view(G, Ep, C, D))
 
     # per-expert SwiGLU
     g = torch.einsum("gecd,edf->gecf", buf, p["w_gate"])
@@ -125,8 +128,8 @@ def moe_apply(x, p, cfg):
     out_e = torch.einsum("gecf,efd->gecd", h, p["w_down"])
 
     # gather and gate-weighted combine
-    out_tk = out_e.reshape(G * Ep * C, D)[slot.reshape(-1)] \
-        .view(G, Tg * k, D)
+    flat_out = pin(gather_dims(out_e, (0, 1, 2)).reshape(G * Ep * C, D))
+    out_tk = flat_out[slot.reshape(-1)].view(G, Tg * k, D)
     out_tk = out_tk * (keep[..., None]
                        * gate.reshape(G, Tg * k)[..., None]).to(x.dtype)
     out = out_tk.view(G, Tg, k, D).sum(dim=2)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import gather_dims
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rmsnorm, upcast
 from repro_torch.models.module import Spec
@@ -48,7 +49,9 @@ def ssm_specs(cfg, layers_axis: int | None = None) -> dict:
 def causal_conv1d(x, w, b):
     """Depthwise causal conv. x (B,S,C); w (C,K); b (C,)."""
     K, S = w.shape[-1], x.shape[1]
-    xp = F.pad(x, (0, 0, K - 1, 0))
+    # zeros before the sequence by a concatenation, not F.pad (which
+    # DTensor cannot redistribute in torch 2.11): the same values
+    xp = torch.cat([x.new_zeros((x.shape[0], K - 1, x.shape[2])), x], dim=1)
     out = xp[:, 0:S, :] * w[:, 0]
     for i in range(1, K):
         out = out + xp[:, i:i + S, :] * w[:, i]
@@ -118,13 +121,13 @@ def ssm_decode(x, p, cfg, cache):
     dt = F.softplus(upcast(dt) + p["dt_bias"])                 # (B,H)
     A = -torch.exp(upcast(p["A_log"]))
     decay = torch.exp(dt * A)                                  # (B,H)
-    xh = upcast(xs.reshape(B, H, P))
+    xh = upcast(gather_dims(xs, (1,)).reshape(B, H, P))
     # h <- h * decay + dt * (B ⊗ x)
     h = (cache["h"] * decay[:, :, None, None]
          + (dt[:, :, None] * xh)[..., None] * Bm[:, None, None, :])
     y = torch.einsum("bhpn,bn->bhp", h, Cm)                    # (B,H,P)
     y = y + p["D_skip"][None, :, None] * xh
-    y = y.reshape(B, H * P).to(x.dtype)
+    y = gather_dims(y, (1, 2)).reshape(B, H * P).to(x.dtype)
     y = rmsnorm(y * F.silu(upcast(z)).to(y.dtype), p["norm"])
     cache["h"].copy_(h)
     cache["conv"].copy_(hist[:, 1:, :])

@@ -334,13 +334,13 @@ def test_batched_refusals():
     with pytest.raises(ValueError, match="one entry per scenario"):
         TF.run_network_aware_batched([_tcfg(s1[0])], DATA, [s1[1], s2[1]],
                                      device="cpu")
-    with pytest.raises(ValueError, match="item 12"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         _port([s1], mesh=object())
     with pytest.raises(ValueError, match="staging"):
         _port([s1], staging="sparse")
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         TF.run_network_aware(_tcfg(s1[0]), DATA, None, None, s1[1],
-                             engine="sharded", device="cpu")
+                             engine="sharded", mesh=object(), device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -434,5 +434,8 @@ def test_cli_engine_batched_matches_reference_cli(flags, monkeypatch):
 
 
 def test_cli_engine_sharded_still_refuses():
-    with pytest.raises(SystemExit, match="queue 1 item 12"):
-        ttrain.main(ARGS[:-1] + ["sharded", "--device", "cpu"])
+    """--engine sharded runs (tests/test_torch_sharded_engine.py); with
+    --sanitize it still stops, naming the tooling item."""
+    with pytest.raises(SystemExit, match="queue 1 item 13"):
+        ttrain.main(ARGS[:-1] + ["sharded", "--device", "cpu",
+                                 "--sanitize"])

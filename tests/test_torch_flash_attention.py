@@ -171,15 +171,29 @@ def test_default_map_is_the_pallas_map():
     (dict(kv_map=[0.0, 1.0]), TypeError, "integers"),
     (dict(window=0), ValueError, "window"),
     (dict(k_shape=(1, 2, 8, 16)), ValueError, "k and v"),
-    (dict(device="meta"), ValueError, "no kernel"),
 ])
 def test_wrapper_rejects_bad_arguments(bad, err, match):
     hd = bad.get("hd", 8)
     dt = bad.get("dtype", torch.float32)
-    dev = bad.get("device", "cpu")
-    q = torch.zeros(1, 2, 8, hd, dtype=dt, device=dev)
+    q = torch.zeros(1, 2, 8, hd, dtype=dt)
     k = torch.zeros(bad.get("k_shape", (1, 2, 8, hd)),
-                    dtype=bad.get("k_dtype", dt), device=dev)
+                    dtype=bad.get("k_dtype", dt))
     with pytest.raises(err, match=match):
         ops.attention(q, k, torch.zeros_like(k), causal=True,
                       window=bad.get("window"), kv_map=bad.get("kv_map"))
+
+
+def test_wrapper_takes_the_plain_version_on_meta():
+    """Meta tensors (the dry run's) go through the plain version, as CPU
+    tensors do, with the map built beside them (its entries unread)."""
+    q = torch.zeros(1, 4, 8, 16, device="meta")
+    k = torch.zeros(1, 2, 8, 16, device="meta")
+    for kv_map in (None, torch.tensor([0, 0, 1, 1], device="meta"),
+                   [0, 1, 0, 1]):
+        out = ops.attention(q, k, torch.zeros_like(k), kv_map=kv_map)
+        assert out.device.type == "meta" and out.shape == q.shape
+    y = ops.ssd(torch.zeros(1, 2, 16, 8, device="meta"),
+                torch.zeros(1, 2, 16, device="meta"),
+                torch.zeros(1, 16, 4, device="meta"),
+                torch.zeros(1, 16, 4, device="meta"), chunk=8)
+    assert y.device.type == "meta" and y.shape == (1, 2, 16, 8)

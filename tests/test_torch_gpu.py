@@ -1021,3 +1021,98 @@ def test_cross_decode_attention_on_card_matches_cpu(cuda):
     assert out[0].shape == (3, 1, cfg.d_model)
     assert float((out[0] - out[1]).abs().max()) <= \
         2e-5 * float(out[1].abs().max())
+
+
+@pytest.fixture
+def nccl_world_of_one(cuda):
+    """An NCCL world of one made by ``launch/mesh.init_process_group``,
+    destroyed after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    if dist.is_initialized():
+        pytest.fail("a process group exists before the test")
+    mesh_lib.init_process_group(cuda)
+    assert (dist.get_backend(), dist.get_world_size()) == ("nccl", 1)
+    yield dist
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("faulted", [False, True], ids=["clean", "faulted"])
+def test_sharded_engine_on_nccl_world_of_one_is_batched(nccl_world_of_one,
+                                                        cuda, faulted):
+    """``engine="sharded"`` on the card's world of one: bit for bit
+    ``engine="batched"``, kernel 2 launched as often, two all-reduces a
+    window (three under faults)."""
+    import copy
+
+    from repro_torch.core import federated as F
+    from repro_torch.core import faults as fl
+    from repro_torch.data import pipeline as pl
+    from repro_torch.data.synthetic import make_image_dataset
+    from repro_torch.distributed import collectives as coll
+
+    data = make_image_dataset(n_train=1200, n_test=400, seed=0)
+    n, T, tau = 5, 12, 4
+    rng = np.random.default_rng(0)
+    traces = costs.synthetic_costs(n, T, rng)
+    streams = pl.poisson_streams(n, T, data[1], rng=rng)
+    plan = movement.greedy_linear(traces, topology.fully_connected(n),
+                                  backend="numpy")
+    cfg = F.FedConfig(n=n, T=T, tau=tau, eta=0.05, model="mlp", seed=0)
+    kw = {}
+    if faulted:
+        kw = dict(faults=fl.FaultSchedule(T, n, tau, [
+            fl.FaultEvent(3, "corrupt", 0, float("nan")),
+            fl.FaultEvent(5, "crash", 2), fl.FaultEvent(11, "drop", 4)]),
+            quorum=0.5)
+    runs = {}
+    for engine in ("batched", "sharded"):
+        before, coll.all_reduces = sr.launches, 0
+        h = F.run_network_aware(cfg, data, traces, None, plan,
+                                streams=copy.deepcopy(streams),
+                                engine=engine, device=cuda, **kw)
+        runs[engine] = (h, sr.launches - before, coll.all_reduces)
+    (got, l_s, ar_s), (want, l_b, ar_b) = runs["sharded"], runs["batched"]
+    assert l_s == l_b > 0 and ar_b == 0
+    assert ar_s == (3 if faulted else 2) * (T // tau)
+    for k in ("device_loss", "H_agg", "test_loss", "test_acc",
+              "agg_round", "agg_survivors", "agg_quorum_ok"):
+        if k in want:
+            np.testing.assert_array_equal(np.asarray(got[k]),
+                                          np.asarray(want[k]), err_msg=k)
+
+
+def test_fedavg_round_on_nccl_world_of_one_is_the_one_card_round(
+        nccl_world_of_one, cuda):
+    from repro_torch.configs import registry
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.fedavg import make_fedavg_round
+    from repro_torch.models import transformer as T
+    from repro_torch.models.module import init_params
+    from repro_torch.optim import optimizers as topt
+
+    dist = nccl_world_of_one
+    cfg = registry.get_config("qwen3-14b", smoke=True)
+    g = torch.Generator().manual_seed(0)
+    tau, B, S = 2, 4, 16
+    batches = {"tokens": torch.randint(0, cfg.vocab_size, (tau, B, S),
+                                       generator=g, dtype=torch.int32),
+               "labels": torch.randint(0, cfg.vocab_size, (tau, B, S),
+                                       generator=g, dtype=torch.int32),
+               "weights": torch.rand((tau, B), generator=g)}
+    batches = {k: v.to(cuda) for k, v in batches.items()}
+    outs = []
+    for group in (None, dist.group.WORLD):
+        opt = topt.adamw(3e-3)
+        p = init_params(T.specs(cfg), 0, torch.float32, cuda)
+        coll.reset_counts()
+        outs.append(make_fedavg_round(cfg, opt, tau, group=group)(
+            p, opt.init(p), batches))
+    assert coll.all_reduces == 2        # the H total, one flat buffer
+    (p0, s0, l0), (p1, s1, l1) = outs
+    assert torch.equal(l0, l1)
+    for a, b in zip(topt.tree_leaves(p0) + topt.tree_leaves(s0),
+                    topt.tree_leaves(p1) + topt.tree_leaves(s1)):
+        assert torch.equal(a, b)

@@ -40,6 +40,9 @@ def test_modules_found():
     assert "repro_torch.kernels._grad" in MODULES
     assert "repro_torch.optim.optimizers" in MODULES
     assert "repro_torch.distributed.fedavg" in MODULES
+    for mod in ("distributed.sharding", "distributed.collectives",
+                "launch.mesh", "launch.roofline", "launch.dryrun"):
+        assert f"repro_torch.{mod}" in MODULES
     assert len(MODULES) > 40
 
 

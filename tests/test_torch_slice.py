@@ -72,12 +72,14 @@ def test_cli_cost_equals_reference_cli(capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--setting", "E", "--sanitize"],
-    ["--error-model", "sqrt", "--engine", "sharded"],
-    ["--faults", "drop", "--engine", "sharded"],
-    ["--tiers", "2@4,1@8", "--faults", "crash", "--engine", "sharded"],
+    ["--error-model", "sqrt", "--engine", "sharded", "--sanitize"],
+    ["--faults", "drop", "--engine", "sharded", "--sanitize"],
+    ["--tiers", "2@4,1@8", "--faults", "crash", "--engine", "sharded",
+     "--sanitize"],
     ["--checkpoint", "x", "--sanitize"],
-    ["--resume", "x", "--engine", "sharded"], ["--sanitize"],
-    ["--engine", "batched", "--sanitize"], ["--engine", "sharded"],
+    ["--resume", "x", "--engine", "sharded", "--sanitize"], ["--sanitize"],
+    ["--engine", "batched", "--sanitize"], ["--engine", "sharded",
+                                            "--sanitize"],
     ["--tiers", "2@4,1@8", "--sanitize"],
 ])
 def test_cli_unported_flags_name_their_roadmap_item(flags):

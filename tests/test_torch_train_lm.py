@@ -23,7 +23,7 @@ a zero-weight sample and a permuting route:
   zero gradients into whole steps;
 * ``remat="full"`` gives the loss and gradients of ``"none"`` bit for
   bit; the train step's in-place update is bit for bit ``update`` then
-  ``apply_updates``; ``accum_shards`` raises naming ROADMAP.md item 12.
+  ``apply_updates``; ``accum_shards`` changes nothing on plain tensors.
 
 The float64 runs put the kernels' plain versions in place of
 ``ops.attention`` and ``ops.ssd`` (the wrappers take float32 and
@@ -271,6 +271,33 @@ def test_config_for_shape_matches_reference():
 
 
 def test_accum_shards_names_multi_gpu():
-    _, tc, _, _ = _both("qwen3-14b")
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        St.make_train_step(tc, topt.sgd(0.1), accum_shards={})
+    """``accum_shards`` (the ZeRO-2 accumulator shardings of a (2, 1)
+    data x model mesh) constrains DTensor leaves only: on plain tensors
+    two microbatched adamw steps with it are bit for bit the steps
+    without it."""
+    import types
+
+    _, tc, _, tp = _both("qwen3-14b")
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 shape=(2, 1))
+    acc = St.accum_shardings(tp, St.param_shardings(tc, mesh), mesh)
+    assert any(s.spec and "data" in s.spec
+               for s in topt.tree_leaves(acc))
+    runs = []
+    for shards in (None, acc):
+        o = topt.adamw(3e-3)
+        step = St.make_train_step(tc, o, microbatches=2,
+                                  accum_shards=shards)
+        p = topt.tree_map(lambda t: t.clone(), tp)
+        s_ = o.init(p)
+        outs = [step(p, s_, _tbatch(_batch(tc, 30 + i)))[2]
+                for i in range(2)]
+        runs.append((p, s_, outs))
+    (p0, s0, o0), (p1, s1, o1) = runs
+    for a, b_ in zip(topt.tree_leaves(p0), topt.tree_leaves(p1)):
+        assert torch.equal(a, b_)
+    for a, b_ in zip(topt.tree_leaves(s0), topt.tree_leaves(s1)):
+        assert torch.equal(a, b_)
+    for a, b_ in zip(o0, o1):
+        assert torch.equal(a["loss"], b_["loss"])
+        assert torch.equal(a["grad_norm"], b_["grad_norm"])
