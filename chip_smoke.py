@@ -6,7 +6,7 @@
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; it
 imports no JAX. It builds every CUDA kernel of the fog, serving and
 training paths from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
-source, all started together), then runs twenty-one phases and fails
+source, all started together), then runs twenty-two phases and fails
 (exit 1, no result line) if any of them fails:
 
 (a) the Theorem-3 kernel against its plain PyTorch version on the
@@ -297,7 +297,22 @@ source, all started together), then runs twenty-one phases and fails
     and mfu = compute_useful_s / the warm time; (u4) the dry run of
     qwen3-14b ``train_4k`` on the fake (16, 16) mesh in a subprocess
     (``python -m repro_torch.launch.dryrun``): a PASS row, its dominant
-    term and trace time.
+    term and trace time;
+(v) the runtime sanitizer (``core/sanitize.py``): (v1) ``--sanitize``
+    at fog scale, flat, with ``--tiers 32@5,4@10,1@20`` and with
+    ``--engine batched``, each in turns with the same flags without it
+    (without, with, without): the ``sanitize`` block exactly the
+    reference's (``warm_compiles`` 0), the warm pass's history bit for
+    bit the unsanitized run's, every kernel's launches in each pass
+    those of the unsanitized run, and the sanitizer's overhead in
+    seconds; (v2) on the card a planted
+    ``.item()``, a boolean mask index (a sync inside the op, caught by
+    the sync debug mode) and a copy to the host inside the guard, a
+    NaN from an eager op, and a new sweep-engine program key in a warm
+    scope each raise, and the sync debug mode is restored; (v3), run
+    right after (j) while its parameters are on the card: (j)'s
+    zamba2-7b prefill once more with ``ssm_streaming``, bit for bit
+    the default prefill, with the same 81 scan launches.
 
 The line before the last is the JSON list of kernels; the one before it
 the card's name and power limit; the last line is the result.
@@ -1351,8 +1366,8 @@ def _plain_ops(torch, fa, sd):
         return fa.flash_attention_plain(q, k, v, km, causal=causal,
                                         window=window)
 
-    def ssd(xdt, a, Bm, Cm, *, chunk=128):
-        return sd.ssd_scan_plain(xdt, a, Bm, Cm, chunk=chunk)
+    def ssd(xdt, a, Bm, Cm, *, chunk=128, streaming=False):
+        return sd.plain_for(streaming)(xdt, a, Bm, Cm, chunk=chunk)
 
     return {"attention": attention, "ssd": ssd}
 
@@ -4431,6 +4446,192 @@ def phase_u_dryrun(card):
     return row
 
 
+# ---------------------------------------------------------------------------
+# (v) the runtime sanitizer at fog scale, its refusals on the card, and
+# the streaming scan flag through kernel 4
+# ---------------------------------------------------------------------------
+
+SANITIZE_ARGV = [("flat", FOG_ARGV), ("tiered", TIERED_FOG_ARGV),
+                 ("batched", FOG_ARGV + ["--engine", "batched"])]
+SANITIZE_BLOCK = {"transfer_guard": True, "debug_nans": True,
+                  "warm_compiles": 0}
+
+
+def _counted_runs(F, counters):
+    """``F.run_network_aware`` wrapped to record, per call, its wall
+    seconds and the launches of every kernel it made."""
+    real = F.run_network_aware
+    runs = []
+
+    def wrapped(*a, **kw):
+        before = {name: c.launches for name, c in counters.items()}
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        runs.append((time.perf_counter() - t0,
+                     {name: c.launches - before[name]
+                      for name, c in counters.items()}))
+        return out
+    return real, wrapped, runs
+
+
+def phase_v_sanitize(torch, np, card, counters):
+    """(v1) ``--sanitize`` at fog scale, flat, tiered and through the
+    sweep engine: the reference's block, the warm pass's history bitwise
+    the unsanitized run's, each pass's kernel launches the unsanitized
+    run's, and the sanitizer's overhead."""
+    from repro_torch.core import federated as F
+    from repro_torch.launch import train
+
+    real, wrapped, runs = _counted_runs(F, counters)
+    F.run_network_aware = wrapped
+    try:
+        for tag, argv in SANITIZE_ARGV:
+            outs = {}
+            # in turns: unsanitized, sanitized (cold and warm passes),
+            # unsanitized again, so that warm-up lands on neither side
+            for key, extra in (("plain", []), ("sanitized", ["--sanitize"]),
+                               ("again", [])):
+                for c in counters.values():
+                    c.reset_launches()
+                del runs[:]
+                out = train.main(argv + extra)
+                outs[key] = (out, list(runs),
+                             {name: c.launches
+                              for name, c in counters.items()})
+            (plain, p_runs, p_all), (san, s_runs, s_all) = \
+                outs["plain"], outs["sanitized"]
+            (again_s, _), = outs["again"][1]
+            if san.get("sanitize") != SANITIZE_BLOCK:
+                raise AssertionError(f"(v1) {tag}: sanitize block "
+                                     f"{san.get('sanitize')}")
+            a, b = san["history"], plain["history"]
+            same = (a["test_acc"] == b["test_acc"]
+                    and a["test_loss"] == b["test_loss"]
+                    and np.array_equal(np.stack(a["device_loss"]),
+                                       np.stack(b["device_loss"]))
+                    and np.array_equal(np.stack(a["H_agg"]),
+                                       np.stack(b["H_agg"])))
+            if not same:
+                raise AssertionError(f"(v1) {tag}: the sanitized history "
+                                     "differs from the unsanitized run's")
+            (p_s, p_l), = p_runs
+            if len(s_runs) != 2 or any(l != p_l for _, l in s_runs):
+                raise AssertionError(f"(v1) {tag}: launches per pass "
+                                     f"{[l for _, l in s_runs]}, "
+                                     f"unsanitized {p_l}")
+            plan_l = {name: p_all[name] - p_l[name] for name in p_all}
+            if (plan_l["offload_greedy"] == 0
+                    or any(s_all[n] - sum(l[n] for _, l in s_runs)
+                           != plan_l[n] for n in plan_l)):
+                raise AssertionError(f"(v1) {tag}: plan launches "
+                                     f"{plan_l}, sanitized total {s_all}")
+            if p_l["segment_reduce"] == 0 and tag != "flat":
+                raise AssertionError(f"(v1) {tag}: no kernel-2 launch")
+            cold, warm = (t for t, _ in s_runs)
+            base = (p_s + again_s) / 2
+            log(f"(v1) --sanitize {tag} at fog scale: block "
+                f"{san['sanitize']}, history bitwise the unsanitized "
+                f"run's, final_acc {san['final_acc']}; training in turns: "
+                f"unsanitized {p_s:.4f} s, sanitized cold {cold:.4f} s "
+                f"and warm {warm:.4f} s, unsanitized {again_s:.4f} s "
+                f"(sanitizer overhead {warm - base:.4f} s warm, "
+                f"{cold - base:.4f} s cold, against their mean); kernel "
+                f"launches a pass {p_l}, plan {plan_l} [{card}]")
+    finally:
+        F.run_network_aware = real
+
+
+def phase_v_raises(torch, np, card, cuda):
+    """(v2) what the sanitizer refuses, on the card: a planted sync and
+    a sync hidden in an op inside the guard, a NaN from an eager op, a
+    new program key in a warm scope; the sync debug mode restored."""
+    from repro_torch.core import costs
+    from repro_torch.core import federated as F
+    from repro_torch.core import movement as mv
+    from repro_torch.core import sanitize as sz
+    from repro_torch.data.synthetic import make_image_dataset
+
+    before = torch.cuda.get_sync_debug_mode()
+    x = torch.arange(-4.0, 4.0, device=cuda)
+    got = {}
+    cases = [("item", RuntimeError, lambda: x.sum().item(), True),
+             ("mask_index", RuntimeError, lambda: x[x > 0], True),
+             ("to_host", RuntimeError, lambda: x.cpu(), True),
+             ("nan", FloatingPointError, lambda: torch.log(x), False)]
+    for name, err, fn, guarded in cases:
+        try:
+            with sz.sanitized(True):
+                with sz.hot_loop_guard() if guarded \
+                        else contextlib.nullcontext():
+                    fn()
+            got[name] = "no error"
+        except err as e:
+            got[name] = f"{type(e).__name__}: {str(e)[:60]}"
+    data = make_image_dataset(n_train=600, n_test=200, seed=SEED)
+    cfg = F.FedConfig(n=6, T=8, tau=2, eta=0.0123, model="mlp", seed=3)
+    traces = costs.synthetic_costs(cfg.n, cfg.T, np.random.default_rng(1))
+    plan = mv.no_movement_plan(cfg.T, cfg.n)
+    try:
+        with sz.sanitized(sz.SanitizeConfig(expect_warm=True)):
+            F.run_network_aware(cfg, data, traces, None, plan,
+                                engine="batched", device=cuda)
+        got["warm_key"] = "no error"
+    except sz.RecompileError as e:
+        got["warm_key"] = f"RecompileError: {str(e)[:60]}"
+    after = torch.cuda.get_sync_debug_mode()
+    log(f"(v2) sanitizer refusals on the card: {got}; sync debug mode "
+        f"{before} before, {after} after [{card}]")
+    if any(v == "no error" for v in got.values()) or after != before:
+        raise AssertionError(f"(v2) {got}, sync debug mode {after}")
+
+
+def _scan_temporaries(cfg, B, S) -> dict:
+    """Bytes of the SSD scan's temporaries at batch B and length S,
+    reckoned from the shapes: the kernel's all-chunk scratch
+    (``ssd_scan._launch``: the (B, H, nc, P, N) chunk states and the
+    (B, nc, l', l') C·Bᵀ products), the streaming plain version's
+    per-chunk (B, H, l, l) decay matrix and (B, H, P, N) state, and the
+    default plain version's all-chunk (B, H, nc, l, l) decay matrix."""
+    H, P, N, l = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk
+    nc, lp = S // l, -(-l // 16) * 16
+    return {"kernel_states": B * nc * H * P * N * 4,
+            "kernel_cb": B * nc * lp * lp * 4,
+            "streaming_chunk": B * H * l * l * 4,
+            "streaming_state": B * H * P * N * 4,
+            "plain_all_chunks": B * H * nc * l * l * 4}
+
+
+def phase_v_streaming(torch, np, card, counters, served, cuda):
+    """(v3) (j)'s zamba2-7b, already on the card, prefills once with
+    ``ssm_streaming``: bitwise the default prefill, 81 scan launches."""
+    _, _, steps, _, _, _ = _serve_modules()
+    cfg, params = served["cfg"], served["params"]
+    rng = np.random.default_rng(SEED)          # (j)'s prompts
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (PREFILL_B, PREFILL_S)).astype(np.int32)).to(cuda)
+    logits, launches = {}, {}
+    for streaming in (False, True):
+        prefill = steps.make_prefill_step(
+            cfg.with_overrides(ssm_streaming=streaming))
+        for c in counters.values():
+            c.reset_launches()
+        with torch.no_grad():
+            logits[streaming] = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        launches[streaming] = {n: c.launches for n, c in counters.items()}
+    equal = bool(torch.equal(logits[True], logits[False]))
+    here = _scan_temporaries(cfg, PREFILL_B, PREFILL_S)
+    long = _scan_temporaries(cfg, 1, 524288)
+    log(f"(v3) {SERVE_ARCH} prefill B={PREFILL_B} S={PREFILL_S} with "
+        f"ssm_streaming: bitwise the default prefill {equal}, launches "
+        f"{launches[True]} (default {launches[False]}); the scan's "
+        f"temporaries in bytes, reckoned from the shapes: here {here}, "
+        f"at B=1 S=524288 (long_500k) {long} [{card}]")
+    if not equal or launches[True] != launches[False] \
+            or launches[True]["ssd_scan"] != cfg.num_layers:
+        raise AssertionError(f"(v3) equal {equal}, launches {launches}")
+
+
 def main() -> int:
     import torch
 
@@ -4580,6 +4781,13 @@ def main() -> int:
         phase_u_roofline(np, card, state)
         phase_u_dryrun(card)
 
+    def v3():
+        phase_v_streaming(torch, np, card, counters, state["j"], cuda)
+
+    def v():
+        phase_v_sanitize(torch, np, card, counters)
+        phase_v_raises(torch, np, card, cuda)
+
     def p():
         phase_p_fog(torch, np, card, counters, state["c_train_s"])
         phase_p_tiered(torch, np, card, counters, ops, sr)
@@ -4595,11 +4803,11 @@ def main() -> int:
               ("f", f), ("g", lambda: phase_g_tiered_defaults(np, card)),
               ("h", h),
               ("i", lambda: phase_i_new_kernels(torch, fa, sd, cuda)),
-              ("j", j), ("k", k_), ("l", l_),
+              ("j", j), ("v3", v3), ("k", k_), ("l", l_),
               ("m", lambda: phase_m_smoke_configs(torch, np, card, counters,
                                                   cuda)),
               ("n", n_), ("o", o), ("p", p), ("q", q), ("r", r),
-              ("s", s_), ("t", t), ("u", u)]
+              ("s", s_), ("t", t), ("u", u), ("v", v)]
     failed = []
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -18,10 +18,13 @@ costs from runs that built nothing new (``observe_run``).
 
 One term differs. The port compiles nothing at run time apart from its
 ``nvcc`` builds of the kernels (no ``torch.compile``, no CUDA graphs),
-so the compile cost is 0 and :func:`install_listener` has nothing to
-listen to. The descriptors are still recorded, so ``new_programs``
-reports what the reference would compile, and a caller may price a
-compile by passing ``compile_s``.
+so the compile cost starts at 0. :func:`install_listener` subscribes
+``MODEL.observe_compile`` to :mod:`repro_torch.core.monitoring`, as the
+reference does: a sweep engine's new program key is an event of 0 s,
+which counts but leaves the EMA as it is, and only an ``nvcc`` build
+(seconds > 0) moves ``compile_s``. The descriptors are still recorded,
+so ``new_programs`` reports what the reference would compile, and a
+caller may price a compile by passing ``compile_s``.
 
 ``MODEL`` is the process-wide singleton the dispatch uses; tests build
 private instances with pinned parameters.
@@ -220,7 +223,15 @@ class CostModel:
 
 MODEL = CostModel()
 
+_LISTENER = {"installed": False}
+
 
 def install_listener() -> None:
-    """Kept for the reference's call sites: the port has no compile
-    events to feed into ``MODEL`` (module docstring)."""
+    """Feed compile events into ``MODEL`` (idempotent), through
+    :mod:`repro_torch.core.monitoring`'s single fan-out."""
+    if _LISTENER["installed"]:
+        return
+    from repro_torch.core import monitoring
+
+    monitoring.subscribe_compile(MODEL.observe_compile)
+    _LISTENER["installed"] = True

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import monitoring, sanitize
 from repro_torch.data import pipeline as pl
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.distributed.collectives import (all_reduce_flat,
@@ -430,8 +431,13 @@ def run_rounds_scan(apply_fn, params: dict, x_tr, y_tr, x_te, y_te,
         return _run_scan_checkpointed(
             rnd, carry, T, n, tau, eta, guard_f, quorum_f,
             checkpoint_path, checkpoint_every, resume, stop_after)
-    for t in range(T):
-        carry = rnd(t, carry)
+    # under run_network_aware(sanitize=...) no host sync or transfer may
+    # happen in the round loop (staging above and the read-back below
+    # are the design)
+    with sanitize.hot_loop_guard() as outs:
+        for t in range(T):
+            carry = rnd(t, carry)
+        outs.append({"carry": carry, "hist": hist})
     return _read_back(hist, np.nonzero(is_agg)[0], T)
 
 
@@ -477,8 +483,10 @@ def _run_scan_checkpointed(rnd: _ScanRound, carry, T, n, tau, eta, guard,
         if stop_after is not None and t0 >= stop_after:
             break
         t1 = min(t0 + step, T)
-        for t in range(t0, t1):
-            carry = rnd(t, carry)
+        with sanitize.hot_loop_guard() as outs:
+            for t in range(t0, t1):
+                carry = rnd(t, carry)
+            outs.append({"carry": carry, "hist": hist})
         t0 = t1
         if checkpoint_path is not None:
             ckpt.save(checkpoint_path, as_state(carry, t0),
@@ -568,51 +576,54 @@ def run_rounds_hierarchical(apply_fn, params: dict, x_tr, y_tr, x_te,
     H = torch.zeros(n, device=device)
     waiting = torch.zeros(n, device=device)
     hist = _history(T, n, device, fo is not None)
-    for t in range(T):
-        a = st.act[t]
-        active = a * (1.0 - waiting)
-        W, hist["losses"][t] = step(W, st.batch(t), st.yb[t], st.w[t],
-                                    active)
-        H = H + st.cnt[t] * active
-        lv = int(lvl[t])
-        if lv == 0:
-            continue
-        qok = None
-        if fo is None:
-            Wl, contrib = W, active
-        else:
-            Wl, contrib = _guarded_uploads(W, active, fo[0][t], fo[1][t],
-                                           guard)
-            surv = contrib.sum()
-            qok = surv >= quorum * active.sum()
-        Hl = H * contrib
-        for seg in segs[:lv]:
-            Wl, Hl = aggregate_tier(Wl, Hl, seg.group_ids, seg.num_groups,
-                                    segments=seg)
-        if lv == L:
-            ok = Hl[0] > 0
-            if qok is not None:
-                ok = ok & qok
-            wg = {key: torch.where(ok, Wl[key][0], old)
-                  for key, old in wg.items()}
-        src = anc[lv - 1]
-        sync = (a > 0.5) & (Hl[src] > 0)
-        if qok is not None:
-            sync = sync & qok
-        W = {key: torch.where(_bcast(sync, p), Wl[key][src], p)
-             for key, p in W.items()}
-        waiting = (1.0 - a if qok is None
-                   else torch.where(qok, 1.0 - a, waiting))
-        if lv == L:
-            hist["H_at"][t] = H
-            if qok is None:
-                H = torch.zeros_like(H)
+    levels = lvl.tolist()
+    with sanitize.hot_loop_guard() as outs:
+        for t in range(T):
+            a = st.act[t]
+            active = a * (1.0 - waiting)
+            W, hist["losses"][t] = step(W, st.batch(t), st.yb[t], st.w[t],
+                                        active)
+            H = H + st.cnt[t] * active
+            lv = levels[t]
+            if lv == 0:
+                continue
+            qok = None
+            if fo is None:
+                Wl, contrib = W, active
             else:
-                H = torch.where(qok, torch.zeros_like(H), H)
-                hist["surv"][t] = surv
-                hist["qok"][t] = qok
-            hist["tl"][t], hist["ta"][t] = _evaluate(apply_fn, wg,
-                                                     st.x_te, st.y_te)
+                Wl, contrib = _guarded_uploads(W, active, fo[0][t], fo[1][t],
+                                               guard)
+                surv = contrib.sum()
+                qok = surv >= quorum * active.sum()
+            Hl = H * contrib
+            for seg in segs[:lv]:
+                Wl, Hl = aggregate_tier(Wl, Hl, seg.group_ids, seg.num_groups,
+                                        segments=seg)
+            if lv == L:
+                ok = Hl[0] > 0
+                if qok is not None:
+                    ok = ok & qok
+                wg = {key: torch.where(ok, Wl[key][0], old)
+                      for key, old in wg.items()}
+            src = anc[lv - 1]
+            sync = (a > 0.5) & (Hl[src] > 0)
+            if qok is not None:
+                sync = sync & qok
+            W = {key: torch.where(_bcast(sync, p), Wl[key][src], p)
+                 for key, p in W.items()}
+            waiting = (1.0 - a if qok is None
+                       else torch.where(qok, 1.0 - a, waiting))
+            if lv == L:
+                hist["H_at"][t] = H
+                if qok is None:
+                    H = torch.zeros_like(H)
+                else:
+                    H = torch.where(qok, torch.zeros_like(H), H)
+                    hist["surv"][t] = surv
+                    hist["qok"][t] = qok
+                hist["tl"][t], hist["ta"][t] = _evaluate(apply_fn, wg,
+                                                         st.x_te, st.y_te)
+        outs.append({"W": W, "wg": wg, "H": H, "hist": hist})
     out = _read_back(hist, top, T)
     is_agg = lvl > 0
     out["tier_agg_round"] = [int(t) for t in np.nonzero(is_agg)[0]]
@@ -1118,13 +1129,14 @@ def batched_compile_count() -> int:
     """The number of distinct (bucket program, bucket shape) keys the
     sweep engine has run. The port builds nothing at run time (no
     ``torch.compile``): this is the analogue of the reference's count of
-    jit cache entries, one per program and shape bucket."""
+    jit cache entries, one per program and shape bucket. Each new key is
+    also one compile event of :mod:`repro_torch.core.monitoring`."""
     return sum(len(p.shapes) for p in _BUCKET_PROGRAMS.values())
 
 
 def _bucket_program(apply_fn, eta: float, prestage: bool, faults: bool,
                     guard: bool, quorum: float, staging: str):
-    key = (apply_fn, float(eta), prestage, faults, guard, quorum, staging)
+    key = (apply_fn, eta, prestage, faults, guard, quorum, staging)
     if key not in _BUCKET_PROGRAMS:
         _BUCKET_PROGRAMS[key] = _BucketProgram(
             apply_fn, eta, prestage, faults, guard, quorum, staging)
@@ -1459,12 +1471,17 @@ def run_rounds_batched(apply_fn, params_list, x_tr, y_tr, x_te, y_te,
     _PHASE["stage_s"] += t_train0 - t_stage0
     prog = _bucket_program(apply_fn, eta, meta["prestage"], use_faults,
                            guard_f, quorum_f, staging)
-    prog.shapes.add((S,) + meta["dims"])
-    with torch.no_grad():
+    shape = (S,) + meta["dims"]
+    if shape not in prog.shapes:        # a new (program, shape) key
+        prog.shapes.add(shape)
+        monitoring.record_compile(0.0)
+    with torch.no_grad(), sanitize.hot_loop_guard() as outs:
         losses, H_w, wg_win, fo = prog(W0, wg0, x_dev, st, tau, group)
         if mesh is not None:
             losses = _gather_devices(losses, mesh)
             H_w = _gather_devices(H_w, mesh)
+        outs.append({"losses": losses, "H": H_w, "wg": wg_win,
+                     "faults": fo})
     synchronize(device)
     t_eval0 = time.perf_counter()
     _PHASE["program_s"] += t_eval0 - t_train0

@@ -178,6 +178,7 @@ def predict_schedule(observed: NetworkSchedule, L: int = DEFAULT_WINDOWS,
                                                  keeps, bounds,
                                                  active=active)
     link_rates = window_link_rates(observed, L)
+    # foglint: disable=dense-materialization -- dense-storage branch: observed already holds (n, n) rounds (guarded by DENSE_VIEW_MAX_N); the edgelist branch above is the scale path
     adjs = [np.array(observed.adj_at(0), dtype=bool, copy=True)]
     for w in range(1, len(bounds)):
         adjs.append(link_rates[w - 1] >= cut)

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core import engine as eng
 from repro_torch.core import movement as mv
+from repro_torch.core import sanitize as sz
 from repro_torch.core.costs import CostTraces
 from repro_torch.core.hierarchy import TierTree
 from repro_torch.core.schedule import NetworkSchedule
@@ -65,7 +66,7 @@ def run_network_aware(cfg: FedConfig, data, traces: CostTraces,
                       checkpoint_every: int = 1,
                       resume: str | None = None,
                       stop_after: int | None = None,
-                      mesh=None, prepared=None,
+                      mesh=None, prepared=None, sanitize=False,
                       device=None) -> dict:
     """Train with a given movement plan. Returns the history dict.
 
@@ -109,6 +110,13 @@ def run_network_aware(cfg: FedConfig, data, traces: CostTraces,
     ``(streams, processed, act_all, max_pts)`` of an earlier
     :func:`_prepare_streams` call, so a sweep that prepared the
     streams to price a bucket does not prepare them twice.
+
+    ``sanitize`` — ``True`` or a :class:`repro_torch.core.sanitize.
+    SanitizeConfig`: runs the engine under the runtime checkers (NaN
+    checks, a transfer guard around the round loops, and a
+    warm-recompile watchdog when ``expect_warm`` is set). A smoke
+    harness: every eager op is checked on the host, so don't time
+    under it.
     """
     device = resolve_device(device)
     if hierarchy is not None:
@@ -170,9 +178,11 @@ def run_network_aware(cfg: FedConfig, data, traces: CostTraces,
                              "taus": list(hierarchy.taus)}
     if faults is not None:
         hist["fault_summary"] = faults.summary()
-    hist.update(runners[engine](apply_fn, params, x_tr, y_tr, x_te, y_te,
-                                processed, act_all, cfg.tau, cfg.eta,
-                                max_pts, device=device, **engine_kw))
+    with sz.sanitized(sanitize):
+        hist.update(runners[engine](apply_fn, params, x_tr, y_tr, x_te,
+                                    y_te, processed, act_all, cfg.tau,
+                                    cfg.eta, max_pts, device=device,
+                                    **engine_kw))
     return hist
 
 
@@ -406,6 +416,7 @@ def run_federated(cfg: FedConfig, data, **kw) -> dict:
 def churn_activity(cfg: FedConfig, rng: np.random.Generator) -> np.ndarray:
     """(T, n) churn trace: the active mask of :func:`churn_schedule` at
     ``cfg.p_exit``/``cfg.p_entry`` with a sync every ``cfg.tau``."""
+    # foglint: disable=dense-materialization -- legacy compat shim: churn_schedule takes a dense base adjacency by contract and every caller is small-n
     sched = churn_schedule(np.ones((cfg.n, cfg.n), bool), cfg.T,
                            cfg.p_exit, cfg.p_entry, rng, tau=cfg.tau)
     return sched.activity()

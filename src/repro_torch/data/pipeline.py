@@ -93,6 +93,7 @@ def poisson_streams(n: int, T: int, y: np.ndarray, *, iid: bool = True,
                     labels_per_device: int = 5, n_classes: int = 10,
                     rng: np.random.Generator | None = None,
                     mean_per_round: float | None = None) -> FogStreams:
+    # foglint: disable=rng-stream-discipline -- documented default: rng=None selects the fixed legacy stream 0 (bitwise the reference's staging); scenario producers pass a derived Generator
     rng = rng or np.random.default_rng(0)
     N = len(y)
     mean = mean_per_round or N / (n * T)
@@ -124,6 +125,7 @@ def poisson_streams_flat(n: int, T: int, y: np.ndarray, *,
     ids; with-replacement i.i.d. sampling, unlike the per-cell
     without-replacement draw of :func:`poisson_streams`, so the two
     producers are distribution-equal, not bitwise twins)."""
+    # foglint: disable=rng-stream-discipline -- documented default: rng=None selects the fixed legacy stream 0 (bitwise the reference's staging); scenario producers pass a derived Generator
     rng = rng or np.random.default_rng(0)
     N = len(y)
     mean = mean_per_round or N / (n * T)
@@ -171,6 +173,7 @@ def apply_movement(streams: FogStreams, plan: MovementPlan,
     each device's (n+1,) share row is rebuilt from its outgoing edges
     into one reused buffer.
     """
+    # foglint: disable=rng-stream-discipline -- documented default: rng=None selects fixed stream 1 (kept distinct from the collection stream), as the reference; callers on the scenario path pass a derived Generator
     rng = rng or np.random.default_rng(1)
     n, T = streams.n, streams.T
     buckets: list[list[list[np.ndarray]]] = \
@@ -254,11 +257,13 @@ def apply_movement_dense(streams: FogStreams, plan: MovementPlan,
                          ) -> list[list[np.ndarray]]:
     """Dense-row routing (the pre-sparse path) — preserved as the
     bitwise oracle for the edge-based ``apply_movement``."""
+    # foglint: disable=rng-stream-discipline -- documented default: rng=None selects fixed stream 1 (kept distinct from the collection stream), as the reference; callers on the scenario path pass a derived Generator
     rng = rng or np.random.default_rng(1)
     n, T = streams.n, streams.T
     buckets: list[list[list[np.ndarray]]] = \
         [[[] for _ in range(n)] for _ in range(T)]
     for t in range(T):
+        # foglint: disable=dense-materialization -- dense-row oracle path (see docstring); the sparse twin is apply_movement_flat
         s_t, r_t = plan.s[t], plan.r[t]
         for i in range(n):
             idx = streams.collected[t][i]

@@ -169,6 +169,32 @@ def gather_dims(t, dims):
     return t.redistribute(t.device_mesh, place)
 
 
+def even_shards(t, dims):
+    """A DTensor ``t`` with each of the tensor dims ``dims`` sharded only
+    as far as it divides: the mesh dims that shard such a dim are kept
+    in mesh order while their extents' product divides its size, and
+    the others replicated. DTensor may shard a dim unevenly on a mesh
+    dim that its inputs replicate (a strategy it picks, not one the
+    rules asked for), and then cannot flatten it in a later op. A plain
+    tensor is returned as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    sizes = tuple(t.device_mesh.shape)
+    place = list(t.placements)
+    for d in dims:
+        ext = 1
+        for i, p in enumerate(place):
+            if not (isinstance(p, Shard) and p.dim % t.dim() == d):
+                continue
+            if t.shape[d] % (ext * sizes[i]):
+                place[i] = Replicate()
+            else:
+                ext *= sizes[i]
+    if place == list(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, place)
+
+
 def pin(t):
     """A DTensor ``t`` passed through a redistribution to its own
     placements: nothing happens forward, and backward its gradient is

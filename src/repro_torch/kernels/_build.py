@@ -9,7 +9,10 @@ library is loaded with ``ctypes``. Only the sources in this package's
 ``csrc/`` are ever built.
 
 A build happens at a kernel's first launch, never at import: machines
-without ``nvcc`` import every module and use the plain versions.
+without ``nvcc`` import every module and use the plain versions. Each
+library that ``nvcc`` actually compiles is one compile event of
+:mod:`repro_torch.core.monitoring`, with the seconds from the start of
+the builds to its end.
 """
 from __future__ import annotations
 
@@ -18,7 +21,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
+
+from repro_torch.core import monitoring
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -72,6 +78,7 @@ def build(names) -> dict[str, Path]:
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for name in todo:
         tmp = libs[name].with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (tmp, subprocess.Popen(
@@ -80,6 +87,7 @@ def build(names) -> dict[str, Path]:
     failed = []
     for name, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
+        monitoring.record_compile(time.perf_counter() - t0)
         libs[name].with_suffix(".log").write_text(out)
         if proc.returncode != 0:
             failed.append(f"{name} (nvcc exit {proc.returncode}):\n{out}")

@@ -117,14 +117,17 @@ def attention(q, k, v, *, causal=True, window=None, kv_map=None):
     return on_local_shards(local, q, (k, v))
 
 
-def ssd(xdt, a, Bm, Cm, *, chunk=128):
+def ssd(xdt, a, Bm, Cm, *, chunk=128, streaming=False):
     """Mamba2 SSD chunked scan in the reference kernel's layout: xdt
     (B,H,S,P), Bm/Cm (B,S,N) float32 or bfloat16, a (B,H,S) float32 ->
-    y (B,H,S,P) float32."""
+    y (B,H,S,P) float32. ``streaming`` (``cfg.ssm_streaming``) picks the
+    reference's chunk-by-chunk scan for the plain version on CPU and
+    meta tensors; the kernel serves both on the card."""
     if not isinstance(xdt, DTensor):
-        return ssd_scan(xdt, a, Bm, Cm, chunk=chunk)
+        return ssd_scan(xdt, a, Bm, Cm, chunk=chunk, streaming=streaming)
     return on_local_shards(
-        lambda xl, al, bl, cl, off: ssd_scan(xl, al, bl, cl, chunk=chunk),
+        lambda xl, al, bl, cl, off: ssd_scan(xl, al, bl, cl, chunk=chunk,
+                                             streaming=streaming),
         xdt, (Bm, Cm), heads_too=(a,))
 
 

@@ -24,11 +24,20 @@ On a CPU tensor it runs :func:`ssd_scan_plain`, a torch port of the
 reference's ``ssm.ssd_chunked`` in the kernel's layout, with the
 inter-chunk recurrence written as a decay matrix over chunks (no
 sequential loop), which the card also uses as the kernel's yardstick.
+With ``streaming=True`` the CPU and meta tensors take
+:func:`ssd_scan_streaming_plain` instead, the port of the reference's
+``ssm.ssd_chunked_streaming``: a loop over the chunks that carries the
+(B, H, P, N) float32 state and keeps one chunk's (l, l) decay matrix at
+a time. The kernel serves both settings on the card: it never builds
+the per-head all-chunk (l, l) decay matrices either; its all-chunk
+scratch is the (B, H, nc, P, N) chunk states and the (B, nc, l', l')
+C·Bᵀ products (l' = l rounded up to 16), which the heads share.
 
 Gradients: :func:`ssd_scan` is a ``torch.autograd.Function`` on both
 devices. Its forward is the kernels (card) or the plain version (CPU);
-it saves only its inputs, and its backward runs :func:`ssd_scan_plain`
-again on them under autograd, so the gradients of xdt, a, Bm and Cm are
+it saves only its inputs, and its backward runs the plain version of
+its ``streaming`` setting (:func:`plain_for`) again on them under
+autograd, so the gradients of xdt, a, Bm and Cm are
 autograd's gradients of the plain version, each of its input's type (a
 stays float32). The reference trains through its jnp ``ssd_chunked``,
 never through its Pallas kernel, so there is no backward kernel to
@@ -101,6 +110,42 @@ def ssd_scan_plain(xdt, a, Bm, Cm, *, chunk: int = 128):
     return (y_diag + y_off).reshape(B_, H, S, P)
 
 
+def ssd_scan_streaming_plain(xdt, a, Bm, Cm, *, chunk: int = 128):
+    """Plain PyTorch version of the reference's ``ssd_chunked_streaming``
+    in the kernel's layout: the chunks one after another, each one's
+    output from its own (l, l) decay matrix and the state carried from
+    the chunks before it, then the state moved past the chunk. Its
+    temporaries are one chunk's, not all of them at once. bfloat16
+    inputs are widened to float32 (float64 stays float64). Returns y
+    (B,H,S,P) in the widened type."""
+    xdt, Bm, Cm = (x.float() if x.dtype == torch.bfloat16 else x
+                   for x in (xdt, Bm, Cm))
+    B_, H, S, P = xdt.shape
+    N = Bm.shape[-1]
+    l = _chunk(S, chunk)
+    above = ~torch.tril(torch.ones(l, l, dtype=torch.bool,
+                                   device=xdt.device))
+    state = torch.zeros((B_, H, P, N), dtype=xdt.dtype, device=xdt.device)
+    ys = []
+    for c0 in range(0, S, l):
+        x_ = xdt[:, :, c0:c0 + l]                              # (B,H,l,P)
+        B_c, C_c = Bm[:, c0:c0 + l], Cm[:, c0:c0 + l]          # (B,l,N)
+        cs = torch.cumsum(a[:, :, c0:c0 + l], dim=-1)          # (B,H,l)
+        # exp(cs_i - cs_j) for i >= j, 0 above the diagonal (masked
+        # before the exp, so no inf reaches a gradient)
+        Lm = torch.exp((cs[..., :, None] - cs[..., None, :])
+                       .masked_fill(above, float("-inf")))     # (B,H,l,l)
+        scores = C_c @ B_c.transpose(-1, -2)                   # (B,l,l)
+        y = (scores[:, None] * Lm) @ x_
+        y = y + torch.exp(cs)[..., None] * (C_c[:, None]
+                                            @ state.transpose(-1, -2))
+        decay = torch.exp(cs[..., -1:] - cs)                   # (B,H,l)
+        contrib = (x_ * decay[..., None]).transpose(-1, -2) @ B_c[:, None]
+        state = state * torch.exp(cs[..., -1])[..., None, None] + contrib
+        ys.append(y)
+    return torch.cat(ys, dim=2)
+
+
 def _chunk(S: int, chunk: int) -> int:
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1; got {chunk}")
@@ -132,39 +177,46 @@ def _check(xdt, a, Bm, Cm):
                          f"got {tuple(Bm.shape)} and {tuple(Cm.shape)}")
 
 
-def ssd_scan(xdt, a, Bm, Cm, *, chunk: int = 128):
+def ssd_scan(xdt, a, Bm, Cm, *, chunk: int = 128, streaming: bool = False):
     """xdt (B,H,S,P), Bm/Cm (B,S,N) float32 or bfloat16, a (B,H,S)
     float32 -> y (B,H,S,P) float32. The kernels on CUDA tensors (four
     CUDA kernels, counted as one launch), the plain version on CPU and
-    meta tensors. Differentiable in all four inputs (the backward recomputes
-    the plain version)."""
+    meta tensors: :func:`ssd_scan_streaming_plain` with ``streaming``,
+    else :func:`ssd_scan_plain`. Differentiable in all four inputs (the
+    backward recomputes that plain version)."""
     _check(xdt, a, Bm, Cm)
     if xdt.shape[2] == 0:
         return torch.zeros(xdt.shape, dtype=torch.float32,
                            device=xdt.device)
     if xdt.device.type not in PLAIN_DEVICES + ("cuda",):
         raise ValueError(f"no kernel for device {xdt.device}")
-    return _SSDScan.apply(xdt, a, Bm, Cm, _chunk(xdt.shape[2], chunk))
+    return _SSDScan.apply(xdt, a, Bm, Cm, _chunk(xdt.shape[2], chunk),
+                          bool(streaming))
+
+
+def plain_for(streaming: bool):
+    """The plain version of the ``streaming`` setting."""
+    return ssd_scan_streaming_plain if streaming else ssd_scan_plain
 
 
 class _SSDScan(torch.autograd.Function):
     @staticmethod
-    def forward(xdt, a, Bm, Cm, chunk):
+    def forward(xdt, a, Bm, Cm, chunk, streaming):
         if xdt.device.type in PLAIN_DEVICES:
-            return ssd_scan_plain(xdt, a, Bm, Cm, chunk=chunk)
+            return plain_for(streaming)(xdt, a, Bm, Cm, chunk=chunk)
         return _launch(xdt, a, Bm, Cm, chunk)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.save_for_backward(*inputs[:4])
-        ctx.chunk = inputs[4]
+        ctx.chunk, ctx.streaming = inputs[4], inputs[5]
 
     @staticmethod
     def backward(ctx, grad_y):
-        grads = recompute_grads(ssd_scan_plain, ctx.saved_tensors,
+        grads = recompute_grads(plain_for(ctx.streaming), ctx.saved_tensors,
                                 ctx.needs_input_grad[:4], grad_y,
                                 chunk=ctx.chunk)
-        return (*grads, None)
+        return (*grads, None, None)
 
 
 def _launch(xdt, a, Bm, Cm, l):

@@ -6,7 +6,7 @@
 
 The first form builds the problem, the ``--faults`` schedule, the plan
 and the ``--tiers`` tree (if any) as ``launch/train.py`` does, then
-times ``run_network_aware``.
+times ``run_network_aware`` (under the sanitizer with ``--sanitize``).
 The second draws ARCH's parameters (the full config unless ``--smoke``)
 on the device from the seed and times the serving prefill step
 (``launch/steps.make_prefill_step``) on B x S seeded prompts. Both time
@@ -122,7 +122,6 @@ def run(argv=None) -> dict:
         raise SystemExit("launch.breakdown times the fog path (or the "
                          "prefill, --prefill ARCH); --mode lm runs in "
                          "launch.train")
-    train._check_ported(args)
     device = resolve_device(args.device)
     pb = train.build_problem(args)
     t0 = time.perf_counter()
@@ -135,7 +134,7 @@ def run(argv=None) -> dict:
         F.run_network_aware(pb["cfg"], pb["data"], pb["traces"], pb["adj"],
                             plan, streams=pb["streams"],
                             schedule=pb["schedule"], hierarchy=hierarchy,
-                            device=device,
+                            device=device, sanitize=args.sanitize,
                             **train.fault_kwargs(args, faults))
 
     out = _timed(fn, device, own.reps, own.top)

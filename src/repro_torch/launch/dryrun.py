@@ -85,8 +85,6 @@ _COLLECTIVES = {"all_reduce": "all-reduce",
 _MULT = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0,
          "all-to-all": 1.0, "broadcast": 1.0}
 # ops that move no bytes: allocations, and bookkeeping of collectives
-_NO_STREAMING = ("the port has no streaming SSD scan (the reference's "
-                 "ssd_chunked_streaming, ROADMAP.md queue 3)")
 _NO_TRAFFIC = ("empty", "empty_strided", "_unsafe_view", "wait_tensor",
                "_wrap_tensor_autograd", "detach", "alias", "lift_fresh")
 
@@ -188,15 +186,13 @@ def build_step(cfg0, shape, mesh, optimizer="adamw",
                variant: dict | None = None):
     """(step, args, cfg): the step of ``shape``'s kind for config
     ``cfg0`` and its arguments as DTensors on ``mesh``. ``variant`` —
-    the reference's perf knobs: moe_groups, moe_pad_experts (config
-    overrides); microbatches, zero1, zero2 (step and sharding options).
-    The reference's ssm_streaming raises: the port has no streaming
-    scan."""
+    the reference's perf knobs: moe_groups, ssm_streaming,
+    moe_pad_experts (config overrides); microbatches, zero1, zero2 (step
+    and sharding options)."""
     variant = variant or {}
-    if variant.get("ssm_streaming"):
-        raise NotImplementedError(_NO_STREAMING)
     cfg = St.config_for_shape(cfg0, shape)
-    overrides = {k: variant[k] for k in ("moe_groups", "moe_pad_experts")
+    overrides = {k: variant[k]
+                 for k in ("moe_groups", "ssm_streaming", "moe_pad_experts")
                  if k in variant}
     if overrides:
         cfg = cfg.with_overrides(**overrides)
@@ -338,8 +334,7 @@ def parse_args(argv=None):
     # perf knobs, as the reference's
     ap.add_argument("--moe-groups", type=int, default=0)
     ap.add_argument("--pad-experts", type=int, default=0)
-    ap.add_argument("--ssm-streaming", action="store_true",
-                    help="refused: " + _NO_STREAMING)
+    ap.add_argument("--ssm-streaming", action="store_true")
     ap.add_argument("--microbatches", type=int, default=0)
     ap.add_argument("--zero1", action="store_true")
     ap.add_argument("--zero2", action="store_true")
@@ -353,7 +348,7 @@ def variant_of(args) -> dict:
     if args.pad_experts:
         variant["moe_pad_experts"] = args.pad_experts
     if args.ssm_streaming:
-        raise SystemExit(f"--ssm-streaming: {_NO_STREAMING}")
+        variant["ssm_streaming"] = True
     if args.microbatches:
         variant["microbatches"] = args.microbatches
     if args.zero1:

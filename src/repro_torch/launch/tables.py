@@ -1311,6 +1311,7 @@ def sparse_scale(scale: BenchScale, device=None, *,
     # (per-edge streams scattered onto (T, n, n)) and churn seed
     n0 = sizes[0]
     plan_s, pred_s, sparse_s, _, (src, dst, etr) = sparse_plan(n0)
+    # foglint: disable=dense-materialization -- sparse_scale's dense numpy oracle, built at the smallest n only
     A = np.zeros((n0, n0), bool)
     A[src, dst] = True
     c_link = np.zeros((T_PLAN, n0, n0))

@@ -67,6 +67,7 @@ from repro_torch.core import faults as fl
 from repro_torch.core import federated as F
 from repro_torch.core.engine import resolve_engine
 from repro_torch.core import movement as mv
+from repro_torch.core import sanitize as sz
 from repro_torch.core.costs import (ici_costs, synthetic_costs,
                                     testbed_like_costs, with_capacity)
 from repro_torch.core.hierarchy import TierTree
@@ -79,11 +80,6 @@ from repro_torch.launch import steps as St
 from repro_torch.models import transformer as T
 from repro_torch.models.module import init_params
 from repro_torch.optim import optimizers as opt_lib
-
-
-def _unported(what: str, item: int, title: str) -> SystemExit:
-    return SystemExit(f"{what} is not ported to repro_torch yet "
-                      f"(ROADMAP.md, queue 1 item {item}: {title})")
 
 
 def solve_setting(setting: str, traces, adj, D, error_model="discard",
@@ -115,13 +111,6 @@ def solve_setting(setting: str, traces, adj, D, error_model="discard",
     if setting in ("D", "E"):
         plan = mv.repair_capacities(plan, traces, adj, D)
     return plan
-
-
-def _check_ported(args) -> None:
-    if args.mode == "lm":             # as in the reference, lm mode reads
-        return                        # none of the fog flags
-    if args.sanitize:
-        raise _unported("--sanitize", 13, "tooling")
 
 
 def _print_summary(out: dict, **kw) -> None:
@@ -261,7 +250,6 @@ def run_fog(args) -> dict:
     (→ realized on the true schedule) → routing → training → plan cost. Prints the reference's summary JSON (plus the
     device, pad size and phase times) and returns it with the plan and
     the full training history under ``"plan"`` and ``"history"``."""
-    _check_ported(args)
     device = resolve_device(args.device)
     pb = build_problem(args)
     cfg, traces, schedule, D = pb["cfg"], pb["traces"], pb["schedule"], \
@@ -272,10 +260,26 @@ def run_fog(args) -> dict:
     plan, replan = make_plan(args, pb, device, timing, faults)
     t1 = time.perf_counter()
     engine = fog_engine(args)
-    hist = F.run_network_aware(cfg, pb["data"], traces, pb["adj"], plan,
-                               streams=pb["streams"], schedule=schedule,
-                               engine=engine, hierarchy=hierarchy,
-                               device=device, **fault_kwargs(args, faults))
+    run_kw = dict(streams=pb["streams"], schedule=schedule, engine=engine,
+                  hierarchy=hierarchy, device=device,
+                  **fault_kwargs(args, faults))
+    sanitize_report = None
+    if args.sanitize:
+        # the reference's smoke protocol: a cold pass under the
+        # sanitizer, then a warm one that raises RecompileError if it
+        # builds a kernel or meets a new program key; the transfer guard
+        # around the round loops and debug_nans on both
+        F.run_network_aware(cfg, pb["data"], traces, pb["adj"], plan,
+                            sanitize=True, **run_kw)
+        warm = sz.SanitizeConfig(expect_warm=True)
+        hist = F.run_network_aware(cfg, pb["data"], traces, pb["adj"], plan,
+                                   sanitize=warm, **run_kw)
+        sanitize_report = {
+            "transfer_guard": True, "debug_nans": True,
+            "warm_compiles": int(getattr(warm, "last_compiles", 0))}
+    else:
+        hist = F.run_network_aware(cfg, pb["data"], traces, pb["adj"], plan,
+                                   **run_kw)
     timing["train_s"] = time.perf_counter() - t1
     cost = mv.plan_cost(plan, traces, D, error_model=args.error_model)
     out = {"mode": "fog", "setting": args.setting, "engine": engine,
@@ -293,6 +297,8 @@ def run_fog(args) -> dict:
         out["fault_summary"] = hist["fault_summary"]
         out["quorum_skips"] = int(sum(
             not ok for ok in hist.get("agg_quorum_ok", [])))
+    if sanitize_report is not None:
+        out["sanitize"] = sanitize_report
     _print_summary(out, default=float, indent=2)
     return {**out, "plan": plan, "history": hist}
 
@@ -322,6 +328,7 @@ def lm_movement_inputs(n_shards: int, batch: int, T_rounds: int,
     for t in range(T_rounds):
         dest = np.repeat(np.arange(n_shards), per_shard)
         for i in range(n_shards):
+            # foglint: disable=dense-materialization -- LM-demo sharding: n here is the shard count (<= 8), not the fog-device axis
             j = int(np.argmax(plan.s[t, i]))
             if j != i:  # shard i's samples processed by shard j
                 dest[i * per_shard:(i + 1) * per_shard] = j
@@ -358,7 +365,6 @@ def run_lm(args) -> dict:
     loss_last, steps_per_s, moved_frac). Returns it with the loss of
     every step (every round under FedAvg) under ``"losses"`` and the
     device under ``"device"``."""
-    _check_ported(args)
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.layers:
@@ -415,7 +421,7 @@ def run_lm(args) -> dict:
     out = {"mode": "lm", "arch": args.arch, "loss_first": losses[0],
            "loss_last": float(np.mean(losses[-5:])),
            "steps_per_s": args.steps / dt,
-           "moved_frac": float((plan.s * (1 - np.eye(shards))).sum()
+           "moved_frac": float((plan.s * (1 - np.eye(shards))).sum()  # foglint: disable=dense-materialization -- shard-count square (<= 8), not the device axis
                                / plan.s.shape[0] / shards)}
     _print_summary(out, indent=2)
     return {**out, "losses": losses, "device": str(device)}
@@ -481,7 +487,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--unguarded", action="store_true")
     ap.add_argument("--checkpoint", default=None, metavar="PATH")
     ap.add_argument("--resume", default=None, metavar="CKPT")
-    ap.add_argument("--sanitize", action="store_true")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="runtime sanitizer smoke: a sanitized cold "
+                         "pass, then a warm one that must compile "
+                         "nothing; the summary gains \"sanitize\"")
     # lm
     ap.add_argument("--arch", default="qwen3-14b")
     ap.add_argument("--smoke", action="store_true", default=True,

@@ -104,7 +104,9 @@ def moe_apply(x, p, cfg):
         G = 1
     Tg = T // G
     C = expert_capacity(Tg, cfg)
-    xt = x.reshape(G, Tg, D)
+    # pinned: on DTensors its gradient must come back in xt's own
+    # placements, or the reshape's backward view fails on uneven shards
+    xt = pin(x.reshape(G, Tg, D))
     probs, gate, eids, pos, keep = route(xt, p["router"], cfg, C)
     flat_e = eids.reshape(G, Tg * k)
     pos_c = torch.where(keep, pos, 0)

@@ -3,17 +3,19 @@ of :mod:`repro.models.ssm`).
 
 The prefill path runs the chunked scan through
 :func:`repro_torch.kernels.ops.ssd` (the hand-written kernel on the
-card, its plain version on the CPU) in the kernel's (B, H, S, P)
-layout; decode is the O(1)-state recurrent step in plain torch, as in
-the reference. Projections are kept separate (w_z / w_x / w_B / w_C /
-w_dt) as in the reference.
+card, its plain version on the CPU: the chunk-by-chunk one under
+``cfg.ssm_streaming``, as the reference switches to
+``ssd_chunked_streaming``) in the kernel's (B, H, S, P) layout; decode
+is the O(1)-state recurrent step in plain torch, as in the reference.
+Projections are kept separate (w_z / w_x / w_B / w_C / w_dt) as in the
+reference.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import gather_dims
+from repro_torch.distributed.sharding import even_shards, gather_dims
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rmsnorm, upcast
 from repro_torch.models.module import Spec
@@ -79,7 +81,8 @@ def ssm_apply(x, p, cfg):
     y = ops.ssd(xdt.transpose(1, 2).contiguous(),
                 a.transpose(1, 2).contiguous(),
                 Bm.contiguous(), Cm.contiguous(),
-                chunk=cfg.ssm_chunk).transpose(1, 2).to(x.dtype)
+                chunk=cfg.ssm_chunk, streaming=cfg.ssm_streaming
+                ).transpose(1, 2).to(x.dtype)
     y = y + p["D_skip"][None, None, :, None].to(y.dtype) * xh
     y = y.reshape(B, S, H * P)
     y = rmsnorm(y * F.silu(upcast(z)).to(y.dtype), p["norm"])
@@ -118,7 +121,9 @@ def ssm_decode(x, p, cfg, cache):
     xs = torch.einsum("bki,ik->bi", hist, p["conv_w"]) + p["conv_b"]
     xs = F.silu(upcast(xs)).to(x.dtype)
 
-    dt = F.softplus(upcast(dt) + p["dt_bias"])                 # (B,H)
+    # on DTensors (the dry run) the heads stay sharded only as far as
+    # they divide, or the state update below cannot be flattened
+    dt = even_shards(F.softplus(upcast(dt) + p["dt_bias"]), (1,))  # (B,H)
     A = -torch.exp(upcast(p["A_log"]))
     decay = torch.exp(dt * A)                                  # (B,H)
     xh = upcast(gather_dims(xs, (1,)).reshape(B, H, P))

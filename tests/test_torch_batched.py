@@ -434,8 +434,14 @@ def test_cli_engine_batched_matches_reference_cli(flags, monkeypatch):
 
 
 def test_cli_engine_sharded_still_refuses():
-    """--engine sharded runs (tests/test_torch_sharded_engine.py); with
-    --sanitize it still stops, naming the tooling item."""
-    with pytest.raises(SystemExit, match="queue 1 item 13"):
-        ttrain.main(ARGS[:-1] + ["sharded", "--device", "cpu",
-                                 "--sanitize"])
+    """--engine sharded runs (tests/test_torch_sharded_engine.py), and
+    with --sanitize too: the reference's sanitize block, the history
+    bitwise the unsanitized run's."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        got = ttrain.main(ARGS[:-1] + ["sharded", "--device", "cpu",
+                                       "--sanitize"])
+        plain = ttrain.main(ARGS[:-1] + ["sharded", "--device", "cpu"])
+    assert got["engine"] == "sharded"
+    assert got["sanitize"] == {"transfer_guard": True, "debug_nans": True,
+                               "warm_compiles": 0}
+    assert_bitwise(got["history"], plain["history"])

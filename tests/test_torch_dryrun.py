@@ -24,8 +24,8 @@ default group).
   dim divides).
 * The CLI: the production (16, 16) qwen3-14b ``train_4k`` row is a PASS
   with the reference's keys and the torch version; an unknown arch
-  writes a FAIL row and exits 1; ``--ssm-streaming`` (no streaming scan
-  in the port) is refused.
+  writes a FAIL row and exits 1; ``--ssm-streaming`` traces
+  mamba2-1.3b ``train_4k`` through the streaming scan.
 """
 import json
 import os
@@ -235,8 +235,14 @@ def test_cli_production_row_and_fail_row(tmp_path):
     assert "error" in fail and fail["torch"] == row["torch"]
 
 
-def test_cli_refuses_ssm_streaming():
+def test_cli_refuses_ssm_streaming(tmp_path):
+    """--ssm-streaming, refused while the port had no streaming scan,
+    now traces: the reference's variant, a config override."""
+    out = tmp_path / "rows.jsonl"
     r = _run(["-m", "repro_torch.launch.dryrun", "--arch", "mamba2-1.3b",
-              "--shape", "train_4k", "--ssm-streaming"])
-    assert r.returncode != 0 and "no streaming SSD scan" in r.stderr
-    assert "PASS" not in r.stdout
+              "--shape", "train_4k", "--ssm-streaming", "--out", str(out)],
+             timeout=600)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "PASS mamba2-1.3b × train_4k × 16x16" in r.stdout
+    row = json.loads(out.read_text().splitlines()[-1])
+    assert KEYS <= set(row) and row["variant"] == {"ssm_streaming": True}

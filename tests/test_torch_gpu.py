@@ -1116,3 +1116,117 @@ def test_fedavg_round_on_nccl_world_of_one_is_the_one_card_round(
     for a, b in zip(topt.tree_leaves(p0) + topt.tree_leaves(s0),
                     topt.tree_leaves(p1) + topt.tree_leaves(s1)):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the sanitizer's guard on the card, and the streaming scan flag
+# ---------------------------------------------------------------------------
+
+
+def test_sanitize_guard_sets_and_restores_sync_debug_mode(cuda):
+    from repro_torch.core import sanitize as sz
+
+    x = torch.arange(1.0, 9.0, device=cuda)
+    for before in (0, 1):                    # "default", then "warn"
+        torch.cuda.set_sync_debug_mode(before)
+        try:
+            with sz.sanitized(True):
+                with sz.hot_loop_guard():
+                    assert torch.cuda.get_sync_debug_mode() == 2
+                    y = x * 2.0                  # no sync: allowed
+                assert torch.cuda.get_sync_debug_mode() == before
+                with pytest.raises(RuntimeError):
+                    with sz.hot_loop_guard():
+                        x.sum().item()
+                assert torch.cuda.get_sync_debug_mode() == before
+            assert torch.cuda.get_sync_debug_mode() == before
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert float(y.sum()) == 72.0
+
+
+def test_sanitize_sync_debug_catches_syncs_inside_ops(cuda):
+    """A boolean mask index syncs inside the op (its output size is read
+    on the host): the dispatch mode sees only aten.index, the sync debug
+    mode raises; copies between the host and the card raise too."""
+    from repro_torch.core import sanitize as sz
+
+    x = torch.arange(-4.0, 4.0, device=cuda)
+    with sz.sanitized(True):
+        for op in (lambda: x[x > 0], lambda: x.cpu(),
+                   lambda: torch.ones(3).to(cuda)):
+            with pytest.raises(RuntimeError):
+                with sz.hot_loop_guard():
+                    op()
+        with sz.hot_loop_guard() as outs:    # card to card: allowed
+            outs.append(x.clone().to(cuda))
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.parametrize("loop", ["scan", "checkpointed", "hierarchical",
+                                  "batched"])
+def test_sanitized_engine_on_card_is_bitwise_and_guarded(cuda, loop,
+                                                         tmp_path):
+    """Each guarded round loop on the card under the sanitizer, cold and
+    warm (no build, no new program key): bit for bit the unsanitized
+    run, with guarded corrupt uploads in the window of round 3."""
+    from repro_torch.core import faults as fl
+    from repro_torch.core import federated as F
+    from repro_torch.core import sanitize as sz
+    from repro_torch.core.hierarchy import TierTree
+    from repro_torch.data.synthetic import make_image_dataset
+
+    data = make_image_dataset(n_train=600, n_test=200, seed=0)
+    cfg = F.FedConfig(n=6, T=8, tau=2, eta=0.05, model="mlp", seed=3)
+    traces = costs.synthetic_costs(cfg.n, cfg.T, np.random.default_rng(1))
+    plan = movement.no_movement_plan(cfg.T, cfg.n)
+    kw = dict(faults=fl.FaultSchedule(cfg.T, cfg.n, cfg.tau, [
+        fl.FaultEvent(3, "corrupt", 0, float("nan"))]), engine=loop)
+    if loop == "checkpointed":
+        kw.update(engine="scan", checkpoint_path=str(tmp_path / "c"))
+    elif loop == "hierarchical":
+        kw.update(engine="scan", hierarchy=TierTree.from_spec("3@2,1@4", 6))
+    warm = sz.SanitizeConfig(expect_warm=True)
+    runs = [F.run_network_aware(cfg, data, traces, None, plan, sanitize=s,
+                                device=cuda, **kw)
+            for s in (False, True, warm)]
+    assert warm.last_compiles == 0
+    for h in runs[1:]:
+        assert h["test_acc"] == runs[0]["test_acc"]
+        assert h["agg_survivors"] == runs[0]["agg_survivors"]
+        np.testing.assert_array_equal(np.stack(h["device_loss"]),
+                                      np.stack(runs[0]["device_loss"]))
+
+
+def test_sanitized_sharded_engine_on_nccl_world_of_one(nccl_world_of_one,
+                                                       cuda):
+    from repro_torch.core import federated as F
+    from repro_torch.data.synthetic import make_image_dataset
+
+    data = make_image_dataset(n_train=600, n_test=200, seed=0)
+    cfg = F.FedConfig(n=5, T=8, tau=2, eta=0.05, model="mlp", seed=3)
+    traces = costs.synthetic_costs(cfg.n, cfg.T, np.random.default_rng(1))
+    plan = movement.no_movement_plan(cfg.T, cfg.n)
+    h0, h1 = (F.run_network_aware(cfg, data, traces, None, plan,
+                                  engine="sharded", sanitize=s, device=cuda)
+              for s in (False, True))
+    assert h1["test_acc"] == h0["test_acc"]
+    np.testing.assert_array_equal(np.stack(h1["device_loss"]),
+                                  np.stack(h0["device_loss"]))
+
+
+def test_streaming_flag_runs_kernel_four(cuda):
+    """ops.ssd(streaming=True) on the card is the kernel (one launch),
+    bitwise the default setting's, and within 1e-4 of max|y| of the
+    streaming plain version."""
+    from repro_torch.kernels import ops
+
+    args = _ssd_inputs(2, 4, 256, 64, 64, cuda)
+    sd.reset_launches()
+    got = ops.ssd(*args, chunk=64, streaming=True)
+    default = ops.ssd(*args, chunk=64)
+    want = sd.ssd_scan_streaming_plain(*args, chunk=64)
+    torch.cuda.synchronize()
+    assert sd.launches == 2
+    assert torch.equal(got, default)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

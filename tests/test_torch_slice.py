@@ -82,9 +82,31 @@ def test_cli_cost_equals_reference_cli(capsys):
                                             "--sanitize"],
     ["--tiers", "2@4,1@8", "--sanitize"],
 ])
-def test_cli_unported_flags_name_their_roadmap_item(flags):
-    with pytest.raises(SystemExit, match="ROADMAP.md, queue 1 item"):
-        ttrain.main(ARGS + ["--device", "cpu"] + flags)
+def test_cli_unported_flags_name_their_roadmap_item(flags, tmp_path,
+                                                    capsys):
+    """Every flag is ported: each combination runs sanitized, its
+    history bitwise the same flags' run without --sanitize, or raises
+    what the reference CLI raises (a resume from a missing file)."""
+    flags = [str(tmp_path / f) if f == "x" else f for f in flags]
+    try:
+        got = ttrain.main(ARGS + ["--device", "cpu"] + flags)
+    except Exception as e:
+        with pytest.raises(type(e)) as want:
+            rtrain.main(ARGS + flags)
+        assert str(want.value) == str(e)
+        return
+    plain = ttrain.main(ARGS + ["--device", "cpu"]
+                        + [f for f in flags if f != "--sanitize"])
+    capsys.readouterr()
+    assert got["sanitize"] == {"transfer_guard": True, "debug_nans": True,
+                               "warm_compiles": 0}
+    a, b = got["history"], plain["history"]
+    assert a["test_acc"] == b["test_acc"]
+    assert a["test_loss"] == b["test_loss"]
+    np.testing.assert_array_equal(np.stack(a["device_loss"]),
+                                  np.stack(b["device_loss"]))
+    np.testing.assert_array_equal(np.stack(a["H_agg"]),
+                                  np.stack(b["H_agg"]))
 
 
 def test_breakdown_reports_cold_warm_and_busy_time():

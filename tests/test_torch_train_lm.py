@@ -107,8 +107,8 @@ def _plain_ops():
         return fa.flash_attention_plain(q, k, v, kv_map, causal=causal,
                                         window=window)
 
-    def ssd(xdt, a, Bm, Cm, *, chunk=128):
-        return sd.ssd_scan_plain(xdt, a, Bm, Cm, chunk=chunk)
+    def ssd(xdt, a, Bm, Cm, *, chunk=128, streaming=False):
+        return sd.plain_for(streaming)(xdt, a, Bm, Cm, chunk=chunk)
 
     ops.attention, ops.ssd = attention, ssd
     try:
