@@ -6,7 +6,7 @@
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; it
 imports no JAX. It builds every CUDA kernel of the fog, serving and
 training paths from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
-source, all started together), then runs twenty-two phases and fails
+source, all started together), then runs twenty-three phases and fails
 (exit 1, no result line) if any of them fails:
 
 (a) the Theorem-3 kernel against its plain PyTorch version on the
@@ -297,7 +297,8 @@ source, all started together), then runs twenty-two phases and fails
     and mfu = compute_useful_s / the warm time; (u4) the dry run of
     qwen3-14b ``train_4k`` on the fake (16, 16) mesh in a subprocess
     (``python -m repro_torch.launch.dryrun``): a PASS row, its dominant
-    term and trace time;
+    term, trace time and memory columns (a peak of live bytes, and the
+    parameters and optimizer state the step updates in place aliased);
 (v) the runtime sanitizer (``core/sanitize.py``): (v1) ``--sanitize``
     at fog scale, flat, with ``--tiers 32@5,4@10,1@20`` and with
     ``--engine batched``, each in turns with the same flags without it
@@ -312,7 +313,21 @@ source, all started together), then runs twenty-two phases and fails
     scope each raise, and the sync debug mode is restored; (v3), run
     right after (j) while its parameters are on the card: (j)'s
     zamba2-7b prefill once more with ``ssm_streaming``, bit for bit
-    the default prefill, with the same 81 scan launches.
+    the default prefill, with the same 81 scan launches;
+(w) the reference's remaining bench rows and the examples: (w1)
+    ``engine_throughput``, ``kernels_micro``, ``solver_scaling``,
+    ``movement_scale`` and ``convex_batched`` of ``launch/tables.py`` on
+    the card at ``--quick`` scale: the three float64 Theorem-3 plans
+    identical, the float32 kernel-1 plan bit for bit its plain version's
+    with one launch, the sparse and dense movement plans identical, and
+    each of the four kernels at its micro shape within its tolerance of
+    its plain version (attention 2e-5, the scan 1e-4 of max|y|, kernels
+    1 and 2 bit for bit), one launch a call, timed beside its plain
+    version, the library call and its least time; (w2)
+    ``dryrun_roofline`` on (u4)'s JSONL; (w3) the four examples
+    (``examples/*_torch.py``) side by side in subprocesses with a
+    timeout, each exiting 0, the planning example through kernel 1 and
+    the serving example through kernels 3 and 4.
 
 The line before the last is the JSON list of kernels; the one before it
 the card's name and power limit; the last line is the result.
@@ -334,7 +349,8 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM: HBM bandwidth, float32 rate outside the tensor cores and
 # dense TF32 tensor-core rate (NVIDIA data sheet; the least times below
 # are against these peaks). Float32 accuracy on the tensor cores takes
-# three TF32 products (3xTF32), so a third of the TF32 rate.
+# three TF32 products (3xTF32), so a third of the TF32 rate. The same
+# rates as ``launch/kernel_timing.py``; ``scripts/*_ab.py`` read these.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TF32X3_OPS_PER_S = 495e12 / 3
@@ -542,74 +558,32 @@ def phase_c_fog(torch, np, card, counters, cuda):
     return launches, pb, ins, tim["train_s"]
 
 
-SPIN_CYCLES = 1_000_000     # ~0.5 ms of the card's clock
+def _kt():
+    """The port's timing and bounds (``launch/kernel_timing.py``: the
+    H100's peak rates, the L2 flush and spin, the least-time formulas);
+    importable once :func:`main` has put ``src`` on the path."""
+    from repro_torch.launch import kernel_timing
+
+    return kernel_timing
 
 
 def flush_buffer(torch, device):
-    """The buffer _flush reads: 128 MiB, over twice the L2 cache."""
-    return torch.zeros(128 * 1024 ** 2, dtype=torch.uint8, device=device)
-
-
-def _flush(flush):
-    """Evict the L2 cache by reading ``flush`` (larger than the 50 MB
-    L2): the lines it leaves are clean, so the timed call pays no
-    write-back of the flush's own lines, as it would after a write."""
-    flush.amax()
+    """The buffer _time_ms reads to flush the L2: 128 MiB."""
+    return _kt().flush_buffer(device)
 
 
 def _time_ms(torch, fn, args, flush, reps=30, spin=True):
     """Median time of one call on the card, each launch after an L2
-    flush. With ``spin``, the card spins (``torch.cuda._sleep``) before
-    each start event while the host queues the call behind it, so the
-    window holds the card's time alone; without it the window also holds
-    whatever part of the host's launch latency the card waits for."""
-    for _ in range(3):
-        fn(*args)
-    times = []
-    for _ in range(reps):
-        _flush(flush)
-        if spin:
-            torch.cuda._sleep(SPIN_CYCLES)
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn(*args)
-        e1.record()
-        times.append((e0, e1))
-    torch.cuda.synchronize()
-    ms = sorted(a.elapsed_time(b) for a, b in times)
-    return ms[len(ms) // 2]
+    flush, the card spinning before each start event unless ``spin`` is
+    False (``kernel_timing.time_ms``)."""
+    return _kt().time_ms(fn, args, flush, reps=reps, spin=spin)
 
 
 def _greedy_bounds(torch, ins):
-    """Least times of one Theorem-3 call on these inputs, in ms. The
-    bound: the bytes it must move (all of adj, c_link at live links
-    only, each vector and output once) at the HBM rate, against its
-    operations (one add and one compare a live link) on the CUDA cores.
-    The sector floor: the same with c_link counted in the 32-B sectors
-    that hold a live link, as DRAM moves them (c_link's storage starts
-    on a sector boundary); the granule floor: in 64-B granules."""
-    c_link, c_next, c_node, f_err, adj = ins
-    T, n = c_node.shape
-    eye = torch.eye(n, dtype=torch.bool, device=adj.device)
-    live = (adj & ~eye).reshape(-1)
-    links = int(live.sum())
-
-    def blocks(floats):         # blocks of c_link that hold a live link
-        pad = live.new_zeros((-live.numel()) % floats)
-        return int(torch.cat([live, pad]).view(-1, floats).any(1).sum())
-
-    sectors, granules = blocks(8), blocks(16)
-    rest = T * n * n + 3 * 4 * T * n + 3 * 4 * T * n
-    t_bytes = (rest + 4 * links) / HBM_BYTES_PER_S
-    t_ops = 2 * links / F32_OPS_PER_S
-    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "sector_floor_ms": 1e3 * (rest + 32 * sectors) / HBM_BYTES_PER_S,
-            "granule_floor_ms": 1e3 * (rest + 64 * granules)
-            / HBM_BYTES_PER_S,
-            "live_links": links, "live_sectors": sectors,
-            "live_granules": granules}
+    """Least times of one Theorem-3 call on these inputs, in ms, with
+    its 32-B sector and 64-B granule floors
+    (``kernel_timing.greedy_bounds``)."""
+    return _kt().greedy_bounds(ins)
 
 
 def _in_turns(torch, fns, args, flush, reps=3):
@@ -1046,11 +1020,6 @@ def _row_site(torch, sr, name, d, ids, G, h, layout, launches, flush):
                                                                prod)
 
     args = (d, ids, G)
-    E = m_in * P
-    scaled = h is not None
-    nbytes = 4 * E + 4 * m_in * (1 + scaled) + 4 * G * P
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = (1 + scaled) * E / F32_OPS_PER_S
     site = {"site": name, "shape": {"m": int(m), "P": int(P), "G": int(G)},
             "launches": launches,
             "ms": _time_ms(torch, kernel, args, flush),
@@ -1058,10 +1027,7 @@ def _row_site(torch, sr, name, d, ids, G, h, layout, launches, flush):
             "library_ms": _time_ms(torch, library, args, flush),
             "layout_ms": _time_ms(torch, sr.segment_layout, (ids, G), flush,
                                   reps=10),
-            "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "flat_bound_ms": 1e3 * (8 * E + 4 * G * P) / HBM_BYTES_PER_S,
-            "product_pass_ms": 1e3 * (8 * E + 4 * m_in) / HBM_BYTES_PER_S}
+            **_kt().row_sum_bounds(m_in, P, G, h is not None)}
     if m_in < m:
         site["shape"]["rows_in_range"] = m_in
     del prod
@@ -1479,23 +1445,11 @@ def phase_k_decode_check(torch, np, card, served, ops, fa, sd):
                              "prefill's maximum within the tolerance")
 
 
-def _visible_pairs(np, Sq, Sk, causal, window):
-    """(query, key) pairs the masks leave, counted row by row."""
-    i = np.arange(Sq)
-    hi = np.minimum(i, Sk - 1) if causal else np.full(Sq, Sk - 1)
-    lo = np.maximum(i - window + 1, 0) if window else np.zeros(Sq, np.int64)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
 def _bounds(nbytes, ops_):
-    """Least times of a tensor-core kernel whose products are 3xTF32:
-    bytes at the HBM rate against flops at the 3xTF32 rate; and, for the
-    log line, the flops on the CUDA cores."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops_ / TF32X3_OPS_PER_S
-    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_cuda_cores_ms": 1e3 * max(t_bytes,
-                                             ops_ / F32_OPS_PER_S)}
+    """Least times of a tensor-core kernel whose products are 3xTF32,
+    and for the log line on the CUDA cores
+    (``kernel_timing.tensor_core_bounds``)."""
+    return _kt().tensor_core_bounds(nbytes, ops_)
 
 
 def _cuda_kernels(torch, fn, args):
@@ -1555,9 +1509,9 @@ def phase_l_timing(torch, np, fa, sd, served):
             - exact).abs().max())}
     del exact
     lib_ok = window is None and H == KH
-    pairs = B * H * _visible_pairs(np, Sq, Sk, causal, window)
-    nbytes = 4 * (2 * B * H * Sq * hd + 2 * B * KH * Sk * hd)
-    ops_ = 4 * hd * pairs              # q.k and p.v: 2 flops a MAC each
+    pairs = B * H * _kt().visible_pairs(Sq, Sk, causal, window)
+    nbytes, ops_ = _kt().attention_work(B, H, KH, Sq, Sk, hd, causal,
+                                        window)
     attn = {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:109",
@@ -1590,12 +1544,7 @@ def phase_l_timing(torch, np, fa, sd, served):
     if not ssd_err <= SSD_TOL * float(want.abs().max()):
         raise AssertionError("ssd_scan != plain on the prefill's inputs")
     l = min(chunk, S)
-    tri = l * (l + 1) // 2      # the (i, j <= i) pairs: L is 0 above them
-    # C·Bᵀ once per (batch, chunk), as B and C are shared by the heads;
-    # per head the masked product with x, C·Sᵀ and the state update
-    ops_ = B * (S // l) * (2 * tri * N
-                           + H * (2 * tri * P + 2 * l * N * P + 2 * l * P * N))
-    nbytes = 4 * (2 * B * H * S * P + B * H * S + 2 * B * S * N)
+    nbytes, ops_ = _kt().ssd_work(B, H, S, P, N, chunk)
     ssd = {"name": "ssd_scan", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
            "replaces": "src/repro/kernels/ssd_scan.py:81",
@@ -3874,9 +3823,9 @@ def attention_site(torch, np, fa, name, entry, launches, flush):
     torch.testing.assert_close(got, want, atol=ATTN_TOL, rtol=ATTN_TOL)
     lib_err = float((library(q, k, v) - want).abs().max())
     del got, want
-    pairs = B * H * _visible_pairs(np, Sq, Sk, causal, window)
-    bounds = _bounds(4 * (2 * B * H * Sq * hd + 2 * B * KH * Sk * hd),
-                     4 * hd * pairs)
+    pairs = B * H * _kt().visible_pairs(Sq, Sk, causal, window)
+    bounds = _bounds(*_kt().attention_work(B, H, KH, Sq, Sk, hd, causal,
+                                           window))
     bounds.pop("bound_cuda_cores_ms")
     site = {"name": name, "launches": launches, "max_abs_err": err,
             "ms": _time_ms(torch, kernel, (q, k, v), flush, reps=10),
@@ -4441,8 +4390,13 @@ def phase_u_dryrun(card):
         f"by op (per device, logical) {json.dumps(top)}, "
         f"bytes_per_device {row['bytes_per_device']}, collectives "
         f"{json.dumps(row['collectives']['per_op'])}, useful_flops_ratio "
-        f"{row['useful_flops_ratio']}, subprocess wall {wall:.1f} s, device "
-        f"meta [{card}]")
+        f"{row['useful_flops_ratio']}, memory {json.dumps(row['memory'])}, "
+        f"subprocess wall {wall:.1f} s, device meta [{card}]")
+    mem = row["memory"]
+    if not (mem["temp_size_in_bytes"] > 0
+            and 0 < mem["alias_size_in_bytes"]
+            <= mem["argument_size_in_bytes"]):
+        raise AssertionError(f"(u4) memory columns {mem}")
     return row
 
 
@@ -4632,6 +4586,102 @@ def phase_v_streaming(torch, np, card, counters, served, cuda):
         raise AssertionError(f"(v3) equal {equal}, launches {launches}")
 
 
+# ---------------------------------------------------------------------------
+# (w) the reference's remaining bench rows and the four examples
+# ---------------------------------------------------------------------------
+
+W_ROWS = ("engine_throughput", "kernels_micro", "solver_scaling",
+          "movement_scale", "convex_batched")
+# (script, arguments): each at a size that runs in seconds
+W_EXAMPLES = (("quickstart_torch.py", []),
+              ("offload_planning_torch.py", []),
+              ("serve_llm_torch.py", []),
+              ("fog_train_torch.py", ["--quick"]))
+W_EXAMPLE_TIMEOUT = 240
+
+
+def phase_w_rows(card):
+    """(w1) the five timed rows of ``launch/tables.py`` on the card at
+    ``--quick`` scale: the float64 plans identical, the kernel-1 plan
+    bit for bit its plain version's with one launch, the sparse and
+    dense movement plans identical, each ``kernels_micro`` kernel within
+    its tolerance of its plain version with one launch a call; (w2)
+    ``dryrun_roofline`` on the JSONL that (u4) wrote."""
+    from repro_torch.launch import tables as TT
+
+    rows = {}
+    for name in W_ROWS:
+        t0 = time.perf_counter()
+        rows[name] = TT.TABLES[name](TT.QUICK, "cuda")
+        rows[name]["seconds"] = time.perf_counter() - t0
+    et = rows["engine_throughput"]
+    log(f"(w1) engine_throughput {json.dumps(et, default=float)} [{card}]")
+    mov = et["movement"]
+    if not (mov["identical_plan"] and mov["device_plain_identical"]
+            and mov["device_launches"] == 1):
+        raise AssertionError(f"(w1) engine_throughput movement {mov}")
+    for e in rows["kernels_micro"]["kernels"]:
+        log(f"(w1) kernels_micro {e['name']} {e['shape']}: kernel "
+            f"{e['ms']} ms, plain {e['plain_ms']} ms, library "
+            f"{e['library_ms']} ms, least time {e['bound_ms']} ms (bound "
+            f"by {e['bound_by']}), launches a call {e['launches']}, max abs "
+            f"err vs plain {e['max_abs_err']} [{card}]")
+        if not (e["within_tolerance"] and e["launches"] == 1):
+            raise AssertionError(f"(w1) kernels_micro {e}")
+    for name in ("solver_scaling", "movement_scale", "convex_batched"):
+        log(f"(w1) {name} {json.dumps(rows[name], default=float)} [{card}]")
+    if not rows["movement_scale"]["headline"]["identical_plans"]:
+        raise AssertionError("(w1) movement_scale: plans differ")
+    summary = TT.dryrun_roofline(
+        TT.QUICK, "cuda", path=ROOT / "build" / "chip_smoke_dryrun.jsonl")
+    log(f"(w2) dryrun_roofline on (u4)'s row: {json.dumps(summary)} "
+        f"[{card}]")
+    if summary.get("n_pass") != 1:
+        raise AssertionError(f"(w2) dryrun_roofline {summary}")
+    return rows
+
+
+def phase_w_examples(card):
+    """(w3) the four examples on the card, side by side in subprocesses
+    with a timeout: each exits 0; the planning example launches kernel 1
+    once, and the serving example the attention kernel for qwen3-14b
+    and mixtral-8x7b and the scan kernel for mamba2-1.3b."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / name), *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT) for name, args in W_EXAMPLES}
+    outs, failed = {}, []
+    for name, p in procs.items():
+        try:
+            out, err = p.communicate(timeout=W_EXAMPLE_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+        outs[name] = out
+        if p.returncode != 0:
+            failed.append(name)
+            log(f"(w3) {name} exit {p.returncode}:\n{out[-2000:]}\n"
+                f"{err[-3000:]}")
+    wall = time.perf_counter() - t0
+    launches = [ln for ln in outs["serve_llm_torch.py"].splitlines()
+                if ln.startswith("kernel launches")]
+    planning = [ln for ln in outs["offload_planning_torch.py"].splitlines()
+                if ln.startswith(("kernel launches", "Theorem-3"))]
+    unit = [ln for ln in outs["quickstart_torch.py"].splitlines()
+            if ln.startswith(("unit cost", "test accuracy"))]
+    log(f"(w3) examples in {wall:.1f} s side by side: quickstart {unit}; "
+        f"offload_planning {planning}; serve_llm {launches} [{card}]")
+    if failed:
+        raise AssertionError(f"(w3) examples failed: {failed}")
+    counts = [[int(x) for x in ln.replace(",", "").split()[3::2]]
+              for ln in launches]
+    if planning[-1] != "kernel launches: 1" or len(counts) != 3 or not (
+            counts[0][0] > 0 and counts[1][0] > 0 and counts[2][1] > 0):
+        raise AssertionError(f"(w3) kernel launches: {planning} {launches}")
+
+
 def main() -> int:
     import torch
 
@@ -4788,6 +4838,10 @@ def main() -> int:
         phase_v_sanitize(torch, np, card, counters)
         phase_v_raises(torch, np, card, cuda)
 
+    def w():
+        phase_w_rows(card)
+        phase_w_examples(card)
+
     def p():
         phase_p_fog(torch, np, card, counters, state["c_train_s"])
         phase_p_tiered(torch, np, card, counters, ops, sr)
@@ -4807,7 +4861,7 @@ def main() -> int:
               ("m", lambda: phase_m_smoke_configs(torch, np, card, counters,
                                                   cuda)),
               ("n", n_), ("o", o), ("p", p), ("q", q), ("r", r),
-              ("s", s_), ("t", t), ("u", u), ("v", v)]
+              ("s", s_), ("t", t), ("u", u), ("v", v), ("w", w)]
     failed = []
     for name, fn in phases:
         t0 = time.perf_counter()

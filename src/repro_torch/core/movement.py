@@ -14,6 +14,9 @@ graph support (eq. 7); node/link capacities (eq. 9).
   kernel on the card). On :class:`EdgeCostTraces` the rule runs as
   ``greedy_linear_edges``, an O(T·E) segment min over the link support
   in numpy, bitwise the dense rule on the same costs.
+  ``greedy_linear_scalar`` (a pure-Python (t, i, j) loop) and
+  ``greedy_linear_loop`` (a per-round numpy loop) are its baselines and
+  oracles, dense and float64.
 * ``realize_plan`` — a plan confronted with the network that happened:
   shares over links that are down, or toward receivers gone at the
   arrival round, are lost to the discard vector.
@@ -428,6 +431,67 @@ def _adj_t(adj, T: int) -> np.ndarray:
     """(T, n, n) adjacency view for the dense oracles: a broadcast view
     (no copy) for static matrices, the stored stack otherwise."""
     return as_schedule(adj, T).adj_view()
+
+
+def greedy_linear_scalar(traces: CostTraces, adj) -> MovementPlan:
+    """The Theorem-3 rule as a pure-Python nested loop, one interpreter
+    iteration per (t, i, j): the baseline ``engine_throughput`` times
+    the batched rule against. Ties go to the lowest j (strict ``<`` over
+    ascending j), then to processing, then to offloading; the last round
+    offloads nothing."""
+    T, n = traces.c_node.shape
+    adj3 = _adj_t(adj, T)
+    s = np.zeros((T, n, n))
+    r = np.zeros((T, n))
+    for t in range(T):
+        for i in range(n):
+            best_j, best_off = -1, np.inf
+            if t < T - 1:
+                for j in range(n):
+                    if j == i or not adj3[t, i, j]:
+                        continue
+                    c = traces.c_link[t, i, j] + traces.c_node[t + 1, j]
+                    if c < best_off:
+                        best_j, best_off = j, c
+            proc = traces.c_node[t, i]
+            disc = traces.f_err[t, i]
+            if proc <= best_off and proc <= disc:
+                s[t, i, i] = 1.0
+            elif best_off <= disc:
+                s[t, i, best_j] = 1.0
+            else:
+                r[t, i] = 1.0
+    return MovementPlan(s=s, r=r)
+
+
+def greedy_linear_loop(traces: CostTraces, adj) -> MovementPlan:
+    """The Theorem-3 rule as a per-round numpy loop, the oracle of the
+    vectorized :func:`greedy_linear`: each round takes the first minimum
+    of ``np.argmin`` over [process, offload, discard]; the last round
+    offloads nothing."""
+    T, n = traces.c_node.shape
+    adj3 = _adj_t(adj, T)
+    s = np.zeros((T, n, n))
+    r = np.zeros((T, n))
+    for t in range(T):
+        c_next = traces.c_node[min(t + 1, T - 1)]
+        eff = traces.c_link[t] + c_next[None, :]
+        eff = np.where(adj3[t], eff, np.inf)
+        if t == T - 1:
+            eff[:] = np.inf
+        np.fill_diagonal(eff, np.inf)
+        k = np.argmin(eff, axis=1)
+        off_cost = eff[np.arange(n), k]
+        choice = np.argmin(np.stack([traces.c_node[t], off_cost,
+                                     traces.f_err[t]]), axis=0)
+        for i in range(n):
+            if choice[i] == 0:
+                s[t, i, i] = 1.0
+            elif choice[i] == 1:
+                s[t, i, k[i]] = 1.0
+            else:
+                r[t, i] = 1.0
+    return MovementPlan(s=s, r=r)
 
 
 def realize_plan(plan: MovementPlan, schedule) -> MovementPlan:

@@ -29,12 +29,26 @@ What a row reports, per device:
 * ``collectives``: the collectives DTensor issued on the local shards
   (``per_op`` counts and result bytes, ``moved_bytes_per_device`` with
   the reference's ring multipliers);
-* ``memory``: the local shard bytes of the step's arguments and outputs;
+* ``memory``: the local shard bytes of the step's arguments and outputs
+  (``argument_size_in_bytes``, ``output_size_in_bytes``), the peak of
+  live bytes the step allocated on the local shards
+  (``temp_size_in_bytes``), and the argument bytes an output shares,
+  such as a decode cache or parameters updated in place
+  (``alias_size_in_bytes``, 0 where no output shares one). The peak
+  counts every storage an op creates (views and in-place results share
+  an input's, and add nothing) from its creation until it dies, the
+  step's new outputs and the tensors autograd saves included: an eager
+  upper bound, not XLA's fused and rematerialised temporaries, which
+  the reference reads from ``compiled.memory_analysis()``. Its
+  ``generated_code_size_in_bytes`` has no counterpart here;
 * ``compute_s``, ``memory_s``, ``collective_s`` at the H100 constants of
   ``launch/roofline.py``, and the dominant term;
 * ``torch``: the torch version that traced it. DTensor's plan changes
   between versions (what it replicates, where it redistributes), so
   rows of different versions are different plans.
+
+DTensor's shape inference, which runs each new op once on tensors of
+the global shapes, counts in none of these.
 
 The plan is DTensor's own sharding propagation, op by op, from the
 slice's input shardings, with the port's explicit redistributions where
@@ -53,15 +67,19 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import math
 import sys
 import time
 import traceback
+import weakref
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor._sharding_prop import ShardingPropagator
 from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
@@ -105,17 +123,34 @@ def _tensors(x):
 
 
 def _local_bytes(tree) -> int:
-    return sum(_nbytes(t.to_local() if isinstance(t, DTensor) else t)
-               for t in _tensors(tree))
+    return sum(_nbytes(_local(t)) for t in _tensors(tree))
+
+
+def _storage_sizes(tree) -> dict:
+    """Storage key -> bytes of the local tensors of ``tree``, each
+    storage once."""
+    return {s._cdata: s.nbytes() for s in
+            (_local(t).untyped_storage() for t in _tensors(tree))}
+
+
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 class LocalTraffic(TorchDispatchMode):
     """The ops DTensor runs on the local shards: their flops (the flop
     counter's formulas), their input and output bytes (views and
-    allocations left out), and the collectives with their result bytes.
-    An op on DTensors has its flops on the global shapes counted as
-    ``logical`` and is passed on (NotImplemented), so that this mode
-    sees what DTensor turns it into."""
+    allocations left out), the collectives with their result bytes, and
+    the peak of live bytes the ops allocated (``peak_bytes``). An op on
+    DTensors has its flops on the global shapes counted as ``logical``
+    and is passed on (NotImplemented), so that this mode sees what
+    DTensor turns it into.
+
+    Live bytes are kept by storage, not by tensor: a view keeps its
+    base's storage alive after the base tensor is gone. An output whose
+    storage is an input's (a view, an in-place op) or already counted
+    adds nothing; a new storage counts from its op until Python frees
+    it (a weak reference's finalizer)."""
 
     def __init__(self):
         super().__init__()
@@ -123,6 +158,27 @@ class LocalTraffic(TorchDispatchMode):
         self.bytes = 0
         self.per_op: dict[str, dict] = {}
         self.flops_by_op: dict[str, dict] = {}
+        self._live: dict[int, int] = {}
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self.inferring = 0          # > 0 inside DTensor's shape inference
+
+    def _drop(self, key) -> None:
+        self.live_bytes -= self._live.pop(key)
+
+    def _track(self, args, kwargs, out) -> None:
+        """Count ``out``'s new storages as live until they die."""
+        seen = {t.untyped_storage()._cdata for t in _tensors((args, kwargs))}
+        for t in _tensors(out):
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in seen or key in self._live:
+                continue
+            seen.add(key)
+            self._live[key] = st.nbytes()
+            self.live_bytes += st.nbytes()
+            self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+            weakref.finalize(st, self._drop, key).atexit = False
 
     def _op_flops(self, name) -> dict:
         return self.flops_by_op.setdefault(name, {"per_device": 0,
@@ -140,8 +196,10 @@ class LocalTraffic(TorchDispatchMode):
                                                          out_val=None)
             return NotImplemented
         out = func(*args, **kwargs)
-        if any(isinstance(t, FakeTensor) for t in _tensors((args, kwargs))):
+        if self.inferring or any(isinstance(t, FakeTensor)
+                                 for t in _tensors((args, kwargs))):
             return out      # DTensor's shape inference on global shapes
+        self._track(args, kwargs, out)
         if name in _COLLECTIVES:
             d = self.per_op.setdefault(_COLLECTIVES[name],
                                        {"count": 0, "result_bytes": 0})
@@ -227,11 +285,38 @@ def build_step(cfg0, shape, mesh, optimizer="adamw",
         shape.seq_len - 1), cfg
 
 
+@contextlib.contextmanager
+def _uncounted_shape_inference(local: LocalTraffic):
+    """DTensor infers an op's output metadata by running the op on
+    tensors of the global shapes under a FakeTensorMode, the first time
+    it meets the op's schema (``ShardingPropagator.
+    _propagate_tensor_meta_non_cached``, torch 2.11 and 2.13); the mode
+    runs them on meta tensors, which reach ``local`` as if they were
+    local ops (a whole model's logits, a whole KV cache). They are no
+    device's work: ``local`` counts nothing while the propagator runs
+    them."""
+    inner = ShardingPropagator._propagate_tensor_meta_non_cached
+
+    @functools.wraps(inner)
+    def uncounted(self, *args, **kwargs):
+        local.inferring += 1
+        try:
+            return inner(self, *args, **kwargs)
+        finally:
+            local.inferring -= 1
+
+    ShardingPropagator._propagate_tensor_meta_non_cached = uncounted
+    try:
+        yield
+    finally:
+        ShardingPropagator._propagate_tensor_meta_non_cached = inner
+
+
 def trace(step, args) -> tuple:
     """Run ``step(*args)`` once under the counter: (output,
     LocalTraffic)."""
     local = LocalTraffic()
-    with local, implicit_replication():
+    with _uncounted_shape_inference(local), local, implicit_replication():
         out = step(*args)
     return out, local
 
@@ -244,8 +329,10 @@ def measure(cfg0, shape, mesh, optimizer: str = "adamw",
     t0 = time.perf_counter()
     step, args, cfg = build_step(cfg0, shape, mesh, optimizer, variant)
     arg_bytes = _local_bytes(args)
+    arg_storages = _storage_sizes(args)
     out, local = trace(step, args)
     trace_s = time.perf_counter() - t0
+    aliased = sum(arg_storages.get(k, 0) for k in _storage_sizes(out))
 
     total_p, active_p = count_params(cfg)
     tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
@@ -267,7 +354,9 @@ def measure(cfg0, shape, mesh, optimizer: str = "adamw",
                                    key=lambda kv: -kv[1]["per_device"])),
         "collectives": coll,
         "memory": {"argument_size_in_bytes": arg_bytes,
-                   "output_size_in_bytes": _local_bytes(out)},
+                   "output_size_in_bytes": _local_bytes(out),
+                   "temp_size_in_bytes": local.peak_bytes,
+                   "alias_size_in_bytes": aliased},
         "params_total": total_p, "params_active": active_p,
         "model_flops": model_flops,
         "useful_flops_ratio": (model_flops / (flops * chips)

@@ -40,7 +40,21 @@ there). ``--only`` takes any of:
   device a round, each bucket dispatched by the cost model
   (:mod:`repro_torch.core.costmodel`) against the forced per-point
   loop, with the in-bucket-equals-alone checks (``--repeat`` warm
-  repeats).
+  repeats);
+* ``engine_throughput`` — the scan engine against the per-round loop,
+  and the Theorem-3 rule's pure-Python, per-round and vectorized
+  versions (one float64 plan) beside its float32 device path;
+* ``kernels_micro`` — the four CUDA kernels against their plain
+  versions and the library calls at the reference's micro shapes (the
+  plain versions alone on the CPU);
+* ``solver_scaling`` — the Theorem-3 rule, one round of it through
+  ``ops.greedy_decision`` and the convex solver at n = 32, 128, 512;
+* ``movement_scale`` — the sparse against the dense plan and capacity
+  repair at n = 256, 512, 1024;
+* ``convex_batched`` — four convex scenarios one by one against one
+  batch, and the batched cost sweep;
+* ``dryrun_roofline`` — the summary of the dry run's JSONL given by
+  ``--dryrun PATH``.
 
 The sweeps of figs. 5 and 6, the two dynamics studies and the fault
 study build their points as :func:`benchmarks.fog.make_scenario` does
@@ -85,7 +99,12 @@ from repro_torch.core.topology import (churn_schedule, fully_connected,
 from repro_torch.data import pipeline as pl
 from repro_torch.data.synthetic import make_image_dataset
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import offload_greedy as og
+from repro_torch.kernels import ops
 from repro_torch.kernels import segment_reduce as sr
+from repro_torch.kernels import ssd_scan as sd
+from repro_torch.launch import kernel_timing as kt
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.train import solve_setting
 from repro_torch.models import mnist as mm
@@ -103,9 +122,11 @@ class BenchScale:
     max_n: int = 0
     # warm repeats of scenario_batched's timed sweeps
     repeats: int = 1
+    # the CI scale: kernels_micro cuts its row sum on the CPU
+    quick: bool = False
 
 
-QUICK = BenchScale(n_train=8_000, n_test=2_000, T=20, tau=5)
+QUICK = BenchScale(n_train=8_000, n_test=2_000, T=20, tau=5, quick=True)
 DEFAULT = BenchScale()
 
 
@@ -1575,6 +1596,509 @@ def l1_collapse_bitwise(data, tau: int, device) -> bool:
                for k in ("device_loss", "test_loss", "test_acc", "H_agg"))
 
 
+# ---------------------------------------------------------------------------
+# The reference's remaining bench rows (``benchmarks/run.py``): engine
+# and solver timings, the kernels against their plain versions, the
+# sparse movement plane, the batched convex sweep and the dry-run summary
+# ---------------------------------------------------------------------------
+
+
+def _wall(fn, device):
+    """Host seconds of one call of ``fn()``, the device's queue drained
+    after it, and its result."""
+    t = time.perf_counter()
+    out = fn()
+    synchronize(device)
+    return time.perf_counter() - t, out
+
+
+def _decisions(plan: mv.MovementPlan) -> np.ndarray:
+    """(T, n) destination of every (t, i) of a bang-bang plan: i where
+    it processes, j where it offloads to j, -1 where it discards."""
+    e = plan.edges
+    out = np.full(plan.r.shape, -1, np.int64)
+    out[e.t, e.src] = e.dst
+    return out
+
+
+def engine_throughput(scale: BenchScale, device=None) -> dict:
+    """The scan engine against the per-round loop (n = 10, T = 40, τ =
+    5, mlp; medians of 3, rounds/s, the accuracy-curve gap) and the
+    movement solvers at n = 512, T = 50: the pure-Python loop, the
+    per-round numpy loop and the vectorized rule, all float64, with
+    ``identical_plan`` between them; beside them the device path in
+    float32 (``backend="cuda"``: the Theorem-3 kernel on a card, its
+    plain version on the CPU), its time ``device_s``, its plan against
+    its plain version's on the CPU (``device_plain_identical``, bit for
+    bit) and the (t, i) decisions where it parts from the float64 plan
+    (``device_f32_decisions_differ``, a count, not a claim)."""
+    device = resolve_device(device)
+    n, T, tau, eta, model = 10, 40, 5, 0.1, "mlp"
+    x_tr, y_tr, x_te, y_te = dataset(scale.n_train, scale.n_test)
+    # ~2 samples a device a round and a small eval split: the row times
+    # the engine, not the eval flops
+    x_ev = np.ascontiguousarray(x_te[:256])
+    y_ev = np.ascontiguousarray(y_te[:256])
+    rng = np.random.default_rng(0)
+    traces = synthetic_costs(n, T, rng)
+    adj = fully_connected(n)
+    streams = pl.poisson_streams(n, T, y_tr, rng=rng, mean_per_round=2.0)
+    plan = mv.greedy_linear(traces, adj, backend="numpy")
+    processed = pl.apply_movement(streams, plan, rng)
+    max_pts = pl.pad_size(processed)
+    act = np.ones((T, n), bool)
+    specs_fn, apply_fn = mm.MODELS[model]
+    params = mm.init_params(specs_fn(), torch.Generator().manual_seed(0),
+                            device=device)
+
+    def run(runner):
+        return runner(apply_fn, params, x_tr, y_tr, x_ev, y_ev, processed,
+                      act, tau, eta, max_pts, device=device)
+
+    run(eng.run_rounds_legacy)            # warm both paths
+    run(eng.run_rounds_scan)
+    legacy_s, scan_s = [], []
+    for _ in range(3):
+        t, h_legacy = _wall(lambda: run(eng.run_rounds_legacy), device)
+        legacy_s.append(t)
+        t, h_scan = _wall(lambda: run(eng.run_rounds_scan), device)
+        scan_s.append(t)
+    legacy_s, scan_s = sorted(legacy_s)[1], sorted(scan_s)[1]   # medians
+    acc_gap = float(np.abs(np.asarray(h_legacy["test_acc"])
+                           - np.asarray(h_scan["test_acc"])).max())
+
+    n2, T2 = 512, 50
+    tr2 = synthetic_costs(n2, T2, np.random.default_rng(1))
+    adj2 = fully_connected(n2)
+    scalar_s, p_scalar = _wall(lambda: mv.greedy_linear_scalar(tr2, adj2),
+                               device)
+    loop_s, p_loop = _wall(lambda: mv.greedy_linear_loop(tr2, adj2), device)
+    vec_s, p_vec = _wall(lambda: mv.greedy_linear(tr2, adj2,
+                                                  backend="numpy"), device)
+    identical = bool(mv.plans_equal(p_scalar, p_vec)
+                     and mv.plans_equal(p_loop, p_vec))
+
+    def on_device():
+        return mv.greedy_linear(tr2, adj2, backend="cuda", device=device)
+
+    on_device()                           # the kernel built and loaded
+    before = og.launches
+    device_s, p_dev = _wall(on_device, device)
+    device_launches = og.launches - before
+    p_plain = mv.greedy_linear(tr2, adj2, backend="cuda", device="cpu")
+    differ = int((_decisions(p_dev) != _decisions(p_vec)).sum())
+    return {
+        "engine": {"n": n, "T": T, "model": model,
+                   "legacy_s": legacy_s, "scan_s": scan_s,
+                   "legacy_rounds_per_s": T / legacy_s,
+                   "scan_rounds_per_s": T / scan_s,
+                   "acc_curve_gap": acc_gap},
+        "movement": {"n": n2, "T": T2,
+                     "python_nested_loop_s": scalar_s,
+                     "seed_per_round_loop_s": loop_s,
+                     "vectorized_s": vec_s,
+                     "identical_plan": identical,
+                     "device_s": device_s,
+                     "device_launches": device_launches,
+                     "device_plain_identical": bool(
+                         mv.plans_equal(p_dev, p_plain)),
+                     "device_f32_decisions_differ": differ},
+        "headline": {
+            "engine_speedup": legacy_s / scan_s,
+            "scan_rounds_per_s": T / scan_s,
+            "greedy_speedup_vs_python_loop": scalar_s / vec_s,
+            "greedy_speedup_vs_seed_loop": loop_s / vec_s,
+            "greedy_identical_plan": identical}}
+
+
+# kernel 2's row form at the tiered fog-scale tier-1 w1 leaf: m rows of
+# P into G groups (PERF.md §6); --quick on the CPU takes a hundredth of P
+MICRO_ROWS = (1000, 156_800, 32)
+ATTN_TOL = 2e-5             # the reference's float32 tolerances
+SSD_TOL = 1e-4              # (tests/test_kernels.py), the latter of max|y|
+
+
+def _host_ms(fn, args, reps) -> float:
+    """Median host milliseconds of ``reps`` calls after one warm call."""
+    fn(*args)
+    ms = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn(*args)
+        ms.append(1e3 * (time.perf_counter() - t))
+    return sorted(ms)[len(ms) // 2]
+
+
+def _micro_entry(name, counter, kernel, plain, library, args, bounds,
+                 compare, device, reps, shape) -> dict:
+    """One kernel of :func:`kernels_micro`. On a card: the kernel's
+    launches in one call, its distance from the plain version
+    (``compare(kernel's output, plain) -> (max_abs_err, within
+    tolerance)``), and
+    the kernel, the plain version and the library call timed by
+    :func:`kernel_timing.time_ms`. On the CPU: the plain version and the
+    library call on the host clock, no kernel."""
+    entry = {"name": name, "shape": shape,
+             "bound_ms": bounds["bound_ms"], "bound_by": bounds["bound_by"]}
+    if device.type != "cuda":
+        entry.update(timer="host clock", ms=None, launches=0,
+                     plain_ms=_host_ms(plain, args, reps),
+                     library_ms=(None if library is None
+                                 else _host_ms(library, args, reps)))
+        return entry
+    before = counter.launches
+    got = kernel(*args)
+    synchronize(device)
+    launches = counter.launches - before
+    err, within = compare(got, plain)
+    del got
+    buf = kt.flush_buffer(device)
+    entry.update(timer="cuda events", launches=launches, max_abs_err=err,
+                 within_tolerance=within,
+                 ms=kt.time_ms(kernel, args, buf),
+                 plain_ms=kt.time_ms(plain, args, buf),
+                 library_ms=(None if library is None
+                             else kt.time_ms(library, args, buf)))
+    return entry
+
+
+def kernels_micro(scale: BenchScale, device=None) -> dict:
+    """The four CUDA kernels against their plain versions at the
+    reference's micro shapes, inputs drawn from one numpy generator as
+    the reference draws them: attention q (2, 8, 512, 64), k = v (2, 2,
+    512, 64), f32, causal; the SSD scan xdt (2, 8, 512, 64), a (2, 8,
+    512), B = C (2, 512, 64); the Theorem-3 rule at n = 512, ρ = 0.3
+    (``ops.greedy_decision``); and kernel 2's row form at the tiered
+    fog-scale ``w1`` shape. Each entry: the kernel's, the plain
+    version's and the library call's time (SDPA on K and V expanded to
+    the q heads; ``index_add_`` of the rows' product), the least time
+    (``launch/kernel_timing.py``), the kernel's launches in one call and
+    its distance from the plain version: attention within 2e-5, the scan
+    within 1e-4 of max|y|, the Theorem-3 rule and the row sum bit for
+    bit (the row sum against the plain version on the CPU, a sequential
+    float32 sum). On the CPU the plain versions alone, on the host
+    clock; ``--quick`` there cuts the row sum's P a hundredfold."""
+    device = resolve_device(device)
+    card = device.type == "cuda"
+    rng = np.random.default_rng(0)
+
+    def on(a):
+        return torch.as_tensor(a).to(device)
+
+    def f32(a):
+        return on(np.asarray(a, np.float32))
+
+    q = f32(rng.standard_normal((2, 8, 512, 64)))
+    k = f32(rng.standard_normal((2, 2, 512, 64)))
+    xdt = f32(rng.standard_normal((2, 8, 512, 64)) * .3)
+    a = f32(-np.abs(rng.standard_normal((2, 8, 512))) * .3)
+    Bm = f32(rng.standard_normal((2, 512, 64)) * .3)
+    n = 512
+    cl = f32(rng.random((n, n)))
+    cv = f32(rng.random(n))
+    adj = on(rng.random((n, n)) < 0.3)
+    m, P, G = MICRO_ROWS
+    if scale.quick and not card:
+        P //= 100
+    rows = on(rng.standard_normal((m, P), dtype=np.float32))
+    ids = on(rng.integers(0, G, m).astype(np.int32))
+    h = f32(rng.random(m))
+
+    kv_map = fa.default_kv_map(8, 2).to(device)
+    kv_idx = kv_map.long()
+
+    def attn(q, k, v):
+        return fa.flash_attention(q, k, v, kv_map, causal=True)
+
+    def attn_plain(q, k, v):
+        return fa.flash_attention_plain(q, k, v, kv_map, causal=True)
+
+    def attn_library(q, k, v):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k.index_select(1, kv_idx), v.index_select(1, kv_idx),
+            is_causal=True)
+
+    def attn_compare(got, plain):
+        want = plain(q, k, k)
+        return (float((got - want).abs().max()),
+                bool(torch.allclose(got, want, atol=ATTN_TOL,
+                                    rtol=ATTN_TOL)))
+
+    def ssd(*args):
+        return sd.ssd_scan(*args, chunk=128)
+
+    def ssd_plain(*args):
+        return sd.ssd_scan_plain(*args, chunk=128)
+
+    def ssd_compare(got, plain):
+        want = plain(xdt, a, Bm, Bm)
+        err = float((got - want).abs().max())
+        return err, err <= SSD_TOL * float(want.abs().max())
+
+    def greedy(cl, cv, adj):
+        return ops.greedy_decision(cl, cv, cv, cv, adj)
+
+    def greedy_plain(cl, cv, adj):
+        out = og.offload_greedy_plain(cl[None], cv[None], cv[None],
+                                      cv[None], adj[None])
+        return tuple(o[0] for o in out)
+
+    def greedy_compare(got, plain):
+        want = plain(cl, cv, adj)
+        err = max(float((x.double() - y.double()).abs().max())
+                  for x, y in zip(got, want))
+        return err, err == 0.0
+
+    layout = sr.segment_layout(ids, G) if card else None
+    prod = rows * h[:, None]
+    idx64 = ids.long()
+
+    def row_sum(rows, ids, h):
+        return sr.segment_sum_rows(rows, ids, G, scale=h, layout=layout)
+
+    def row_sum_plain(rows, ids, h):
+        return sr.segment_sum_rows_plain(rows, ids, G, scale=h)
+
+    def row_sum_library(rows, ids, h):
+        return torch.zeros((G, P), device=rows.device).index_add_(
+            0, idx64, prod)
+
+    def row_sum_compare(got, plain):
+        want = plain(rows.cpu(), ids.cpu(), h.cpu())
+        err = float((got.cpu() - want).abs().max())
+        return err, bool(torch.equal(got.cpu(), want))
+
+    entries = [
+        _micro_entry("flash_attention", fa, attn, attn_plain, attn_library,
+                     (q, k, k), kt.tensor_core_bounds(*kt.attention_work(
+                         2, 8, 2, 512, 512, 64, True, None)),
+                     attn_compare, device, 5,
+                     {"B": 2, "H": 8, "KH": 2, "S": 512, "hd": 64,
+                      "causal": True}),
+        _micro_entry("ssd_scan", sd, ssd, ssd_plain, None, (xdt, a, Bm, Bm),
+                     kt.tensor_core_bounds(*kt.ssd_work(2, 8, 512, 64, 64,
+                                                        128)),
+                     ssd_compare, device, 5,
+                     {"B": 2, "H": 8, "S": 512, "P": 64, "N": 64,
+                      "chunk": 128}),
+        _micro_entry("offload_greedy", og, greedy, greedy_plain, None,
+                     (cl, cv, adj), kt.greedy_bounds(
+                         (cl[None], cv[None], cv[None], cv[None],
+                          adj[None])),
+                     greedy_compare, device, 10, {"n": n, "rho": 0.3}),
+        _micro_entry("segment_reduce", sr, row_sum, row_sum_plain,
+                     row_sum_library, (rows, ids, h),
+                     kt.row_sum_bounds(m, P, G, True), row_sum_compare,
+                     device, 3, {"m": m, "P": P, "G": G, "scaled": True}),
+    ]
+    us = {e["name"]: 1e3 * e["plain_ms"] for e in entries}
+    return {"kernels": entries, "headline": {
+        "attention_ref_us": us["flash_attention"],
+        "ssd_ref_us": us["ssd_scan"],
+        "greedy_ref_us": us["offload_greedy"],
+        "segment_rows_ref_us": us["segment_reduce"]}}
+
+
+def solver_scaling(scale: BenchScale, device=None) -> dict:
+    """The movement solvers as n grows (32, 128, 512; T = 8, full
+    topology): ``greedy_linear`` (the Theorem-3 kernel at n ≥ 256 on a
+    card, numpy otherwise), ``ops.greedy_decision`` for one round (the
+    kernel on a card, its plain version on the CPU; mean of 3 after a
+    warm call) and ``solve_convex`` at 100 iterations for n ≤ 128."""
+    device = resolve_device(device)
+    rows = []
+    for n in (32, 128, 512):
+        rng = np.random.default_rng(0)
+        T = 8
+        tr = synthetic_costs(n, T, rng)
+        adj = fully_connected(n)
+        t_greedy, _ = _wall(lambda: mv.greedy_linear(tr, adj, device=device),
+                            device)
+        cl = torch.as_tensor(tr.c_link[0], dtype=torch.float32).to(device)
+        cv = torch.as_tensor(tr.c_node[0], dtype=torch.float32).to(device)
+        fe = torch.as_tensor(tr.f_err[0], dtype=torch.float32).to(device)
+        aj = torch.as_tensor(adj).to(device)
+        ops.greedy_decision(cl, cv, cv, fe, aj)
+        synchronize(device)
+        t = time.perf_counter()
+        for _ in range(3):
+            ops.greedy_decision(cl, cv, cv, fe, aj)
+            synchronize(device)
+        t_kernel = (time.perf_counter() - t) / 3
+        t_convex = None
+        if n <= 128:
+            D = np.full((T, n), 20.0)
+            t_convex, _ = _wall(lambda: mv.solve_convex(
+                tr, adj, D, iters=100, device=device), device)
+        rows.append({"n": n, "greedy_s": t_greedy,
+                     "kernel_per_round_s": t_kernel, "convex_s": t_convex})
+    return {"rows": rows, "headline": {
+        "greedy_512_s": rows[-1]["greedy_s"],
+        "kernel_512_round_us": rows[-1]["kernel_per_round_s"] * 1e6}}
+
+
+def movement_scale(scale: BenchScale, device=None) -> dict:
+    """The sparse against the dense movement plane (host numpy, so
+    ``device`` is unused): the Theorem-3 rule and the capacity repair at
+    n ∈ {256, 512, 1024}, T = 8, random topology ρ = 0.3, capacities 60
+    a node and 15 a link; wall time, tracemalloc peak and whether both
+    paths give the same plan."""
+    import resource
+    import tracemalloc
+
+    T = 8
+    rows = []
+    for n in (256, 512, 1024):
+        rng = np.random.default_rng(0)
+        tr = with_capacity(synthetic_costs(n, T, rng), cap_node=60.0,
+                           cap_link=15.0)
+        adj = make_topology("random", n, rng, rho=0.3)
+        D = rng.poisson(20, (T, n)).astype(float)
+
+        def sparse_path():
+            plan = mv.greedy_linear(tr, adj, backend="numpy")
+            return mv.repair_capacities(plan, tr, adj, D)
+
+        def dense_path():
+            # the same greedy, then the dense (T, n, n) plan and repair,
+            # so that the two differ in the plan's representation alone
+            plan = mv.greedy_linear(tr, adj, backend="numpy")
+            # foglint: disable=dense-materialization -- movement_scale's dense side, timed against the sparse one up to n = 1024
+            plan = mv.MovementPlan(s=plan.s, r=plan.r)
+            return mv.repair_capacities_dense(plan, tr, adj, D)
+
+        def measure(fn):
+            tracemalloc.start()
+            t = time.perf_counter()
+            plan = fn()
+            wall = time.perf_counter() - t
+            _, peak = tracemalloc.get_traced_memory()
+            tracemalloc.stop()
+            return plan, wall, peak
+
+        p_sparse, sparse_s, sparse_peak = measure(sparse_path)
+        p_dense, dense_s, dense_peak = measure(dense_path)
+        rows.append({"n": n, "T": T, "edges": len(p_sparse.edges),
+                     "sparse_s": sparse_s, "dense_s": dense_s,
+                     "sparse_peak_bytes": sparse_peak,
+                     "dense_peak_bytes": dense_peak,
+                     "dense_s_tensor_bytes": T * n * n * 8,
+                     "identical_plan": bool(mv.plans_equal(p_sparse,
+                                                           p_dense))})
+    big = rows[-1]
+    return {"rows": rows,
+            "ru_maxrss_kb": resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss,
+            "headline": {
+                "n1024_speedup": big["dense_s"] / big["sparse_s"],
+                "n1024_sparse_s": big["sparse_s"],
+                "n1024_peak_ratio": big["dense_peak_bytes"]
+                / max(big["sparse_peak_bytes"], 1),
+                "sparse_below_dense_tensor": bool(
+                    big["sparse_peak_bytes"] < big["dense_s_tensor_bytes"]),
+                "identical_plans": all(r["identical_plan"] for r in rows)}}
+
+
+def batched_convex_plans(scenarios, *, error_model="sqrt", gamma=1.0,
+                         iters=400, seed=0, z0=None, device=None):
+    """Solve a sweep of (traces, adj, D) scenarios sharing (T, n) in one
+    descent (``solve_convex_batched``). ``z0`` — the (B, T, n, n+1)
+    initial point; by default every scenario starts from ``seed``'s."""
+    traces, adjs, Ds = zip(*scenarios)
+    return mv.solve_convex_batched(list(traces), list(adjs), list(Ds),
+                                   error_model=error_model, gamma=gamma,
+                                   iters=iters, seeds=seed, z0=z0,
+                                   device=device)
+
+
+def convex_sweep_costs(n, T, *, f_errs=(0.3, 0.7), media=("wifi", "lte"),
+                       error_model="sqrt", iters=400, seed=0, z0=None,
+                       device=None) -> list[dict]:
+    """The cost sweep error weight × medium solved as one batch: a row
+    of {f_err, medium, the plan's cost decomposition} a point."""
+    rng = np.random.default_rng(seed)
+    adj = make_topology("full", n, rng)
+    scenarios, keys = [], []
+    for f_err in f_errs:
+        for medium in media:
+            tr = testbed_like_costs(n, T, np.random.default_rng(seed),
+                                    f_err=f_err, medium=medium)
+            scenarios.append((tr, adj, np.full((T, n), 20.0)))
+            keys.append({"f_err": f_err, "medium": medium})
+    plans = batched_convex_plans(scenarios, error_model=error_model,
+                                 iters=iters, seed=seed, z0=z0,
+                                 device=device)
+    return [{**key, **mv.plan_cost(plan, tr, D, error_model=error_model)}
+            for key, plan, (tr, _, D) in zip(keys, plans, scenarios)]
+
+
+def _plan_gap(p: mv.MovementPlan, q: mv.MovementPlan) -> float:
+    """max |Δs| of two plans."""
+    # foglint: disable=dense-materialization -- the convex plans here are dense (T, n, n) by construction, n = 10
+    return float(np.abs(p.s - q.s).max())
+
+
+def convex_batched(scale: BenchScale, device=None) -> dict:
+    """Four (f_err, medium) scenarios (0.3, 0.7 × wifi, lte; n = 10, T =
+    12, 300 iterations, f/√G) solved one by one and then in one batch on
+    ``device``, after a warm call of each: both times and the largest
+    gap between their plans; and the cost rows of
+    :func:`convex_sweep_costs` at 100 iterations."""
+    device = resolve_device(device)
+    n, T, iters = 10, 12, 300
+    rng = np.random.default_rng(0)
+    adj = make_topology("full", n, rng)
+    scenarios = [(testbed_like_costs(n, T, np.random.default_rng(0),
+                                     f_err=f_err, medium=medium),
+                  adj, np.full((T, n), 20.0))
+                 for f_err in (0.3, 0.7) for medium in ("wifi", "lte")]
+
+    def sequential():
+        return [mv.solve_convex(tr, a, D, error_model="sqrt", iters=iters,
+                                device=device) for tr, a, D in scenarios]
+
+    def batched():
+        return batched_convex_plans(scenarios, error_model="sqrt",
+                                    iters=iters, device=device)
+
+    sequential()
+    batched()
+    seq_s, seq = _wall(sequential, device)
+    bat_s, bat = _wall(batched, device)
+    return {"rows": convex_sweep_costs(n, T, iters=100, device=device),
+            "headline": {"n_scenarios": len(scenarios),
+                         "sequential_s": seq_s, "batched_s": bat_s,
+                         "speedup": seq_s / bat_s,
+                         "max_plan_gap": max(_plan_gap(p, q)
+                                             for p, q in zip(seq, bat))}}
+
+
+def dryrun_roofline(scale: BenchScale, device=None, *, path=None) -> dict:
+    """The dry run's summary from the port's own JSONL (``python -m
+    repro_torch.launch.dryrun --all --both-meshes --out PATH``, then
+    ``--dryrun PATH`` here): the pass count, the histogram of dominant
+    terms, and the three lowest useful-flops ratios of the 16×16 train
+    combos."""
+    if path is None or not Path(path).exists():
+        return {"headline": {"error": "run repro_torch.launch.dryrun "
+                                      "--all first"}}
+    rows = [json.loads(line) for line in Path(path).read_text().splitlines()
+            if line.strip()]
+    ok = [r for r in rows if "error" not in r]
+    dom: dict = {}
+    for r in ok:
+        dom[r["dominant"]] = dom.get(r["dominant"], 0) + 1
+    worst = sorted((r for r in ok
+                    if r["mesh"] == "16x16" and r["kind"] == "train"),
+                   key=lambda r: r["useful_flops_ratio"])[:3]
+    return {"n_pass": len(ok), "n_total": len(rows), "dominant_hist": dom,
+            "worst_useful_flops": [{"arch": r["arch"], "shape": r["shape"],
+                                    "ratio": r["useful_flops_ratio"]}
+                                   for r in worst],
+            "headline": {"pass": f"{len(ok)}/{len(rows)}",
+                         "dominant_hist": dom}}
+
+
 TABLES = {"table2": table2_accuracy, "table3": table3_settings,
           "table4": table4_error_costs, "table5": table5_dynamics,
           "fig5": fig5_nodes, "fig6": fig6_connectivity,
@@ -1583,7 +2107,11 @@ TABLES = {"table2": table2_accuracy, "table3": table3_settings,
           "thm5": thm5_value_of_offloading, "dynamics": network_dynamics,
           "prediction": network_prediction, "faults": fault_tolerance,
           "sparse_scale": sparse_scale, "hier_scale": hier_scale,
-          "scenario_batched": scenario_batched}
+          "scenario_batched": scenario_batched,
+          "engine_throughput": engine_throughput,
+          "kernels_micro": kernels_micro, "solver_scaling": solver_scaling,
+          "movement_scale": movement_scale, "convex_batched": convex_batched,
+          "dryrun_roofline": dryrun_roofline}
 
 
 def main(argv=None) -> dict:
@@ -1600,6 +2128,9 @@ def main(argv=None) -> dict:
                     help="warm repeats of scenario_batched's sweeps")
     ap.add_argument("--out", default=None, metavar="PATH",
                     help="also write the JSON here (never under results/)")
+    ap.add_argument("--dryrun", default=None, metavar="PATH",
+                    help="dryrun_roofline's input: the JSONL of python -m "
+                         "repro_torch.launch.dryrun --all --both-meshes")
     args = ap.parse_args(argv)
     names = [s for s in args.only.split(",") if s]
     unknown = sorted(set(names) - set(TABLES))
@@ -1616,7 +2147,8 @@ def main(argv=None) -> dict:
     out = {"device": str(device), "scale": dataclasses.asdict(scale)}
     for name in names:
         t0 = time.perf_counter()
-        out[name] = TABLES[name](scale, device)
+        kw = {"path": args.dryrun} if name == "dryrun_roofline" else {}
+        out[name] = TABLES[name](scale, device, **kw)
         out[name]["seconds"] = time.perf_counter() - t0
     text = json.dumps(out, default=float, indent=2)
     print(text)

@@ -235,7 +235,7 @@ def test_cli_production_row_and_fail_row(tmp_path):
     assert "error" in fail and fail["torch"] == row["torch"]
 
 
-def test_cli_refuses_ssm_streaming(tmp_path):
+def test_cli_traces_ssm_streaming(tmp_path):
     """--ssm-streaming, refused while the port had no streaming scan,
     now traces: the reference's variant, a config override."""
     out = tmp_path / "rows.jsonl"

@@ -1230,3 +1230,33 @@ def test_streaming_flag_runs_kernel_four(cuda):
     assert sd.launches == 2
     assert torch.equal(got, default)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_kernels_micro_on_card(cuda):
+    """``launch.tables.kernels_micro`` at the reference's micro shapes:
+    each kernel within its tolerance of its plain version, one launch a
+    call, its time, the plain version's and the bound all positive."""
+    from repro_torch.launch import tables as TT
+
+    got = TT.kernels_micro(TT.QUICK, cuda)
+    assert [e["name"] for e in got["kernels"]] == [
+        "flash_attention", "ssd_scan", "offload_greedy", "segment_reduce"]
+    for e in got["kernels"]:
+        assert e["within_tolerance"] and e["launches"] == 1, e
+        assert e["ms"] > 0 and e["plain_ms"] > 0 and e["bound_ms"] > 0, e
+    assert got["kernels"][3]["shape"]["P"] == 156_800
+
+
+def test_greedy_baselines_equal_the_kernel_path_on_card(cuda):
+    """The float64 baselines equal the vectorized rule; the float32
+    kernel-1 plan is its plain version's bit for bit."""
+    tr = costs.synthetic_costs(300, 4, np.random.default_rng(1))
+    adj = topology.fully_connected(300)
+    vec = movement.greedy_linear(tr, adj, backend="numpy")
+    assert movement.plans_equal(movement.greedy_linear_loop(tr, adj), vec)
+    assert movement.plans_equal(movement.greedy_linear_scalar(tr, adj), vec)
+    before = og.launches
+    dev = movement.greedy_linear(tr, adj, device=cuda)
+    assert og.launches - before == 1
+    assert movement.plans_equal(dev, movement.greedy_linear(
+        tr, adj, backend="cuda", device="cpu"))
