@@ -298,7 +298,10 @@ source, all started together), then runs twenty-three phases and fails
     qwen3-14b ``train_4k`` on the fake (16, 16) mesh in a subprocess
     (``python -m repro_torch.launch.dryrun``): a PASS row, its dominant
     term, trace time and memory columns (a peak of live bytes, and the
-    parameters and optimizer state the step updates in place aliased);
+    parameters and optimizer state the step updates in place aliased),
+    the peak below one H100's 80 GB (the loss keeps the logits
+    vocab-sharded) and logged beside one data shard's full-vocab
+    float32 logits (16 x 4096 x 152064 x 4 B);
 (v) the runtime sanitizer (``core/sanitize.py``): (v1) ``--sanitize``
     at fog scale, flat, with ``--tiers 32@5,4@10,1@20`` and with
     ``--engine batched``, each in turns with the same flags without it
@@ -4366,9 +4369,31 @@ def phase_u_roofline(np, card, state):
     return rows
 
 
+# one H100's memory: a production train step's peak a device must fit
+H100_BYTES = 80_000_000_000
+
+
+def _one_shard_logits_bytes(arch: str, shape_name: str, data: int) -> int:
+    """Bytes of one data shard's full-vocab float32 logits: (B/data, S,
+    V_pad), what a rank holds when the training loss gathers the
+    vocab."""
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+
+    shape = INPUT_SHAPES[shape_name]
+    v_pad = T.specs(get_config(arch))["embed"]["tok"].shape[0]
+    return shape.global_batch // data * shape.seq_len * v_pad * 4
+
+
 def phase_u_dryrun(card):
     """(u4) the production dry run of one combo in a subprocess (a
-    process holds one default group): it must PASS."""
+    process holds one default group): it must PASS, and its train
+    step's peak must fit one H100 (the loss runs vocab-parallel; with
+    the global logits gathered it read 815 GB on torch 2.11). The peak
+    is logged beside one data shard's full-vocab float32 logits: on
+    torch 2.13 it stays below them, on 2.11 DTensor keeps the residual
+    stream's remat checkpoints whole on the model axis, above them."""
     out = ROOT / "build" / "chip_smoke_dryrun.jsonl"
     out.parent.mkdir(exist_ok=True)
     out.unlink(missing_ok=True)
@@ -4397,6 +4422,16 @@ def phase_u_dryrun(card):
             and 0 < mem["alias_size_in_bytes"]
             <= mem["argument_size_in_bytes"]):
         raise AssertionError(f"(u4) memory columns {mem}")
+    data = math.prod(int(e) for e in row["mesh"].split("x")[:-1])
+    shard = _one_shard_logits_bytes(row["arch"], row["shape"], data)
+    log(f"(u4) {row['arch']} {row['shape']} peak temp_size_in_bytes "
+        f"{mem['temp_size_in_bytes']}, one data shard's full-vocab f32 "
+        f"logits {shard}, one H100 {H100_BYTES} (torch {row['torch']}) "
+        f"[{card}]")
+    if mem["temp_size_in_bytes"] >= H100_BYTES:
+        raise AssertionError(f"(u4) the train step's peak "
+                             f"{mem['temp_size_in_bytes']} B does not fit "
+                             f"one H100 ({H100_BYTES} B)")
     return row
 
 

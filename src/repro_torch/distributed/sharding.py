@@ -206,6 +206,46 @@ def pin(t):
     return t.redistribute(t.device_mesh, t.placements)
 
 
+def on_vocab_shards(fn, logits, labels):
+    """``fn(logits, labels)``, a per-token value (B, S) of (B, S, V)
+    logits, with the logits vocab-sharded on the model axis, as the
+    reference's XLA program keeps them into the loss. DTensor's own
+    log-softmax rule replicates the reduced dim, which gathers the
+    global vocab on every device; under
+    ``torch.distributed.tensor.parallel.loss_parallel()`` (entered by
+    the caller around forward and backward) the log-softmax and the
+    pick run on the vocab shards instead.
+
+    The logits are brought to their batch shards (each mesh dim that
+    shards dim 0 kept, the others but the model axis replicated) with
+    ``Shard(2)`` on the model axis: a reduce-scatter where they arrive
+    ``Partial``, nothing where they are vocab-sharded already. The
+    labels get the same batch shards, replicated on the model axis.
+    ``fn`` then runs on each rank's batch rows as DTensors on the model
+    axis's 1-D submesh, the only mesh that torch 2.11's loss-parallel
+    handlers take, and its result is the (B, S) DTensor of those rows.
+    Plain tensors: ``fn(logits, labels)``."""
+    if not isinstance(logits, DTensor):
+        return fn(logits, labels)
+    mesh = logits.device_mesh
+    (axis,) = DEFAULT_RULES["vocab"]
+    model = mesh.mesh_dim_names.index(axis)
+    batch = [p if isinstance(p, Shard) and p.dim % logits.dim() == 0
+             else Replicate() for p in logits.placements]
+    batch[model] = Replicate()
+    vocab = [*batch[:model], Shard(2), *batch[model + 1:]]
+    x = logits.redistribute(mesh, vocab).to_local()
+    y = labels.redistribute(mesh, batch).to_local()
+    sub = mesh[axis]
+    n, s, v = x.shape[0], x.shape[1], logits.shape[2]
+    out = fn(DTensor.from_local(x, sub, [Shard(2)], run_check=False,
+                                shape=(n, s, v), stride=(s * v, v, 1)),
+             DTensor.from_local(y, sub, [Replicate()], run_check=False))
+    B, S = labels.shape
+    return DTensor.from_local(out.full_tensor(), mesh, batch,
+                              run_check=False, shape=(B, S), stride=(S, 1))
+
+
 def on_local_shards(fn, lead, batch_only=(), heads_too=()):
     """``fn`` on each rank's own batch rows and heads, for an op whose
     work is independent across both (attention, the SSD scan): ``lead``

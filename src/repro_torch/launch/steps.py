@@ -23,8 +23,11 @@ run (``launch/dryrun.py``) distributes meta tensors by them.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.parallel import loss_parallel
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.distributed import sharding as sh
@@ -183,7 +186,9 @@ def route_batch(batch):
 def grads_of(params, batch, cfg):
     """Gradients of ``loss · wsum`` (wsum = max(Σ weights, 1), or 1
     without weights) with respect to every leaf of ``params``, as a tree
-    like it; also ``loss_fn``'s metrics and wsum."""
+    like it; also ``loss_fn``'s metrics and wsum. On DTensor labels the
+    forward and the backward run under ``loss_parallel()``, so that the
+    loss keeps the logits vocab-sharded (``T.token_loss``)."""
     if "weights" in batch:
         wsum = torch.clamp(batch["weights"].sum(), min=1.0)
     else:
@@ -194,7 +199,10 @@ def grads_of(params, batch, cfg):
         loss, metrics = T.loss_fn(p, batch, cfg)
         return loss * wsum, metrics
 
-    (_, metrics), grads = opt_lib.value_and_grad(lf, params)
+    parallel = (loss_parallel() if isinstance(batch["labels"], DTensor)
+                else contextlib.nullcontext())
+    with parallel:
+        (_, metrics), grads = opt_lib.value_and_grad(lf, params)
     return grads, {k: v.detach() for k, v in metrics.items()}, wsum
 
 

@@ -7,6 +7,7 @@ The interface is the reference's:
 * ``specs(cfg)``                          parameter spec tree
 * ``forward(params, batch, cfg)``         (logits, aux) (train / prefill)
 * ``loss_fn(params, batch, cfg)``         weighted next-token cross-entropy
+* ``token_loss(logits, labels, weights)`` its tail on the logits
 * ``encode(params, frames, cfg)``         enc-dec encoder + cross K/V
 * ``init_cache_specs(cfg, batch, seq)``   decode-cache spec tree
 * ``decode_step(params, cache, batch, pos, cfg)`` one-token serve step
@@ -26,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import on_vocab_shards
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -238,16 +240,35 @@ def loss_fn(params, batch, cfg):
     (1)/(4) of the paper. Returns (loss + 0.01·aux, {"ce", "aux"}).
     """
     logits, aux = forward(params, batch, cfg)
-    labels = batch["labels"].long()
-    logp = F.log_softmax(logits.float(), dim=-1)
-    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
-    w = batch.get("weights")
-    if w is None:
-        w = torch.ones(labels.shape[:1], dtype=torch.float32,
-                       device=ll.device)
-    tok_w = w[:, None] * torch.ones_like(ll)
-    loss = -(ll * tok_w).sum() / torch.clamp(tok_w.sum(), min=1.0)
+    loss = token_loss(logits, batch["labels"], batch.get("weights"))
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}
+
+
+def _log_likelihood(logits, labels):
+    """log p(label) of each position, in float32. The pick is
+    ``nll_loss`` rather than a gather: loss parallelism has handlers for
+    the log-softmax and ``nll_loss`` pair only. It takes the (B·S, V)
+    rows, a view: on (B, V, S) ``nll_loss`` would copy the
+    log-probabilities into that layout and keep the copy for the
+    backward."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = F.nll_loss(logp.flatten(0, 1), labels.flatten(), reduction="none")
+    return -nll.view_as(labels)
+
+
+def token_loss(logits, labels, weights=None):
+    """``loss_fn``'s cross-entropy of (B, S, V) logits: the mean of
+    -log p(label) over the tokens, each weighted by its sample's weight
+    (1 without ``weights``), over the total weight (at least 1). On
+    DTensors the log-softmax and the pick run on the vocab shards
+    (:func:`repro_torch.distributed.sharding.on_vocab_shards`), inside
+    the ``loss_parallel()`` that ``steps.grads_of`` enters."""
+    ll = on_vocab_shards(_log_likelihood, logits, labels.long())
+    if weights is None:
+        weights = torch.ones(labels.shape[:1], dtype=torch.float32,
+                             device=ll.device)
+    tok_w = weights[:, None] * torch.ones_like(ll)
+    return -(ll * tok_w).sum() / torch.clamp(tok_w.sum(), min=1.0)
 
 
 def encode(params, frames, cfg):
