@@ -294,14 +294,15 @@ source, all started together), then runs twenty-three phases and fails
     analytic roofline (``launch/roofline.py``, H100 constants, float32,
     one card) beside the warm times (j), (s2), (t1), (t3), (t4) and (t5)
     measured: compute_useful_s, compute_s, memory_s, the dominant term
-    and mfu = compute_useful_s / the warm time; (u4) the dry run of
-    qwen3-14b ``train_4k`` on the fake (16, 16) mesh in a subprocess
-    (``python -m repro_torch.launch.dryrun``): a PASS row, its dominant
-    term, trace time and memory columns (a peak of live bytes, and the
-    parameters and optimizer state the step updates in place aliased),
-    the peak below one H100's 80 GB (the loss keeps the logits
-    vocab-sharded) and logged beside one data shard's full-vocab
-    float32 logits (16 x 4096 x 152064 x 4 B);
+    and mfu = compute_useful_s / the warm time; (u4) the dry runs of
+    qwen3-14b ``train_4k`` and of olmoe-1b-7b ``train_4k`` with
+    ``--moe-groups 16`` on the fake (16, 16) mesh, each in a subprocess
+    (``python -m repro_torch.launch.dryrun``): PASS rows, residual
+    placements pinned to (batch shards, Shard(1)), peaks below one H100
+    (qwen3-14b's below one data shard's full-vocab float32 logits too,
+    16 x 4096 x 152064 x 4 B), the dominant term, trace time and memory
+    columns (a peak of live bytes, and the parameters and optimizer
+    state the step updates in place aliased);
 (v) the runtime sanitizer (``core/sanitize.py``): (v1) ``--sanitize``
     at fog scale, flat, with ``--tiers 32@5,4@10,1@20`` and with
     ``--engine batched``, each in turns with the same flags without it
@@ -4150,6 +4151,8 @@ def phase_t_zoo(torch, np, card, counters, ops, fa, sd, cuda):
 
 FEDAVG_ARCH, FEDAVG_TAU, FEDAVG_B, FEDAVG_S = "qwen3-14b", 2, 8, 128
 DRYRUN_ARGV = ["--arch", "qwen3-14b", "--shape", "train_4k"]
+DRYRUN_MOE_ARGV = ["--arch", "olmoe-1b-7b", "--shape", "train_4k",
+                   "--moe-groups", "16"]
 
 
 def _fedavg_rounds(torch, np, dist, cuda):
@@ -4386,30 +4389,55 @@ def _one_shard_logits_bytes(arch: str, shape_name: str, data: int) -> int:
     return shape.global_batch // data * shape.seq_len * v_pad * 4
 
 
+def _dryrun_rows(runs):
+    """Each (argv, out) of ``runs`` as ``python -m
+    repro_torch.launch.dryrun ARGV --out OUT`` in a subprocess of its own
+    (a process holds one default group), all at once; returns each run's
+    (PASS line, row, subprocess wall s). Raises where one fails."""
+    procs = []
+    for argv, out in runs:
+        out.parent.mkdir(exist_ok=True)
+        out.unlink(missing_ok=True)
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv,
+             "--out", str(out)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")}),
+            argv, out, time.perf_counter()))
+    rows = []
+    for proc, argv, out, t0 in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
+        passed = [ln for ln in stdout.splitlines() if ln.startswith("PASS")]
+        if proc.returncode != 0 or not passed:
+            raise AssertionError(f"(u4) dry run {argv} failed (exit "
+                                 f"{proc.returncode}):\n{stdout[-3000:]}\n"
+                                 f"{stderr[-3000:]}")
+        rows.append((passed[0], json.loads(out.read_text().splitlines()[-1]),
+                     time.perf_counter() - t0))
+    return rows
+
+
 def phase_u_dryrun(card):
-    """(u4) the production dry run of one combo in a subprocess (a
-    process holds one default group): it must PASS, and its train
-    step's peak must fit one H100 (the loss runs vocab-parallel; with
-    the global logits gathered it read 815 GB on torch 2.11). The peak
-    is logged beside one data shard's full-vocab float32 logits: on
-    torch 2.13 it stays below them, on 2.11 DTensor keeps the residual
-    stream's remat checkpoints whole on the model axis, above them."""
-    out = ROOT / "build" / "chip_smoke_dryrun.jsonl"
-    out.parent.mkdir(exist_ok=True)
-    out.unlink(missing_ok=True)
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
-                        *DRYRUN_ARGV, "--out", str(out)],
-                       capture_output=True, text=True, timeout=600,
-                       env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-    wall = time.perf_counter() - t0
-    passed = [ln for ln in r.stdout.splitlines() if ln.startswith("PASS")]
-    if r.returncode != 0 or not passed:
-        raise AssertionError(f"(u4) dry run failed (exit {r.returncode}):"
-                             f"\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-    row = json.loads(out.read_text().splitlines()[-1])
+    """(u4) production dry runs, each in a subprocess: qwen3-14b
+    ``train_4k`` and olmoe-1b-7b ``train_4k`` with ``--moe-groups 16``,
+    both on the (16, 16) mesh. Each must PASS, and its train step's peak
+    must fit one H100 (the loss runs vocab-parallel; with the global
+    logits gathered qwen3-14b read 815 GB on torch 2.11, and olmoe's
+    dispatch, gathered whole, 452 GB on 2.13). qwen3-14b's peak must also
+    stay below one data shard's full-vocab float32 logits, now that the
+    residual stream sits on its sequence shards on every torch version
+    (on 2.11 DTensor kept it whole on the model axis: 74.6 GB). Each
+    row's residual placements (as they arrived at the block boundaries,
+    and as pinned) are logged."""
+    build = ROOT / "build"
+    (line, row, wall), (m_line, m_row, m_wall) = _dryrun_rows([
+        (DRYRUN_ARGV, build / "chip_smoke_dryrun.jsonl"),
+        (DRYRUN_MOE_ARGV, build / "chip_smoke_dryrun_moe.jsonl")])
     top = list(row["flops_by_op"].items())[:4]
-    log(f"(u4) {passed[0]}; torch {row['torch']}, dominant "
+    log(f"(u4) {line}; torch {row['torch']}, dominant "
         f"{row['dominant']}, trace_s "
         f"{row['trace_s']}, flops_per_device {row['flops_per_device']}, "
         f"by op (per device, logical) {json.dumps(top)}, "
@@ -4417,22 +4445,36 @@ def phase_u_dryrun(card):
         f"{json.dumps(row['collectives']['per_op'])}, useful_flops_ratio "
         f"{row['useful_flops_ratio']}, memory {json.dumps(row['memory'])}, "
         f"subprocess wall {wall:.1f} s, device meta [{card}]")
-    mem = row["memory"]
-    if not (mem["temp_size_in_bytes"] > 0
-            and 0 < mem["alias_size_in_bytes"]
-            <= mem["argument_size_in_bytes"]):
-        raise AssertionError(f"(u4) memory columns {mem}")
+    for r, w in ((row, wall), (m_row, m_wall)):
+        mem = r["memory"]
+        if not (mem["temp_size_in_bytes"] > 0
+                and 0 < mem["alias_size_in_bytes"]
+                <= mem["argument_size_in_bytes"]):
+            raise AssertionError(f"(u4) {r['arch']} memory columns {mem}")
+        log(f"(u4) {r['arch']} {r['shape']} {json.dumps(r['variant'])} "
+            f"peak temp_size_in_bytes {mem['temp_size_in_bytes']}, one "
+            f"H100 {H100_BYTES}, residual placements "
+            f"{json.dumps(r['residual_placements'])}, flops_per_device "
+            f"{r['flops_per_device']}, subprocess wall {w:.1f} s (torch "
+            f"{r['torch']}) [{card}]")
+        if mem["temp_size_in_bytes"] >= H100_BYTES:
+            raise AssertionError(f"(u4) {r['arch']} {r['variant']}: the "
+                                 f"train step's peak "
+                                 f"{mem['temp_size_in_bytes']} B does not "
+                                 f"fit one H100 ({H100_BYTES} B)")
+        if set(r["residual_placements"]["pinned"]) != {"S(0),S(1)"}:
+            raise AssertionError(f"(u4) {r['arch']}: residual placements "
+                                 f"{r['residual_placements']}")
     data = math.prod(int(e) for e in row["mesh"].split("x")[:-1])
     shard = _one_shard_logits_bytes(row["arch"], row["shape"], data)
-    log(f"(u4) {row['arch']} {row['shape']} peak temp_size_in_bytes "
-        f"{mem['temp_size_in_bytes']}, one data shard's full-vocab f32 "
-        f"logits {shard}, one H100 {H100_BYTES} (torch {row['torch']}) "
-        f"[{card}]")
-    if mem["temp_size_in_bytes"] >= H100_BYTES:
-        raise AssertionError(f"(u4) the train step's peak "
-                             f"{mem['temp_size_in_bytes']} B does not fit "
-                             f"one H100 ({H100_BYTES} B)")
-    return row
+    peak = row["memory"]["temp_size_in_bytes"]
+    log(f"(u4) {row['arch']} peak {peak} against one data shard's "
+        f"full-vocab f32 logits {shard} (torch {row['torch']}) [{card}]")
+    if peak >= shard:
+        raise AssertionError(f"(u4) {row['arch']}: the train step's peak "
+                             f"{peak} B is not below one data shard's "
+                             f"full-vocab logits ({shard} B)")
+    return row, m_row
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,10 @@ Python stack that ran the op.
 
 Usage:
   python scripts/dryrun_peak.py --arch qwen3-14b [--shape train_4k] [--top 12]
+      [--multi-pod] [--moe-groups G]
+
+``--multi-pod`` traces the (2, 16, 16) mesh on its (32, 16) flattening,
+as the dry run does; ``--moe-groups`` is the dry run's variant.
 """
 from __future__ import annotations
 
@@ -64,16 +68,24 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--moe-groups", type=int, default=0)
     args = ap.parse_args(argv)
-    mesh_lib.init_fake_process_group(256)
-    mesh = mesh_lib.make_production_mesh(device="cpu")
+    mesh_lib.init_fake_process_group(512 if args.multi_pod else 256)
+    mesh = (mesh_lib.make_host_mesh(32, 16, device="cpu") if args.multi_pod
+            else mesh_lib.make_production_mesh(device="cpu"))
+    variant = ({"moe_groups": args.moe_groups} if args.moe_groups
+               else None)
     step, step_args, _ = DR.build_step(get_config(args.arch),
-                                       INPUT_SHAPES[args.shape], mesh)
+                                       INPUT_SHAPES[args.shape], mesh,
+                                       variant=variant)
     local = PeakTraffic(args.top)
     with DR._uncounted_shape_inference(local), local, \
             implicit_replication():
         step(*step_args)
     print(json.dumps({"arch": args.arch, "shape": args.shape,
+                      "mesh": "x".join(map(str, mesh.shape)),
+                      "variant": variant or {},
                       "torch": torch.__version__,
                       "peak": local.peak_bytes, "at_peak": local.at_peak}))
     return 0

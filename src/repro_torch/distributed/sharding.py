@@ -22,7 +22,9 @@ from __future__ import annotations
 import math
 from typing import Any, NamedTuple
 
-from torch.distributed.tensor import DTensor, Replicate, Shard
+import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.utils.checkpoint import checkpoint
 
 # Default logical->mesh rules for the production meshes. "batch" maps to
 # ("pod", "data"); on the single-pod mesh "pod" is absent and drops
@@ -50,6 +52,8 @@ DEFAULT_RULES: dict[str, tuple[str, ...]] = {
     "frames": (),
     "stack": (),                # paper-scale per-fog-device axis
 }
+# the tensor-parallel mesh axis
+MODEL_AXIS = "model"
 
 
 def mesh_axis_sizes(mesh) -> dict[str, int]:
@@ -206,6 +210,147 @@ def pin(t):
     return t.redistribute(t.device_mesh, t.placements)
 
 
+def lead_shards(mesh, n: int, rules=None) -> list:
+    """Placements that shard a leading dim of size ``n`` over the mesh's
+    batch axes, each kept in mesh order (pod before data) while the
+    extents' product divides ``n`` and replicated otherwise, as
+    :func:`even_shards` keeps them; every other mesh dim replicates."""
+    batch = set((rules or DEFAULT_RULES)["batch"])
+    place, ext = [], 1
+    for name, size in zip(mesh.mesh_dim_names, tuple(mesh.shape)):
+        if name in batch and n % (ext * size) == 0:
+            ext *= size
+            place.append(Shard(0))
+        else:
+            place.append(Replicate())
+    return place
+
+
+def _seq_axis(x):
+    """The index of the model axis where :func:`seq_shards` shards the
+    sequence of a (B, S, ...) DTensor x, or None."""
+    names = x.device_mesh.mesh_dim_names
+    if MODEL_AXIS not in names:
+        return None
+    i = names.index(MODEL_AXIS)
+    return i if x.shape[1] >= x.device_mesh.shape[i] else None
+
+
+def seq_shards(x):
+    """The residual stream (B, S, D) on its batch shards
+    (:func:`lead_shards`) with ``Shard(1)`` on the model axis, every other
+    mesh dim replicated, and pinned (:func:`pin`), so that the gradient
+    comes back at these placements too. DTensor's own choice at a block
+    boundary differs between torch versions (the sequence shards, the
+    stream whole on the model axis, or ``Partial`` after a row-parallel
+    product). Where S does not divide the model extent (whisper's 1500
+    frames) the sequence is sharded unevenly: replicated there, the
+    stream would have every model rank compute the replicated K/V
+    projections of all frames. Where S is shorter than that extent, it
+    is replicated. A plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    place = lead_shards(x.device_mesh, x.shape[0])
+    i = _seq_axis(x)
+    if i is not None:
+        place[i] = Shard(1)
+    if list(x.placements) != place:
+        x = x.redistribute(x.device_mesh, place)
+    return pin(x)
+
+
+def stream_product(x, w):
+    """``x @ w`` of a (B, S, K) activation of the stream and a (K, F)
+    weight, on DTensors whose sequence :func:`seq_shards` shards, as the
+    local products of sequence parallelism, mesh dim by mesh dim: where
+    w shards its columns (column-parallel) x's sequence is gathered and
+    the output is sharded by columns; where w shards its rows
+    (row-parallel) x is sharded on K and the output is ``Partial``;
+    where w is replicated (the K/V and the SSM's B/C projections) the
+    product runs on x's own batch and sequence shards. The gradients
+    come back as the matching partial sums; a gathered sequence is
+    gathered again in the backward rather than kept, and a row-parallel
+    product's gradient is gathered only once its block is recomputed
+    (:class:`_Recompute`). Torch 2.11's
+    DTensor cannot flatten a sequence-sharded x (or the gradient of a
+    row-parallel product, which the next :func:`seq_shards` shards) into
+    a product's rows, and its plan for such a product differs from
+    2.13's; this one is the same on both. A plain tensor, or a DTensor
+    with a sequence shorter than the model axis (decode), as
+    ``x @ w``."""
+    if not isinstance(x, DTensor) or _seq_axis(x) is None:
+        return x @ w
+    mesh = x.device_mesh
+    x_place, x_grad, w_place, w_grad, out_place = [], [], [], [], []
+    for px, pw in zip(x.placements, w.placements):
+        if isinstance(pw, Shard) and pw.dim == 1:       # column-parallel
+            x_place.append(Replicate())
+            x_grad.append(Partial())
+            out_place.append(Shard(2))
+        elif isinstance(pw, Shard):                     # row-parallel
+            x_place.append(Shard(2))
+            x_grad.append(Shard(2))
+            out_place.append(Partial())
+        else:
+            keep = (px if isinstance(px, Shard) and px.dim < 2
+                    else Replicate())
+            x_place.append(keep)
+            x_grad.append(keep)
+            out_place.append(keep)
+        w_place.append(pw if isinstance(pw, Shard) else Replicate())
+        w_grad.append(pw if isinstance(pw, Shard) else Partial()
+                      if isinstance(x_place[-1], Shard) else Replicate())
+    (B, S, _), F = x.shape, w.shape[1]
+    row = any(isinstance(p, Partial) for p in out_place)
+
+    def product(x, w):
+        wl = w.redistribute(mesh, w_place).to_local(grad_placements=w_grad)
+        if row:
+            wl = _Anchor.apply(wl)
+        out = DTensor.from_local(
+            x.redistribute(mesh, x_place).to_local(grad_placements=x_grad)
+            @ wl, mesh, out_place, run_check=False, shape=(B, S, F),
+            stride=(S * F, F, 1))
+        return _Recompute.apply(out, wl.grad_fn) if row else out
+    if not any(isinstance(g, Partial) for g in x_grad):
+        return product(x, w)
+    return checkpoint(product, x, w, use_reentrant=False)
+
+
+class _Anchor(torch.autograd.Function):
+    """The identity on a product's weight, saving it before the product
+    runs (see :class:`_Recompute`)."""
+
+    @staticmethod
+    def forward(ctx, w):
+        ctx.save_for_backward(w)
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
+
+
+class _Recompute(torch.autograd.Function):
+    """The identity on a row-parallel product's output, whose backward
+    first unpacks the weight its :class:`_Anchor` saved. In a recomputed
+    block (``cfg.remat``) the block's forward then runs again before
+    the output's gradient is gathered for the product's backward, and
+    not while that gathered gradient waits; the recompute stops at the
+    product, which it does not run again."""
+
+    @staticmethod
+    def forward(ctx, t, anchor):
+        ctx.anchor = anchor
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.anchor is not None:
+            ctx.anchor.saved_tensors
+        return grad, None
+
+
 def on_vocab_shards(fn, logits, labels):
     """``fn(logits, labels)``, a per-token value (B, S) of (B, S, V)
     logits, with the logits vocab-sharded on the model axis, as the
@@ -255,7 +400,9 @@ def on_local_shards(fn, lead, batch_only=(), heads_too=()):
     the local tensors (lead, *heads_too, *batch_only) and ``lead``'s
     global offset, and returns a local tensor shaped like ``lead``'s
     shard; the result is that DTensor. On the local shards DTensor
-    neither flattens (batch, heads) nor moves data inside the op."""
+    neither flattens (batch, heads) nor moves data inside the op. A
+    ``batch_only`` tensor serves every head shard of its rows, so its
+    gradient is a partial sum over the mesh dims that shard the heads."""
     from torch.distributed.tensor._utils import (
         compute_local_shape_and_global_offset)
 
@@ -266,7 +413,9 @@ def on_local_shards(fn, lead, batch_only=(), heads_too=()):
              else Replicate() for p in lead.placements]
     local = [t.redistribute(mesh, keep).to_local()
              for t in (lead, *heads_too)]
-    local += [t.redistribute(mesh, batch).to_local() for t in batch_only]
+    over_heads = [Partial() if k != b else b for k, b in zip(keep, batch)]
+    local += [t.redistribute(mesh, batch).to_local(grad_placements=over_heads)
+              for t in batch_only]
     _, offset = compute_local_shape_and_global_offset(lead.shape, mesh, keep)
     out = fn(*local, offset)
     return DTensor.from_local(out, mesh, keep, run_check=False,

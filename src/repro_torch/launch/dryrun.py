@@ -45,19 +45,29 @@ What a row reports, per device:
   ``launch/roofline.py``, and the dominant term;
 * ``torch``: the torch version that traced it. DTensor's plan changes
   between versions (what it replicates, where it redistributes), so
-  rows of different versions are different plans.
+  rows of different versions are different plans;
+* ``residual_placements``: the placements the residual stream arrived
+  in at each block boundary (``arrived``) and left in (``pinned``), by
+  count, at every call of ``sharding.seq_shards`` (``"S(0),S(1)"``:
+  batch shards on the data axis, sequence shards on the model axis):
+  where two versions' plans differ, this is where it shows first.
 
 DTensor's shape inference, which runs each new op once on tensors of
 the global shapes, counts in none of these.
 
 The plan is DTensor's own sharding propagation, op by op, from the
-slice's input shardings, with the port's explicit redistributions where
-DTensor has no rule (torch 2.11 and 2.13): attention and the SSD scan
-on each rank's batch rows and heads (``kernels/ops.py``), the embedding
-table gathered for the lookup, and buffers gathered and pinned before a
-view splits or merges a sharded dim (``distributed/sharding.py``). The
-(2, 16, 16) mesh is traced on its (32, 16) flattening
-(:func:`check_pod_flattening`).
+slice's input shardings, with the port's explicit layouts where DTensor
+has no rule or picks differently between torch 2.11 and 2.13: the
+residual stream on its batch and sequence shards at every block
+boundary (``sharding.seq_shards``), the products that read or write it
+as sequence parallelism on local shards (``sharding.stream_product``),
+attention and the SSD scan on each rank's batch rows and heads
+(``kernels/ops.py``), the MoE dispatch on its groups, experts and
+capacity slots (``models/moe.py``), the loss on the vocab shards, the
+embedding table gathered for the lookup, and buffers gathered and
+pinned before a view splits or merges a sharded dim
+(``distributed/sharding.py``). The (2, 16, 16) mesh is traced on its
+(32, 16) flattening (:func:`check_pod_flattening`).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-14b --shape train_4k
@@ -162,6 +172,7 @@ class LocalTraffic(TorchDispatchMode):
         self.live_bytes = 0
         self.peak_bytes = 0
         self.inferring = 0          # > 0 inside DTensor's shape inference
+        self.residuals: dict[str, dict] = {}
 
     def _drop(self, key) -> None:
         self.live_bytes -= self._live.pop(key)
@@ -312,11 +323,43 @@ def _uncounted_shape_inference(local: LocalTraffic):
         ShardingPropagator._propagate_tensor_meta_non_cached = inner
 
 
+def placements_key(t) -> str:
+    """A DTensor's placements as ``"S(0),R,P(sum)"``, the same on every
+    torch version."""
+    return ",".join("R" if p.is_replicate() else f"S({p.dim})"
+                    if p.is_shard() else f"P({p.reduce_op})"
+                    for p in t.placements)
+
+
+@contextlib.contextmanager
+def _residual_placements(seen: dict):
+    """Count, at each call of ``transformer.seq_shards`` (the residual
+    stream at a block boundary), the placements the stream arrives in
+    and those it leaves in, into ``seen["arrived"]`` and
+    ``seen["pinned"]``."""
+    inner = T.seq_shards
+
+    def counted(x):
+        out = inner(x)
+        if isinstance(x, DTensor):
+            for key, t in (("arrived", x), ("pinned", out)):
+                d = seen.setdefault(key, {})
+                d[placements_key(t)] = d.get(placements_key(t), 0) + 1
+        return out
+
+    T.seq_shards = counted
+    try:
+        yield
+    finally:
+        T.seq_shards = inner
+
+
 def trace(step, args) -> tuple:
     """Run ``step(*args)`` once under the counter: (output,
     LocalTraffic)."""
     local = LocalTraffic()
-    with _uncounted_shape_inference(local), local, implicit_replication():
+    with _uncounted_shape_inference(local), local, implicit_replication(), \
+            _residual_placements(local.residuals):
         out = step(*args)
     return out, local
 
@@ -348,6 +391,7 @@ def measure(cfg0, shape, mesh, optimizer: str = "adamw",
         "mesh": "x".join(map(str, mesh.shape)), "chips": chips,
         "kind": shape.kind, "device": "meta",
         "torch": torch.__version__,
+        "residual_placements": local.residuals,
         "trace_s": round(trace_s, 2),
         "flops_per_device": flops, "bytes_per_device": local.bytes,
         "flops_by_op": dict(sorted(local.flops_by_op.items(),

@@ -23,7 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import gather_dims, pin
+from repro_torch.distributed.sharding import gather_dims, pin, stream_product
 from repro_torch.kernels import ops
 from repro_torch.models.module import Spec
 
@@ -134,7 +134,8 @@ def _project_qkv(x, p, cfg, kv_input=None):
     B, S, _ = x.shape
     hd = cfg.head_dim
     kv_in = x if kv_input is None else kv_input
-    q, k, v = x @ p["wq"], kv_in @ p["wk"], kv_in @ p["wv"]
+    q, k, v = (stream_product(x, p["wq"]), stream_product(kv_in, p["wk"]),
+               stream_product(kv_in, p["wv"]))
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     # pinned: on DTensors the gradients come back in the placements the
@@ -178,7 +179,7 @@ def attention_apply(x, p, cfg, *, causal=True, kv_input=None,
                         kv_map=kv_head_map(cfg, x.device))
     out = out.transpose(1, 2).reshape(B, S, cfg.num_heads_padded
                                       * cfg.head_dim)
-    return out @ p["wo"]
+    return stream_product(out, p["wo"])
 
 
 # -- decode with KV cache ----------------------------------------------------
@@ -297,16 +298,16 @@ def mlp_specs(cfg, layers_axis: int | None = None) -> dict:
 
 def mlp_apply(x, p, cfg):
     if cfg.act == "swiglu":
-        g = x @ p["w_gate"]
-        u = x @ p["w_up"]
+        g = stream_product(x, p["w_gate"])
+        u = stream_product(x, p["w_up"])
         h = F.silu(upcast(g)).to(x.dtype) * u
     elif cfg.act == "relu2":         # squared ReLU (nemotron/minitron)
-        u = x @ p["w_up"]
+        u = stream_product(x, p["w_up"])
         h = torch.square(torch.relu(upcast(u))).to(x.dtype)
     else:                            # jax.nn.gelu's default: tanh form
-        u = x @ p["w_up"]
+        u = stream_product(x, p["w_up"])
         h = F.gelu(upcast(u), approximate="tanh").to(x.dtype)
-    return h @ p["w_down"]
+    return stream_product(h, p["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -343,4 +344,4 @@ def embed_tokens(tokens, p, cfg, positions=None):
 
 def lm_logits(x, p, cfg):
     w = p["tok"].T if cfg.tie_embeddings else p["lm_head"]
-    return x @ w
+    return stream_product(x, w)

@@ -15,7 +15,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import even_shards, gather_dims
+from repro_torch.distributed.sharding import (even_shards, gather_dims,
+                                              stream_product)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rmsnorm, upcast
 from repro_torch.models.module import Spec
@@ -64,11 +65,8 @@ def ssm_apply(x, p, cfg):
     """Full Mamba2 block (train/prefill). x (B,S,D) -> (B,S,D)."""
     B, S, _ = x.shape
     H, P = cfg.ssm_heads, cfg.ssm_headdim
-    z = x @ p["w_z"]
-    xs = x @ p["w_x"]
-    Bm = x @ p["w_B"]
-    Cm = x @ p["w_C"]
-    dt = x @ p["w_dt"]
+    z, xs, Bm, Cm, dt = (stream_product(x, p[n]) for n in (
+        "w_z", "w_x", "w_B", "w_C", "w_dt"))
 
     xs = F.silu(upcast(causal_conv1d(xs, p["conv_w"], p["conv_b"]))) \
         .to(x.dtype)
@@ -86,7 +84,7 @@ def ssm_apply(x, p, cfg):
     y = y + p["D_skip"][None, None, :, None].to(y.dtype) * xh
     y = y.reshape(B, S, H * P)
     y = rmsnorm(y * F.silu(upcast(z)).to(y.dtype), p["norm"])
-    return y @ p["w_out"]
+    return stream_product(y, p["w_out"])
 
 
 # -- decode ------------------------------------------------------------------

@@ -19,7 +19,9 @@ scan's. The hybrid family loops over ``num_layers // attn_every``
 groups: ``attn_every`` SSM blocks, then the one SHARED attention+MLP
 block. ``cfg.remat == "full"`` recomputes each block (and each hybrid
 group) in the backward, where the reference wraps the same bodies in
-``jax.checkpoint``.
+``jax.checkpoint``. On DTensors the residual stream enters and leaves
+every block on its batch and sequence shards
+(``sharding.seq_shards``); on plain tensors that is the identity.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import on_vocab_shards
+from repro_torch.distributed.sharding import (on_vocab_shards, seq_shards,
+                                              stream_product)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -129,22 +132,29 @@ def _zero_aux(x):
 def _attn_mlp_block(x, lp, cfg, *, causal=True, window=None, enc_out=None,
                     cross=False):
     """One decoder block (attention, cross attention against ``enc_out``
-    when ``cross``, then the MLP or the MoE layer); returns (x, aux)."""
-    x = x + L.attention_apply(_norm(x, lp["ln1"], cfg), lp["attn"], cfg,
-                              causal=causal, window=window)
+    when ``cross``, then the MLP or the MoE layer); returns (x, aux).
+    On DTensors the residual stream sits on its sequence shards at every
+    add (``seq_shards``)."""
+    x = seq_shards(x)
+    x = seq_shards(x + L.attention_apply(_norm(x, lp["ln1"], cfg),
+                                         lp["attn"], cfg, causal=causal,
+                                         window=window))
     if cross:
-        x = x + L.attention_apply(_norm(x, lp["ln_x"], cfg), lp["xattn"],
-                                  cfg, causal=False, kv_input=enc_out)
+        x = seq_shards(x + L.attention_apply(
+            _norm(x, lp["ln_x"], cfg), lp["xattn"], cfg, causal=False,
+            kv_input=enc_out))
     if cfg.num_experts:
         h, aux = M.moe_apply(_norm(x, lp["ln2"], cfg), lp["moe"], cfg)
     else:
         h, aux = L.mlp_apply(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg), \
             _zero_aux(x)
-    return x + h, aux
+    return seq_shards(x + h), aux
 
 
 def _ssm_block(x, lp, cfg):
-    return x + S.ssm_apply(_norm(x, lp["ln"], cfg), lp["ssm"], cfg)
+    x = seq_shards(x)
+    return seq_shards(x + S.ssm_apply(_norm(x, lp["ln"], cfg), lp["ssm"],
+                                      cfg))
 
 
 def _remat(fn, cfg):
@@ -170,6 +180,7 @@ def _hybrid_group(x, group, shared, cfg, window):
     """One hybrid group: its SSM blocks (the layers of ``group``), then
     the shared attention+MLP block."""
     block = _remat(_ssm_block, cfg)
+    x = seq_shards(x)
     for lp in group:
         x = block(x, lp, cfg)
     return _attn_mlp_block(x, shared, cfg, window=window)[0]
@@ -180,16 +191,17 @@ def _embed_input(params, batch, cfg):
     a vision prefix -> (B, S_total, D)."""
     x = L.embed_tokens(batch["tokens"], params["embed"], cfg)
     if cfg.vision_patches:
-        vis = (batch["patch_embeds"] @ params["vis_proj"]).to(x.dtype)
+        vis = stream_product(batch["patch_embeds"],
+                             params["vis_proj"]).to(x.dtype)
         x = torch.cat([vis, x], dim=1)
-    return x
+    return seq_shards(x)
 
 
 def _encoder(params, frames, cfg):
     """The enc-dec encoder stack (non-causal) and its final norm."""
-    enc, _ = _blocks(frames, params["enc"]["blocks"], cfg.encoder_layers,
-                     cfg, causal=False)
-    return _norm(enc, params["enc"]["ln_f"], cfg)
+    enc, _ = _blocks(seq_shards(frames), params["enc"]["blocks"],
+                     cfg.encoder_layers, cfg, causal=False)
+    return seq_shards(_norm(enc, params["enc"]["ln_f"], cfg))
 
 
 def forward(params, batch, cfg):
@@ -200,7 +212,7 @@ def forward(params, batch, cfg):
     window = cfg.sliding_window
     if cfg.family == "encdec":
         enc = _encoder(params, batch["frames"], cfg)
-        x = L.embed_tokens(batch["tokens"], params["embed"], cfg)
+        x = seq_shards(L.embed_tokens(batch["tokens"], params["embed"], cfg))
         x, aux = _blocks(x, params["blocks"], cfg.num_layers, cfg,
                          enc_out=enc, cross=True)
     elif cfg.family == "ssm":
@@ -224,7 +236,7 @@ def forward(params, batch, cfg):
         x = _embed_input(params, batch, cfg)
         x, aux = _blocks(x, params["blocks"], cfg.num_layers, cfg,
                          window=window)
-    x = _norm(x, params["ln_f"], cfg)
+    x = _norm(seq_shards(x), params["ln_f"], cfg)
     logits = L.lm_logits(x, params["embed"], cfg)
     if cfg.vision_patches:
         logits = logits[:, cfg.vision_patches:, :]      # text positions
