@@ -297,12 +297,17 @@ source, all started together), then runs twenty-three phases and fails
     and mfu = compute_useful_s / the warm time; (u4) the dry runs of
     qwen3-14b ``train_4k`` and of olmoe-1b-7b ``train_4k`` with
     ``--moe-groups 16`` on the fake (16, 16) mesh, each in a subprocess
-    (``python -m repro_torch.launch.dryrun``): PASS rows, residual
+    (``python -m repro_torch.launch.dryrun``) started with phase (t), whose
+    work is on the card while they trace on the host: PASS rows, residual
     placements pinned to (batch shards, Shard(1)), peaks below one H100
     (qwen3-14b's below one data shard's full-vocab float32 logits too,
     16 x 4096 x 152064 x 4 B), the dominant term, trace time and memory
     columns (a peak of live bytes, and the parameters and optimizer
-    state the step updates in place aliased);
+    state the step updates in place aliased); and minitron-4b
+    ``decode_32k`` beside them, which must move fewer bytes a device than
+    one layer's global K cache and peak below the global float32 token
+    table (the KV cache read on its sequence shards, the lookup on the
+    table's vocab shards);
 (v) the runtime sanitizer (``core/sanitize.py``): (v1) ``--sanitize``
     at fog scale, flat, with ``--tiers 32@5,4@10,1@20`` and with
     ``--engine batched``, each in turns with the same flags without it
@@ -4153,6 +4158,7 @@ FEDAVG_ARCH, FEDAVG_TAU, FEDAVG_B, FEDAVG_S = "qwen3-14b", 2, 8, 128
 DRYRUN_ARGV = ["--arch", "qwen3-14b", "--shape", "train_4k"]
 DRYRUN_MOE_ARGV = ["--arch", "olmoe-1b-7b", "--shape", "train_4k",
                    "--moe-groups", "16"]
+DRYRUN_DECODE_ARGV = ["--arch", "minitron-4b", "--shape", "decode_32k"]
 
 
 def _fedavg_rounds(torch, np, dist, cuda):
@@ -4389,11 +4395,35 @@ def _one_shard_logits_bytes(arch: str, shape_name: str, data: int) -> int:
     return shape.global_batch // data * shape.seq_len * v_pad * 4
 
 
-def _dryrun_rows(runs):
-    """Each (argv, out) of ``runs`` as ``python -m
+def _decode_bounds(arch: str, shape_name: str) -> tuple[int, int]:
+    """(one layer's global f32 K cache bytes, the global f32 token
+    table's bytes) of ``arch`` at the decode shape ``shape_name``: what a
+    decode step moved and held a device when DTensor gathered them."""
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+
+    cfg, shape = get_config(arch), INPUT_SHAPES[shape_name]
+    k = T.init_cache_specs(cfg, shape.global_batch, shape.seq_len)["k"]
+    return (math.prod(k.shape[1:]) * 4,
+            math.prod(T.specs(cfg)["embed"]["tok"].shape) * 4)
+
+
+def _dryrun_runs():
+    """(argv, out) of (u4)'s three dry runs."""
+    build = ROOT / "build"
+    return [(DRYRUN_ARGV, build / "chip_smoke_dryrun.jsonl"),
+            (DRYRUN_MOE_ARGV, build / "chip_smoke_dryrun_moe.jsonl"),
+            (DRYRUN_DECODE_ARGV, build / "chip_smoke_dryrun_decode.jsonl")]
+
+
+def _dryrun_start(runs):
+    """Each (argv, out) of ``runs`` started as ``python -m
     repro_torch.launch.dryrun ARGV --out OUT`` in a subprocess of its own
-    (a process holds one default group), all at once; returns each run's
-    (PASS line, row, subprocess wall s). Raises where one fails."""
+    (a process holds one default group), all at once: (process, argv,
+    out, start) each, for :func:`_dryrun_rows`. They trace on the host's
+    CPU and use no card, so they can run beside a phase that keeps the
+    card busy."""
     procs = []
     for argv, out in runs:
         out.parent.mkdir(exist_ok=True)
@@ -4404,6 +4434,13 @@ def _dryrun_rows(runs):
             stderr=subprocess.PIPE, text=True,
             env={**os.environ, "PYTHONPATH": str(ROOT / "src")}),
             argv, out, time.perf_counter()))
+    return procs
+
+
+def _dryrun_rows(procs):
+    """Each started dry run's (PASS line, row, s from its start until it
+    was collected), once it ends; every process is stopped. Raises where
+    one fails."""
     rows = []
     for proc, argv, out, t0 in procs:
         try:
@@ -4420,10 +4457,11 @@ def _dryrun_rows(runs):
     return rows
 
 
-def phase_u_dryrun(card):
+def phase_u_dryrun(card, procs=None):
     """(u4) production dry runs, each in a subprocess: qwen3-14b
     ``train_4k`` and olmoe-1b-7b ``train_4k`` with ``--moe-groups 16``,
-    both on the (16, 16) mesh. Each must PASS, and its train step's peak
+    both on the (16, 16) mesh, and minitron-4b ``decode_32k`` beside
+    them. Each must PASS, and each train step's peak
     must fit one H100 (the loss runs vocab-parallel; with the global
     logits gathered qwen3-14b read 815 GB on torch 2.11, and olmoe's
     dispatch, gathered whole, 452 GB on 2.13). qwen3-14b's peak must also
@@ -4431,11 +4469,14 @@ def phase_u_dryrun(card):
     residual stream sits on its sequence shards on every torch version
     (on 2.11 DTensor kept it whole on the model axis: 74.6 GB). Each
     row's residual placements (as they arrived at the block boundaries,
-    and as pinned) are logged."""
-    build = ROOT / "build"
-    (line, row, wall), (m_line, m_row, m_wall) = _dryrun_rows([
-        (DRYRUN_ARGV, build / "chip_smoke_dryrun.jsonl"),
-        (DRYRUN_MOE_ARGV, build / "chip_smoke_dryrun_moe.jsonl")])
+    and as pinned) are logged. The decode step must move fewer bytes a
+    device than one layer's global K cache and peak below the global
+    float32 token table: with both gathered it moved 7.433e10 B and
+    peaked at 6,291,456,064 B on 2.13. ``procs``: the runs as
+    :func:`_dryrun_start` started them (main starts them with phase (t));
+    started here otherwise."""
+    (line, row, wall), (m_line, m_row, m_wall), (d_line, d_row, d_wall) = \
+        _dryrun_rows(procs or _dryrun_start(_dryrun_runs()))
     top = list(row["flops_by_op"].items())[:4]
     log(f"(u4) {line}; torch {row['torch']}, dominant "
         f"{row['dominant']}, trace_s "
@@ -4444,7 +4485,7 @@ def phase_u_dryrun(card):
         f"bytes_per_device {row['bytes_per_device']}, collectives "
         f"{json.dumps(row['collectives']['per_op'])}, useful_flops_ratio "
         f"{row['useful_flops_ratio']}, memory {json.dumps(row['memory'])}, "
-        f"subprocess wall {wall:.1f} s, device meta [{card}]")
+        f"collected {wall:.1f} s after its start, device meta [{card}]")
     for r, w in ((row, wall), (m_row, m_wall)):
         mem = r["memory"]
         if not (mem["temp_size_in_bytes"] > 0
@@ -4455,7 +4496,8 @@ def phase_u_dryrun(card):
             f"peak temp_size_in_bytes {mem['temp_size_in_bytes']}, one "
             f"H100 {H100_BYTES}, residual placements "
             f"{json.dumps(r['residual_placements'])}, flops_per_device "
-            f"{r['flops_per_device']}, subprocess wall {w:.1f} s (torch "
+            f"{r['flops_per_device']}, collected {w:.1f} s after its start "
+            f"(torch "
             f"{r['torch']}) [{card}]")
         if mem["temp_size_in_bytes"] >= H100_BYTES:
             raise AssertionError(f"(u4) {r['arch']} {r['variant']}: the "
@@ -4474,7 +4516,23 @@ def phase_u_dryrun(card):
         raise AssertionError(f"(u4) {row['arch']}: the train step's peak "
                              f"{peak} B is not below one data shard's "
                              f"full-vocab logits ({shard} B)")
-    return row, m_row
+    layer, table = _decode_bounds(d_row["arch"], d_row["shape"])
+    moved = d_row["collectives"]["moved_bytes_per_device"]
+    d_peak = d_row["memory"]["temp_size_in_bytes"]
+    log(f"(u4) {d_line}; torch {d_row['torch']}, moved a device {moved} B "
+        f"against one layer's global K cache {layer} B, peak {d_peak} B "
+        f"against the global f32 token table {table} B, flops_per_device "
+        f"{d_row['flops_per_device']}, collectives "
+        f"{json.dumps(d_row['collectives']['per_op'])}, dominant "
+        f"{d_row['dominant']}, collective_s {d_row['collective_s']}, "
+        f"collected {d_wall:.1f} s after its start [{card}]")
+    if not (moved < layer and d_peak < table):
+        raise AssertionError(f"(u4) {d_row['arch']} {d_row['shape']}: "
+                             f"moved {moved} B (one layer's cache {layer} "
+                             f"B), peak {d_peak} B (the table {table} B): "
+                             f"the decode step gathers its cache or its "
+                             f"table")
+    return row, m_row, d_row
 
 
 # ---------------------------------------------------------------------------
@@ -4899,6 +4957,8 @@ def main() -> int:
         phase_s_cli(torch, np, card, counters, ops)
 
     def t():
+        # (u4)'s dry runs trace on the host beside (t)'s card work
+        state["dry"] = _dryrun_start(_dryrun_runs())
         kernels["flash_attention"]["sites"], state["t"] = phase_t_zoo(
             torch, np, card, counters, ops, fa, sd, cuda)
 
@@ -4906,7 +4966,7 @@ def main() -> int:
         kernels["segment_reduce"].setdefault("sites", []).append(
             phase_u_sharded(torch, np, card, counters, ops, sr, cuda))
         phase_u_roofline(np, card, state)
-        phase_u_dryrun(card)
+        phase_u_dryrun(card, state.pop("dry", None))
 
     def v3():
         phase_v_streaming(torch, np, card, counters, state["j"], cuda)
@@ -4940,15 +5000,19 @@ def main() -> int:
               ("n", n_), ("o", o), ("p", p), ("q", q), ("r", r),
               ("s", s_), ("t", t), ("u", u), ("v", v), ("w", w)]
     failed = []
-    for name, fn in phases:
-        t0 = time.perf_counter()
-        try:
-            fn()
-        except Exception:                  # report every phase, then fail
-            traceback.print_exc()
-            failed.append(name)
-        log(f"phase ({name}) {'FAILED' if name in failed else 'ok'} in "
-            f"{time.perf_counter() - t0:.1f} s [{card}]")
+    try:
+        for name, fn in phases:
+            t0 = time.perf_counter()
+            try:
+                fn()
+            except Exception:              # report every phase, then fail
+                traceback.print_exc()
+                failed.append(name)
+            log(f"phase ({name}) {'FAILED' if name in failed else 'ok'} "
+                f"in {time.perf_counter() - t0:.1f} s [{card}]")
+    finally:                               # dry runs (u) did not collect
+        for proc, *_ in state.pop("dry", []):
+            proc.kill()
     if failed:
         print(f"chip_smoke: phases failed: {failed}", file=sys.stderr)
         return 1

@@ -375,8 +375,7 @@ def on_vocab_shards(fn, logits, labels):
     mesh = logits.device_mesh
     (axis,) = DEFAULT_RULES["vocab"]
     model = mesh.mesh_dim_names.index(axis)
-    batch = [p if isinstance(p, Shard) and p.dim % logits.dim() == 0
-             else Replicate() for p in logits.placements]
+    batch = _batch_placements(logits)
     batch[model] = Replicate()
     vocab = [*batch[:model], Shard(2), *batch[model + 1:]]
     x = logits.redistribute(mesh, vocab).to_local()
@@ -389,6 +388,130 @@ def on_vocab_shards(fn, logits, labels):
     B, S = labels.shape
     return DTensor.from_local(out.full_tensor(), mesh, batch,
                               run_check=False, shape=(B, S), stride=(S, 1))
+
+
+def _local_range(t, dim, place=None) -> tuple[int, int]:
+    """(global offset, length) of the local slice of dim ``dim`` of a
+    DTensor t at placements ``place`` (t's own by default)."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    shape, offset = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, place or t.placements)
+    return offset[dim], shape[dim]
+
+
+def _batch_placements(t) -> list:
+    """t's placements with every mesh dim but those that shard its dim 0
+    replicated."""
+    return [p if isinstance(p, Shard) and p.dim % t.dim() == 0
+            else Replicate() for p in t.placements]
+
+
+def rows_of(t, like):
+    """The local tensor of a (B, ...) DTensor t on ``like``'s batch
+    shards, whole on every other mesh dim: a gather of what those shard
+    (a decode step's q heads, one token's worth)."""
+    return t.redistribute(t.device_mesh, _batch_placements(like)).to_local()
+
+
+def write_slot(t, dim, i: int, value) -> None:
+    """``t[..., i, ...] = value`` at index i of dim ``dim``, in place, on
+    a DTensor t (a decode cache): only the rank whose local slice of that
+    dim holds i writes, at i less the slice's offset, into its local
+    tensor; every rank writes where the dim is whole. ``value`` is a
+    number or the rank's local part of the written slice."""
+    lo, n = _local_range(t, dim)
+    if lo <= i < lo + n:
+        t.to_local()[(slice(None),) * dim + (i - lo,)] = value
+
+
+def shard_reduce(t, dim):
+    """``reduce(x, op)``, the all-reduce (op ``"max"`` or ``"sum"``) of a
+    local tensor x over the mesh dims that shard dim ``dim`` of the
+    DTensor t, or None where no mesh dim does."""
+    from torch.distributed import _functional_collectives as funcol
+
+    mesh = t.device_mesh
+    dims = [i for i, p in enumerate(t.placements)
+            if isinstance(p, Shard) and p.dim % t.dim() == dim]
+    if not dims:
+        return None
+
+    def reduce(x, op):
+        for i in dims:
+            x = funcol.all_reduce(x, op, (mesh, i))
+            if isinstance(x, funcol.AsyncCollectiveTensor):
+                x = x.wait()
+        return x
+    return reduce
+
+
+def rows_product(a, w, rows_like):
+    """``a @ w[:K]`` of a local activation a (B_l, S, K), on
+    ``rows_like``'s batch shards and whole on every other mesh dim, and
+    a DTensor weight w (K_pad, F) whose rows (the heads) the model axis
+    may shard: each rank multiplies the columns of a that its rows of w
+    cover, rows past K (padded heads) left out, and the products are a
+    partial sum over the mesh dims that shard w's rows. The (B, S, F)
+    result is all-reduced over those and left on ``rows_like``'s batch
+    shards, whole on every other mesh dim: neither a nor w is
+    gathered."""
+    mesh = w.device_mesh
+    place = [p if isinstance(p, Shard) and p.dim % 2 == 0 else Replicate()
+             for p in w.placements]
+    wl = w.redistribute(mesh, place).to_local()
+    lo, n = _local_range(w, 0, place)
+    hi = min(lo + n, a.shape[-1])
+    out = a[..., lo:hi] @ wl[:max(hi - lo, 0)]
+    batch = _batch_placements(rows_like)
+    (B, S), F = (rows_like.shape[0], a.shape[1]), w.shape[1]
+    return DTensor.from_local(
+        out, mesh, [Partial() if isinstance(p, Shard) else b
+                    for p, b in zip(place, batch)],
+        run_check=False, shape=(B, S, F), stride=(S * F, F, 1)
+    ).redistribute(mesh, batch)
+
+
+def vocab_lookup(tokens, table):
+    """``F.embedding(tokens, table)`` of a DTensor table whose rows (the
+    vocab) the model axis shards, on the local rows, as the reference's
+    lookup on its vocab-sharded table: each rank looks up the ids in its
+    [lo, hi) rows and writes zeros for the others, so that the sum over
+    the model axis, one nonzero addend an entry, is the lookup. That
+    partial sum goes straight to the residual stream's placement on the
+    tokens' batch shards: the sequence shards of :func:`seq_shards` (a
+    reduce-scatter) where S reaches the model extent, else whole on the
+    model axis (an all-reduce, a decode step's one token). The backward
+    is the embedding backward of each rank's local ids into its own
+    (V / m, D) rows: no rank holds the global table or its gradient.
+    ``tokens`` (B, S) is a DTensor or, whole on every rank, a plain
+    tensor."""
+    mesh = table.device_mesh
+    rows = [p if isinstance(p, Shard) and p.dim % 2 == 0 else Replicate()
+            for p in table.placements]
+    if isinstance(tokens, DTensor):
+        batch = _batch_placements(tokens)
+        ids = tokens.redistribute(mesh, batch).to_local()
+    else:
+        batch, ids = [Replicate()] * mesh.ndim, tokens
+    # a rank's rows serve only its batch rows: their gradient is a
+    # partial sum over the mesh dims that shard the batch
+    grad = [r if isinstance(r, Shard) else Partial() if isinstance(b, Shard)
+            else Replicate() for r, b in zip(rows, batch)]
+    local = table.redistribute(mesh, rows).to_local(grad_placements=grad)
+    lo, n = _local_range(table, 0, rows)
+    mine = (ids >= lo) & (ids < lo + n)     # ids in their own int dtype
+    y = torch.nn.functional.embedding(torch.where(mine, ids - lo, 0),
+                                      local).masked_fill(~mine[..., None], 0)
+    (B, S), D = tokens.shape, table.shape[1]
+    x = DTensor.from_local(
+        y, mesh, [Partial() if isinstance(r, Shard) else b
+                  for r, b in zip(rows, batch)],
+        run_check=False, shape=(B, S, D), stride=(S * D, D, 1))
+    if _seq_axis(x) is not None:
+        return seq_shards(x)
+    return x.redistribute(mesh, [Replicate() if isinstance(p, Partial) else p
+                                 for p in x.placements])
 
 
 def on_local_shards(fn, lead, batch_only=(), heads_too=()):
@@ -409,8 +532,7 @@ def on_local_shards(fn, lead, batch_only=(), heads_too=()):
     mesh = lead.device_mesh
     keep = [p if isinstance(p, Shard) and p.dim % lead.dim() in (0, 1)
             else Replicate() for p in lead.placements]
-    batch = [p if isinstance(p, Shard) and p.dim % lead.dim() == 0
-             else Replicate() for p in lead.placements]
+    batch = _batch_placements(lead)
     local = [t.redistribute(mesh, keep).to_local()
              for t in (lead, *heads_too)]
     over_heads = [Partial() if k != b else b for k, b in zip(keep, batch)]

@@ -64,10 +64,12 @@ as sequence parallelism on local shards (``sharding.stream_product``),
 attention and the SSD scan on each rank's batch rows and heads
 (``kernels/ops.py``), the MoE dispatch on its groups, experts and
 capacity slots (``models/moe.py``), the loss on the vocab shards, the
-embedding table gathered for the lookup, and buffers gathered and
-pinned before a view splits or merges a sharded dim
-(``distributed/sharding.py``). The (2, 16, 16) mesh is traced on its
-(32, 16) flattening (:func:`check_pod_flattening`).
+token lookup on the table's vocab shards (``sharding.vocab_lookup``),
+decode attention on the KV cache's sequence shards
+(``layers._attend_on_shards``), and buffers gathered and pinned before
+a view splits or merges a sharded dim (``distributed/sharding.py``).
+The (2, 16, 16) mesh is traced on its (32, 16) flattening
+(:func:`check_pod_flattening`).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-14b --shape train_4k

@@ -14,7 +14,8 @@ attention` (the hand-written flash kernel on the card, its plain
 version on the CPU), in the kernel's (B, H, S, hd) layout, cross
 attention (Sq != Sk, non-causal) included; the reference's choice
 between full and blocked attention is one function here. Decode
-attention, self and cross, is plain torch, as in the reference.
+attention, self and cross, is plain torch, as in the reference; on a
+DTensor cache it runs on each rank's local slots.
 """
 from __future__ import annotations
 
@@ -22,8 +23,11 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 
-from repro_torch.distributed.sharding import gather_dims, pin, stream_product
+from repro_torch.distributed.sharding import (pin, rows_of, rows_product,
+                                              shard_reduce, stream_product,
+                                              vocab_lookup, write_slot)
 from repro_torch.kernels import ops
 from repro_torch.models.module import Spec
 
@@ -210,47 +214,102 @@ def decode_attention(x, p, cfg, cache, pos: int, *, window=None):
     (no leading layer dim); pos the absolute position. Writes the new
     K/V into the cache in place (the reference returns a new cache; the
     in-place write saves a copy of every cache per token) and returns
-    (out (B,1,D), cache)."""
+    (out (B,1,D), cache). A DTensor cache runs on its local slots
+    (:func:`_attend_on_shards`)."""
     B = x.shape[0]
     hd, H, KH = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
     q, k_new, v_new = _project_qkv(x, p, cfg)
+    k, v, slot_pos = cache["k"], cache["v"], cache["slot_pos"]
+    if isinstance(k, DTensor):
+        # one token's q heads, K and V, whole on this rank's batch rows
+        q, k_new, v_new = (rows_of(t, k) for t in (q, k_new, v_new))
     q = q[:, :, :H, :]                 # padded heads take no part in decode
     if cfg.rope:
         # a fill on the device, not a host copy (which would wait for
         # the stream at every layer of every token)
-        cos, sin = rope_cos_sin(torch.full((1,), pos, device=x.device), hd,
+        cos, sin = rope_cos_sin(torch.full((1,), pos, device=q.device), hd,
                                 cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k_new = apply_rope(k_new, cos, sin)
-    k, v, slot_pos = cache["k"], cache["v"], cache["slot_pos"]
     slot = pos % k.shape[2]            # ring for SWA; == pos when it fits
+    if isinstance(k, DTensor):
+        write_slot(k, 2, slot, k_new[:, 0])
+        write_slot(v, 2, slot, v_new[:, 0])
+        write_slot(slot_pos, 0, slot, pos)
+        valid = _visible(slot_pos.to_local(), pos, window)
+        return _attend_on_shards(x, q, k, v, valid, p["wo"], cfg), cache
     k[:, :, slot] = k_new[:, 0]
     v[:, :, slot] = v_new[:, 0]
     slot_pos[slot] = pos
 
-    qg = gather_dims(q, (1, 2)).reshape(B, KH, H // KH, hd)
+    qg = q.reshape(B, KH, H // KH, hd)
     s = upcast(torch.einsum("bgrh,bgsh->bgrs", qg, k)) / math.sqrt(hd)
+    s = s.masked_fill(~_visible(slot_pos, pos, window), float("-inf"))
+    pr = torch.softmax(s, dim=-1).to(x.dtype)
+    og = torch.einsum("bgrs,bgsh->bgrh", pr, v)
+    out = og.reshape(B, 1, H * hd) @ p["wo"][:H * hd]
+    return out, cache
+
+
+def _visible(slot_pos, pos: int, window):
+    """The slots a decode step at ``pos`` attends: written ones, inside
+    the window; the current token is always visible."""
     valid = slot_pos >= 0
     if window is not None:
         valid &= slot_pos > pos - window
-    valid |= slot_pos == pos           # the current token is always visible
-    s = s.masked_fill(~valid, float("-inf"))
-    pr = torch.softmax(s, dim=-1).to(x.dtype)
-    og = gather_dims(torch.einsum("bgrs,bgsh->bgrh", pr, v), (1, 2, 3))
-    out = og.reshape(B, 1, H * hd) @ p["wo"][:H * hd]
-    return out, cache
+    valid |= slot_pos == pos
+    return valid
+
+
+def _attend_on_shards(x, q, k, v, valid, wo, cfg):
+    """Decode attention against a DTensor cache on each rank's local
+    slots, as the reference's comment has it ("contract against the
+    seq-sharded cache; softmax over the sharded seq dim lowers to small
+    all-reduces"). q (B_l,1,H,hd) is local, whole on the model axis, on
+    k's batch rows; k, v (B,KH,S,hd) are DTensors; ``valid`` masks the
+    local slots (None: all visible). The scores are the local slots';
+    the max over the slots is all-reduced (MAX), and each rank's sum of
+    exp and its p·v are summed over the mesh dims that shard the slots.
+    A rank whose slots are all masked adds exact zeros: its exp is taken
+    against the global max, which the visible current token makes
+    finite. Where the slots are whole on every rank this is the plain
+    softmax. The output projection multiplies wo's local rows
+    (:func:`rows_product`); no head, no weight and no slot is
+    gathered."""
+    Bl, hd, H, KH = q.shape[0], cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    kl, vl = k.to_local(), v.to_local()
+    qg = q.reshape(Bl, KH, H // KH, hd)
+    s = upcast(torch.einsum("bgrh,bgsh->bgrs", qg, kl)) / math.sqrt(hd)
+    if valid is not None:
+        s = s.masked_fill(~valid, float("-inf"))
+    reduce = shard_reduce(k, 2)
+    if reduce is None:
+        pr = torch.softmax(s, dim=-1).to(x.dtype)
+        og = torch.einsum("bgrs,bgsh->bgrh", pr, vl)
+    else:
+        e = torch.exp(s - reduce(s.amax(dim=-1, keepdim=True), "max"))
+        pr = (e / reduce(e.sum(dim=-1, keepdim=True), "sum")).to(x.dtype)
+        og = reduce(torch.einsum("bgrs,bgsh->bgrh", pr, vl), "sum")
+    return rows_product(og.reshape(Bl, 1, H * hd), wo, k)
 
 
 def cross_decode_attention(x, p, cfg, k, v):
     """Decode-time cross attention against the encoder's K/V. x (B,1,D);
     k, v (B,KH,S_enc,hd): no cache write, every position visible. Plain
-    torch with the padded q heads dropped, as in the reference."""
+    torch with the padded q heads dropped, as in the reference; DTensor
+    K/V on their local positions (:func:`_attend_on_shards`)."""
     B = x.shape[0]
     hd, H, KH = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
     q = x @ p["wq"]
     if cfg.qkv_bias:
         q = q + p["bq"]
-    q = q.reshape(B, 1, cfg.num_heads_padded, hd)[:, :, :H, :]
+    q = q.reshape(B, 1, cfg.num_heads_padded, hd)
+    if isinstance(k, DTensor):
+        if cfg.qk_norm:                # per head: before or after the drop
+            q = rmsnorm(q, p["q_norm"])
+        return _attend_on_shards(x, rows_of(q, k)[:, :, :H, :], k, v, None,
+                                 p["wo"], cfg)
+    q = q[:, :, :H, :]
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
     qg = q.reshape(B, KH, H // KH, hd)
@@ -332,9 +391,15 @@ def embed_tokens(tokens, p, cfg, positions=None):
     reference's gather, whose backward is the embedding backward rather
     than an accumulating ``index_put`` (which DTensor cannot shard over
     batch-sharded ids in torch 2.11). A vocab-sharded DTensor table is
-    gathered for the lookup: torch 2.11 cannot carry the masked partial
-    sum of a sharded lookup back through the backward."""
-    x = F.embedding(tokens.long(), gather_dims(p["tok"], (0,)))
+    looked up on its local rows (:func:`repro_torch.distributed.
+    sharding.vocab_lookup`), whose sum lands on the residual stream's
+    placement."""
+    tok = p["tok"]
+    if isinstance(tok, DTensor) and any(
+            isinstance(q, Shard) and q.dim == 0 for q in tok.placements):
+        x = vocab_lookup(tokens, tok)
+    else:
+        x = F.embedding(tokens.long(), tok)
     if cfg.pos_embed == "learned":
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)

@@ -313,6 +313,11 @@ def test_cli_sanitize_matches_reference_cli(flags, monkeypatch):
 
 def test_cli_unguarded_corrupt_raises_in_both():
     flags = ["--faults", "corrupt", "--fault-rate", "0.3", "--unguarded"]
+    # the reference's transfer guard fires where a program is traced: a
+    # program of the same run compiled earlier in this process (the
+    # unguarded corrupt run of tests/test_torch_faults.py) is reused
+    # without a transfer, and nothing raises
+    jax.clear_caches()
     with contextlib.redirect_stdout(io.StringIO()):
         with pytest.raises(Exception, match="Disallowed host-to-device"):
             rtrain.main(ARGS + flags)
