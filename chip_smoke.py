@@ -307,7 +307,10 @@ source, all started together), then runs twenty-three phases and fails
     ``decode_32k`` beside them, which must move fewer bytes a device than
     one layer's global K cache and peak below the global float32 token
     table (the KV cache read on its sequence shards, the lookup on the
-    table's vocab shards);
+    table's vocab shards), and mamba2-1.3b ``decode_32k``, which must
+    move fewer bytes a device than one layer's global SSM state (the SSM
+    decode on its head shards); both decode streams pinned to (batch
+    shards, whole on the model axis) at every block boundary;
 (v) the runtime sanitizer (``core/sanitize.py``): (v1) ``--sanitize``
     at fog scale, flat, with ``--tiers 32@5,4@10,1@20`` and with
     ``--engine batched``, each in turns with the same flags without it
@@ -4159,6 +4162,7 @@ DRYRUN_ARGV = ["--arch", "qwen3-14b", "--shape", "train_4k"]
 DRYRUN_MOE_ARGV = ["--arch", "olmoe-1b-7b", "--shape", "train_4k",
                    "--moe-groups", "16"]
 DRYRUN_DECODE_ARGV = ["--arch", "minitron-4b", "--shape", "decode_32k"]
+DRYRUN_SSM_ARGV = ["--arch", "mamba2-1.3b", "--shape", "decode_32k"]
 
 
 def _fedavg_rounds(torch, np, dist, cuda):
@@ -4409,12 +4413,25 @@ def _decode_bounds(arch: str, shape_name: str) -> tuple[int, int]:
             math.prod(T.specs(cfg)["embed"]["tok"].shape) * 4)
 
 
+def _ssm_state_bytes(arch: str, shape_name: str) -> int:
+    """One layer's global f32 SSM state (B·H·P·N·4 bytes) of ``arch`` at
+    the decode shape ``shape_name``."""
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+
+    cfg, shape = get_config(arch), INPUT_SHAPES[shape_name]
+    h = T.init_cache_specs(cfg, shape.global_batch, shape.seq_len)["h"]
+    return math.prod(h.shape[1:]) * 4
+
+
 def _dryrun_runs():
-    """(argv, out) of (u4)'s three dry runs."""
+    """(argv, out) of (u4)'s four dry runs."""
     build = ROOT / "build"
     return [(DRYRUN_ARGV, build / "chip_smoke_dryrun.jsonl"),
             (DRYRUN_MOE_ARGV, build / "chip_smoke_dryrun_moe.jsonl"),
-            (DRYRUN_DECODE_ARGV, build / "chip_smoke_dryrun_decode.jsonl")]
+            (DRYRUN_DECODE_ARGV, build / "chip_smoke_dryrun_decode.jsonl"),
+            (DRYRUN_SSM_ARGV, build / "chip_smoke_dryrun_ssm.jsonl")]
 
 
 def _dryrun_start(runs):
@@ -4472,10 +4489,15 @@ def phase_u_dryrun(card, procs=None):
     and as pinned) are logged. The decode step must move fewer bytes a
     device than one layer's global K cache and peak below the global
     float32 token table: with both gathered it moved 7.433e10 B and
-    peaked at 6,291,456,064 B on 2.13. ``procs``: the runs as
-    :func:`_dryrun_start` started them (main starts them with phase (t));
-    started here otherwise."""
-    (line, row, wall), (m_line, m_row, m_wall), (d_line, d_row, d_wall) = \
+    peaked at 6,291,456,064 B on 2.13. mamba2-1.3b ``decode_32k`` must
+    move fewer bytes a device than one layer's global SSM state (the SSM
+    decode on its head shards: before, 1.182e8 B on 2.13 and 2.53e7 on
+    2.11). Both decode streams must leave every block boundary on their
+    batch shards, whole on the model axis (``S(0),R``). ``procs``: the
+    runs as :func:`_dryrun_start` started them (main starts them with
+    phase (t)); started here otherwise."""
+    ((line, row, wall), (m_line, m_row, m_wall), (d_line, d_row, d_wall),
+     (s_line, s_row, s_wall)) = \
         _dryrun_rows(procs or _dryrun_start(_dryrun_runs()))
     top = list(row["flops_by_op"].items())[:4]
     log(f"(u4) {line}; torch {row['torch']}, dominant "
@@ -4532,7 +4554,25 @@ def phase_u_dryrun(card, procs=None):
                              f"B), peak {d_peak} B (the table {table} B): "
                              f"the decode step gathers its cache or its "
                              f"table")
-    return row, m_row, d_row
+    state = _ssm_state_bytes(s_row["arch"], s_row["shape"])
+    s_moved = s_row["collectives"]["moved_bytes_per_device"]
+    log(f"(u4) {s_line}; torch {s_row['torch']}, moved a device {s_moved} "
+        f"B against one layer's global SSM state {state} B, peak "
+        f"{s_row['memory']['temp_size_in_bytes']} B, residual placements "
+        f"{json.dumps(s_row['residual_placements'])}, collectives "
+        f"{json.dumps(s_row['collectives']['per_op'])}, flops_per_device "
+        f"{s_row['flops_per_device']}, collected {s_wall:.1f} s after its "
+        f"start [{card}]")
+    if s_moved >= state:
+        raise AssertionError(f"(u4) {s_row['arch']} {s_row['shape']}: "
+                             f"moved {s_moved} B, one layer's SSM state is "
+                             f"{state} B: the SSM decode gathers its heads")
+    for r in (d_row, s_row):
+        if set(r["residual_placements"].get("pinned", ())) != {"S(0),R"}:
+            raise AssertionError(f"(u4) {r['arch']} {r['shape']}: the "
+                                 f"decode stream is not pinned: "
+                                 f"{r['residual_placements']}")
+    return row, m_row, d_row, s_row
 
 
 # ---------------------------------------------------------------------------

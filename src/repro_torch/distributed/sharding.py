@@ -158,47 +158,6 @@ def placements(spec, mesh) -> tuple:
                  for n in mesh.mesh_dim_names)
 
 
-def gather_dims(t, dims):
-    """A DTensor ``t`` with every mesh dim that shards one of the tensor
-    dims ``dims`` gathered (``Replicate()``), before a reshape that
-    splits or merges them: DTensor refuses such a view when the sharded
-    dim does not divide evenly into the new ones, where the reference's
-    GSPMD reshards by itself. A plain tensor is returned as it is."""
-    if not isinstance(t, DTensor):
-        return t
-    place = [Replicate() if isinstance(p, Shard) and p.dim % t.dim() in dims
-             else p for p in t.placements]
-    if place == list(t.placements):
-        return t
-    return t.redistribute(t.device_mesh, place)
-
-
-def even_shards(t, dims):
-    """A DTensor ``t`` with each of the tensor dims ``dims`` sharded only
-    as far as it divides: the mesh dims that shard such a dim are kept
-    in mesh order while their extents' product divides its size, and
-    the others replicated. DTensor may shard a dim unevenly on a mesh
-    dim that its inputs replicate (a strategy it picks, not one the
-    rules asked for), and then cannot flatten it in a later op. A plain
-    tensor is returned as it is."""
-    if not isinstance(t, DTensor):
-        return t
-    sizes = tuple(t.device_mesh.shape)
-    place = list(t.placements)
-    for d in dims:
-        ext = 1
-        for i, p in enumerate(place):
-            if not (isinstance(p, Shard) and p.dim % t.dim() == d):
-                continue
-            if t.shape[d] % (ext * sizes[i]):
-                place[i] = Replicate()
-            else:
-                ext *= sizes[i]
-    if place == list(t.placements):
-        return t
-    return t.redistribute(t.device_mesh, place)
-
-
 def pin(t):
     """A DTensor ``t`` passed through a redistribution to its own
     placements: nothing happens forward, and backward its gradient is
@@ -213,8 +172,8 @@ def pin(t):
 def lead_shards(mesh, n: int, rules=None) -> list:
     """Placements that shard a leading dim of size ``n`` over the mesh's
     batch axes, each kept in mesh order (pod before data) while the
-    extents' product divides ``n`` and replicated otherwise, as
-    :func:`even_shards` keeps them; every other mesh dim replicates."""
+    extents' product divides ``n`` and replicated otherwise; every other
+    mesh dim replicates."""
     batch = set((rules or DEFAULT_RULES)["batch"])
     place, ext = [], 1
     for name, size in zip(mesh.mesh_dim_names, tuple(mesh.shape)):
@@ -275,10 +234,17 @@ def stream_product(x, w):
     DTensor cannot flatten a sequence-sharded x (or the gradient of a
     row-parallel product, which the next :func:`seq_shards` shards) into
     a product's rows, and its plan for such a product differs from
-    2.13's; this one is the same on both. A plain tensor, or a DTensor
-    with a sequence shorter than the model axis (decode), as
-    ``x @ w``."""
-    if not isinstance(x, DTensor) or _seq_axis(x) is None:
+    2.13's; this one is the same on both.
+
+    Where the sequence is shorter than the model axis (a decode step's
+    one token, which :func:`seq_shards` keeps whole there) the same local
+    products run on x's own batch shards, with no sequence to gather:
+    column-parallel, x's whole local rows times w's local columns, the
+    output ``Shard(2)``; row-parallel, x's local columns times w's local
+    rows, the partial sum all-reduced at once to x's batch shards, whole
+    on the model axis (as :func:`rows_product`); a replicated w, x's
+    local rows times the whole weight. A plain tensor as ``x @ w``."""
+    if not isinstance(x, DTensor):
         return x @ w
     mesh = x.device_mesh
     x_place, x_grad, w_place, w_grad, out_place = [], [], [], [], []
@@ -301,6 +267,14 @@ def stream_product(x, w):
         w_grad.append(pw if isinstance(pw, Shard) else Partial()
                       if isinstance(x_place[-1], Shard) else Replicate())
     (B, S, _), F = x.shape, w.shape[1]
+    if _seq_axis(x) is None:
+        out = DTensor.from_local(
+            x.redistribute(mesh, x_place).to_local(grad_placements=x_grad)
+            @ w.redistribute(mesh, w_place).to_local(grad_placements=w_grad),
+            mesh, out_place, run_check=False, shape=(B, S, F),
+            stride=(S * F, F, 1))
+        return out.redistribute(mesh, [Replicate() if isinstance(
+            p, Partial) else p for p in out_place])
     row = any(isinstance(p, Partial) for p in out_place)
 
     def product(x, w):
@@ -390,7 +364,7 @@ def on_vocab_shards(fn, logits, labels):
                               run_check=False, shape=(B, S), stride=(S, 1))
 
 
-def _local_range(t, dim, place=None) -> tuple[int, int]:
+def local_range(t, dim, place=None) -> tuple[int, int]:
     """(global offset, length) of the local slice of dim ``dim`` of a
     DTensor t at placements ``place`` (t's own by default)."""
     from torch.distributed.tensor._utils import (
@@ -414,13 +388,31 @@ def rows_of(t, like):
     return t.redistribute(t.device_mesh, _batch_placements(like)).to_local()
 
 
+def layer_view(t, i: int):
+    """``t[i]``, the i-th layer of a stacked tensor (a decode cache)
+    whose leading dim no mesh dim shards. Of a DTensor, a DTensor on t's
+    mesh whose local tensor is the view ``t.to_local()[i]``, so that a
+    write into its local tensor lands in t's local storage."""
+    if not isinstance(t, DTensor):
+        return t[i]
+    if any(isinstance(p, Shard) and p.dim % t.dim() == 0
+           for p in t.placements):
+        raise ValueError(f"layer_view: the layers of {t.placements} are "
+                         f"sharded")
+    place = [Shard(p.dim % t.dim() - 1) if isinstance(p, Shard) else p
+             for p in t.placements]
+    return DTensor.from_local(t.to_local()[i], t.device_mesh, place,
+                              run_check=False, shape=t.shape[1:],
+                              stride=t.stride()[1:])
+
+
 def write_slot(t, dim, i: int, value) -> None:
     """``t[..., i, ...] = value`` at index i of dim ``dim``, in place, on
     a DTensor t (a decode cache): only the rank whose local slice of that
     dim holds i writes, at i less the slice's offset, into its local
     tensor; every rank writes where the dim is whole. ``value`` is a
     number or the rank's local part of the written slice."""
-    lo, n = _local_range(t, dim)
+    lo, n = local_range(t, dim)
     if lo <= i < lo + n:
         t.to_local()[(slice(None),) * dim + (i - lo,)] = value
 
@@ -446,23 +438,27 @@ def shard_reduce(t, dim):
     return reduce
 
 
-def rows_product(a, w, rows_like):
+def rows_product(a, w, rows_like, local: bool = False):
     """``a @ w[:K]`` of a local activation a (B_l, S, K), on
     ``rows_like``'s batch shards and whole on every other mesh dim, and
     a DTensor weight w (K_pad, F) whose rows (the heads) the model axis
     may shard: each rank multiplies the columns of a that its rows of w
     cover, rows past K (padded heads) left out, and the products are a
-    partial sum over the mesh dims that shard w's rows. The (B, S, F)
-    result is all-reduced over those and left on ``rows_like``'s batch
-    shards, whole on every other mesh dim: neither a nor w is
-    gathered."""
+    partial sum over the mesh dims that shard w's rows. With ``local``,
+    a holds only those columns (the SSM decode's inner width on its
+    head shards). The (B, S, F) result is all-reduced over those mesh
+    dims and left on ``rows_like``'s batch shards, whole on every other
+    mesh dim: neither a nor w is gathered."""
     mesh = w.device_mesh
     place = [p if isinstance(p, Shard) and p.dim % 2 == 0 else Replicate()
              for p in w.placements]
     wl = w.redistribute(mesh, place).to_local()
-    lo, n = _local_range(w, 0, place)
-    hi = min(lo + n, a.shape[-1])
-    out = a[..., lo:hi] @ wl[:max(hi - lo, 0)]
+    if local:
+        out = a @ wl
+    else:
+        lo, n = local_range(w, 0, place)
+        hi = min(lo + n, a.shape[-1])
+        out = a[..., lo:hi] @ wl[:max(hi - lo, 0)]
     batch = _batch_placements(rows_like)
     (B, S), F = (rows_like.shape[0], a.shape[1]), w.shape[1]
     return DTensor.from_local(
@@ -499,7 +495,7 @@ def vocab_lookup(tokens, table):
     grad = [r if isinstance(r, Shard) else Partial() if isinstance(b, Shard)
             else Replicate() for r, b in zip(rows, batch)]
     local = table.redistribute(mesh, rows).to_local(grad_placements=grad)
-    lo, n = _local_range(table, 0, rows)
+    lo, n = local_range(table, 0, rows)
     mine = (ids >= lo) & (ids < lo + n)     # ids in their own int dtype
     y = torch.nn.functional.embedding(torch.where(mine, ids - lo, 0),
                                       local).masked_fill(~mine[..., None], 0)

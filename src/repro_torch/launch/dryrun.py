@@ -49,8 +49,9 @@ What a row reports, per device:
 * ``residual_placements``: the placements the residual stream arrived
   in at each block boundary (``arrived``) and left in (``pinned``), by
   count, at every call of ``sharding.seq_shards`` (``"S(0),S(1)"``:
-  batch shards on the data axis, sequence shards on the model axis):
-  where two versions' plans differ, this is where it shows first.
+  batch shards on the data axis, sequence shards on the model axis; a
+  decode step's one token ``"S(0),R"``, whole on the model axis): where
+  two versions' plans differ, this is where it shows first.
 
 DTensor's shape inference, which runs each new op once on tensors of
 the global shapes, counts in none of these.
@@ -59,15 +60,18 @@ The plan is DTensor's own sharding propagation, op by op, from the
 slice's input shardings, with the port's explicit layouts where DTensor
 has no rule or picks differently between torch 2.11 and 2.13: the
 residual stream on its batch and sequence shards at every block
-boundary (``sharding.seq_shards``), the products that read or write it
-as sequence parallelism on local shards (``sharding.stream_product``),
+boundary (``sharding.seq_shards``; in a decode step its batch shards),
+the products that read or write it as sequence parallelism on local
+shards (``sharding.stream_product``; a decode step's on its batch
+shards),
 attention and the SSD scan on each rank's batch rows and heads
 (``kernels/ops.py``), the MoE dispatch on its groups, experts and
 capacity slots (``models/moe.py``), the loss on the vocab shards, the
 token lookup on the table's vocab shards (``sharding.vocab_lookup``),
 decode attention on the KV cache's sequence shards
-(``layers._attend_on_shards``), and buffers gathered and pinned before
-a view splits or merges a sharded dim (``distributed/sharding.py``).
+(``layers._attend_on_shards``), the SSM decode on each rank's heads
+(``ssm._decode_on_shards``), and the q, K and V heads pinned after
+the view that splits them (``sharding.pin``).
 The (2, 16, 16) mesh is traced on its (32, 16) flattening
 (:func:`check_pod_flattening`).
 

@@ -300,7 +300,7 @@ def cross_decode_attention(x, p, cfg, k, v):
     K/V on their local positions (:func:`_attend_on_shards`)."""
     B = x.shape[0]
     hd, H, KH = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
-    q = x @ p["wq"]
+    q = stream_product(x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
     q = q.reshape(B, 1, cfg.num_heads_padded, hd)

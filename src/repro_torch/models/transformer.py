@@ -20,8 +20,9 @@ groups: ``attn_every`` SSM blocks, then the one SHARED attention+MLP
 block. ``cfg.remat == "full"`` recomputes each block (and each hybrid
 group) in the backward, where the reference wraps the same bodies in
 ``jax.checkpoint``. On DTensors the residual stream enters and leaves
-every block on its batch and sequence shards
-(``sharding.seq_shards``); on plain tensors that is the identity.
+every block on its batch and sequence shards (``sharding.seq_shards``;
+a decode step's one token on its batch shards, whole on the model
+axis); on plain tensors that is the identity.
 """
 from __future__ import annotations
 
@@ -29,8 +30,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import (on_vocab_shards, seq_shards,
-                                              stream_product)
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.sharding import (layer_view, on_vocab_shards,
+                                              seq_shards, stream_product)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -327,33 +329,42 @@ def init_cache_specs(cfg, batch: int, seq_len: int) -> dict:
 
 def _ssm_decode_block(x, params, cache, i, cfg):
     lp = _layer(params["blocks"], i)
+    x = seq_shards(x)
     h, _ = S.ssm_decode(_norm(x, lp["ln"], cfg), lp["ssm"], cfg,
-                        {"h": cache["h"][i], "conv": cache["conv"][i]})
-    return x + h
+                        {k: layer_view(cache[k], i) for k in ("h", "conv")})
+    return seq_shards(x + h)
 
 
 def _attn_mlp_decode(x, lp, cfg, cache, pos, window):
     """One block's decode step; an enc-dec block adds cross attention
-    against the encoder's K/V in its cache (no cache write)."""
+    against the encoder's K/V in its cache (no cache write). On DTensors
+    the stream sits on its batch shards, whole on the model axis, at
+    every add (``seq_shards``)."""
+    x = seq_shards(x)
     h, _ = L.decode_attention(_norm(x, lp["ln1"], cfg), lp["attn"], cfg,
                               cache, pos, window=window)
-    x = x + h
+    x = seq_shards(x + h)
     if cfg.family == "encdec":
-        x = x + L.cross_decode_attention(_norm(x, lp["ln_x"], cfg),
-                                         lp["xattn"], cfg, cache["cross_k"],
-                                         cache["cross_v"])
+        x = seq_shards(x + L.cross_decode_attention(
+            _norm(x, lp["ln_x"], cfg), lp["xattn"], cfg, cache["cross_k"],
+            cache["cross_v"]))
     if cfg.num_experts:
         h, _ = M.moe_apply(_norm(x, lp["ln2"], cfg), lp["moe"], cfg)
+        # the MoE's partial sum, summed onto the stream's shards before
+        # the add (not a block boundary: the dry run does not count it)
+        h = SH.seq_shards(h)
     else:
         h = L.mlp_apply(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg)
-    return x + h
+    return seq_shards(x + h)
 
 
 def decode_step(params, cache, batch, pos: int, cfg):
     """One-token decode. batch['tokens'] (B,1). Updates the cache in
     place and returns (logits (B,1,V_pad), cache). A VLM decodes text
     only, as in the reference; an MoE layer dispatches the B tokens of
-    the step with its own capacity."""
+    the step with its own capacity. On DTensors the stream is pinned at
+    every block boundary (``seq_shards``: its batch shards, whole on the
+    model axis) and every product runs on local shards."""
     window = cfg.sliding_window
     tok = batch["tokens"]
     x = L.embed_tokens(tok, params["embed"], cfg, positions=(
@@ -373,5 +384,5 @@ def decode_step(params, cache, batch, pos: int, cfg):
         for i in range(cfg.num_layers):
             x = _attn_mlp_decode(x, _layer(params["blocks"], i), cfg,
                                  _layer(cache, i), pos, window)
-    x = _norm(x, params["ln_f"], cfg)
+    x = _norm(seq_shards(x), params["ln_f"], cfg)
     return L.lm_logits(x, params["embed"], cfg), cache

@@ -49,8 +49,12 @@ cache for the in-place write, the scores, the output and ``wo``.
   window 32) traced on the (4, 2) fake mesh of
   ``tests/test_torch_dryrun.py`` with the vocabulary at 790 (padded to
   800): no collective result and no storage the step allocates is as
-  large as one layer's global K cache or the global token table. The
-  former code's trace gathered both.
+  large as one layer's global K cache, one layer's global SSM state
+  (B·H·P·N·4; mamba2 and zamba2) or the global token table. The former
+  code's trace gathered the cache and the table. Every block boundary
+  leaves the stream on its batch shards, whole on the model axis
+  (``residual_placements`` pinned ``S(0),R``), and none arrives
+  ``Partial``.
 """
 import json
 import math
@@ -466,16 +470,20 @@ for arch in ARCHS:
     cfg0 = get_config(arch, smoke=True).with_overrides(vocab_size=790)
     step, args, cfg = DR.build_step(cfg0, shp, mesh)
     seen = Seen()
-    with DR._uncounted_shape_inference(seen), seen, implicit_replication():
+    with DR._uncounted_shape_inference(seen), seen, implicit_replication(), \
+            DR._residual_placements(seen.residuals):
         step(*args)
     v, d = T.specs(cfg)["embed"]["tok"].shape
-    layer = None
+    layer = state = None
     if shp.kind == "decode":
         c = T.init_cache_specs(cfg, shp.global_batch, shp.seq_len)
         k = (c["attn"] if "attn" in c else c).get("k")
         layer = 4 * int(torch.tensor(k.shape[1:]).prod()) if k else None
-    res[arch] = {"table": v * d * 4, "layer": layer,
-                 "allocs": seen.allocs, "results": seen.results}
+        h = c.get("h")
+        state = 4 * int(torch.tensor(h.shape[1:]).prod()) if h else None
+    res[arch] = {"table": v * d * 4, "layer": layer, "state": state,
+                 "allocs": seen.allocs, "results": seen.results,
+                 "residuals": seen.residuals}
 print(json.dumps(res))
 '''
 DECODE_ARCHS = ["minitron-4b", "mixtral-8x7b", "zamba2-7b",
@@ -496,12 +504,23 @@ def _largest(entries):
 def test_decode_trace_gathers_no_cache_and_no_table(traced, arch):
     r = traced[arch]
     assert r["table"] == 800 * 256 * 4
-    bound = min(b for b in (r["table"], r["layer"]) if b)
+    bound = min(b for b in (r["table"], r["layer"], r["state"]) if b)
     if arch != "mamba2-1.3b":
         assert r["layer"] == 8 * 2 * (32 if arch == "mixtral-8x7b"
                                       else 40) * 64 * 4
+    if arch in ("mamba2-1.3b", "zamba2-7b"):     # one layer's SSM state
+        assert r["state"] == 8 * 16 * 32 * 16 * 4
     assert r["results"], "no collective: not a sharded trace"
     assert _largest(r["results"]) < bound, sorted(
         r["results"], key=lambda e: -e[1])[:4]
     assert _largest(r["allocs"]) < bound, sorted(
         r["allocs"], key=lambda e: -e[1])[:4]
+
+
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_decode_trace_pins_the_stream(traced, arch):
+    """At every block boundary the decode stream leaves on its batch
+    shards, whole on the model axis, and none arrives ``Partial``."""
+    r = traced[arch]["residuals"]
+    assert set(r["pinned"]) == {"S(0),R"}, r
+    assert not any("P(" in k for k in r["arrived"]), r

@@ -17,8 +17,6 @@ default group).
 * On the fake group the meshes build (``tier_mesh_for`` with the
   extents of ``tier_mesh_axes``), but ``init_process_group`` refuses
   it: a real group is never a fake one.
-* ``sharding.gather_dims`` gathers exactly the mesh dims that shard the
-  named tensor dims.
 * ``accum_shards``: after a microbatch every accumulator leaf carries
   the placements of its ``accum_shardings`` entry (data-sharded where a
   dim divides).
@@ -138,12 +136,6 @@ SMALL = """
     except RuntimeError as e:
         out["real_on_fake"] = str(e)
 
-    from repro_torch.distributed.sharding import gather_dims
-    t = distribute_tensor(torch.empty(8, 32, 4, device="meta"), mesh,
-                          [Shard(0), Shard(1)])
-    out["gather"] = [[type(p).__name__ for p in
-                      gather_dims(t, dims).placements]
-                     for dims in ((1,), (0, 1), (2,))]
     print(json.dumps(out))
 """
 
@@ -197,12 +189,6 @@ def test_fake_group_serves_meshes_but_not_a_real_group(small):
     got, want = small["tier_mesh"]
     assert got == want == {"pod": 4, "data": 2}
     assert "'fake' process group exists" in small["real_on_fake"]
-
-
-def test_gather_dims_replicates_only_the_named_dims(small):
-    assert small["gather"] == [["Shard", "Replicate"],
-                               ["Replicate", "Replicate"],
-                               ["Shard", "Shard"]]
 
 
 def test_accumulator_is_data_sharded_after_a_microbatch(small):

@@ -212,7 +212,7 @@ def work(rank, port, out):
             rows = {}
             for k in keys:
                 d = 0 if k == "tok" else 1
-                lo, n = sh._local_range(dp[k], d)
+                lo, n = sh.local_range(dp[k], d)
                 rows[k] = want[k].narrow(d, lo, n)
             rel = {k: float((got[k] - rows[k]).abs().max()
                             / want[k].abs().max()) for k in keys}
@@ -220,7 +220,7 @@ def work(rank, port, out):
                 # the data ranks' partial sums: the two halves' gradients
                 half = [grads(p, ids[h:h + B // 2], cfg, cx[h:h + B // 2],
                               None)[1]["tok"] for h in (0, B // 2)]
-                lo, n = sh._local_range(dp["tok"], 0)
+                lo, n = sh.local_range(dp["tok"], 0)
                 r["lookup"] = {
                     "forward": bool(torch.equal(dx.full_tensor(), x)),
                     "placements": [str(q) for q in dx.placements],

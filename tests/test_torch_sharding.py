@@ -123,8 +123,6 @@ def test_placements_cases():
         sh.placements(("pod",), m2)
     ns = sh.NamedSharding(m2, ("data", None))
     assert ns.placements == (Shard(0), Replicate())
-    plain = torch.zeros(3, 4)
-    assert sh.gather_dims(plain, (0, 1)) is plain
 
 
 def _run(code: str, devices: int) -> str:

@@ -9,7 +9,11 @@ run that DTensor could not trace on torch 2.13 (zamba2-7b decode at
 B = 1: 112 SSM heads sharded unevenly over the data axis; mixtral-8x7b
 training: a token view's backward on uneven shards), reproduced at a
 small mesh with the same unevenness on a fake process group, in a
-subprocess: each fails with its repair taken out and traces with it."""
+subprocess: each fails with its repair taken out and traces with it.
+zamba2's repair is the decode stream pinned at every block boundary and
+the SSM decode on its head shards (it was ``even_shards`` on dt before
+those); taken out, the decode runs DTensor's own ops on the unpinned
+stream, with the heads gathered before each reshape."""
 import json
 import os
 import subprocess
@@ -136,8 +140,12 @@ DRYRUN = """
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import dryrun as DR
     from repro_torch.launch import mesh as mesh_lib
+    import torch.nn.functional as F
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.models.layers import rmsnorm, upcast
     import repro_torch.models.moe as moe
     import repro_torch.models.ssm as ssm
+    import repro_torch.models.transformer as T
 
     torch.set_num_threads(1)
     mesh_lib.init_fake_process_group(32)
@@ -169,10 +177,40 @@ DRYRUN = """
     mesh = mesh_lib.make_host_mesh(6, 2, device="cpu")
     dec = dataclasses.replace(INPUT_SHAPES["long_500k"], seq_len=64)
     out["zamba2"] = row("zamba2-7b", dec, mesh)
-    fixed = ssm.even_shards
-    ssm.even_shards = lambda t, dims: t
+    # unrepaired: DTensor's own ops on the decode stream as it leaves
+    # them (not pinned), and the SSM decode as DTensor ops that gather
+    # the heads before each reshape, without the local head shards
+    def gather_dims(t, dims):
+        place = [Replicate() if isinstance(q, Shard) and q.dim % t.dim()
+                 in dims else q for q in t.placements]
+        return t.redistribute(t.device_mesh, place)
+
+    def former_ssm_decode(x, p, cfg, cache):
+        B = x.shape[0]
+        H, P = cfg.ssm_heads, cfg.ssm_headdim
+        xt = x[:, 0]
+        z, xs, dt = xt @ p["w_z"], xt @ p["w_x"], xt @ p["w_dt"]
+        Bm, Cm = upcast(xt @ p["w_B"]), upcast(xt @ p["w_C"])
+        hist = torch.cat([cache["conv"], xs[:, None, :]], dim=1)
+        xs = torch.einsum("bki,ik->bi", hist, p["conv_w"]) + p["conv_b"]
+        xs = F.silu(upcast(xs)).to(x.dtype)
+        dt = F.softplus(upcast(dt) + p["dt_bias"])
+        decay = torch.exp(dt * -torch.exp(upcast(p["A_log"])))
+        xh = upcast(gather_dims(xs, (1,)).reshape(B, H, P))
+        h = (cache["h"] * decay[:, :, None, None]
+             + (dt[:, :, None] * xh)[..., None] * Bm[:, None, None, :])
+        y = torch.einsum("bhpn,bn->bhp", h, Cm)
+        y = y + p["D_skip"][None, :, None] * xh
+        y = gather_dims(y, (1, 2)).reshape(B, H * P).to(x.dtype)
+        y = rmsnorm(y * F.silu(upcast(z)).to(y.dtype), p["norm"])
+        cache["h"].copy_(h)
+        cache["conv"].copy_(hist[:, 1:, :])
+        return (y @ p["w_out"])[:, None, :], cache
+
+    fixed = ssm.ssm_decode, T.seq_shards
+    ssm.ssm_decode, T.seq_shards = former_ssm_decode, lambda x: x
     out["zamba2_unrepaired"] = row("zamba2-7b", dec, mesh)
-    ssm.even_shards = fixed
+    ssm.ssm_decode, T.seq_shards = fixed
 
     # mixtral training on an (8, 4) mesh
     mesh = mesh_lib.make_host_mesh(8, 4, device="cpu")
