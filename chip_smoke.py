@@ -6,8 +6,20 @@
 Needs one CUDA card, the CUDA toolkit (``nvcc``) and this checkout; it
 imports no JAX. It builds every CUDA kernel of the fog, serving and
 training paths from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
-source, all started together), then runs twenty-three phases and fails
-(exit 1, no result line) if any of them fails:
+source, all started together), then runs the phases below in the order
+of ``PHASES`` and fails (exit 1, no result line) if any of them fails.
+
+The CPU sides of the card-vs-CPU checks of (b), (g), (n), (o), (p) and
+(s) run as jobs (``JOB_PLAN``): the same call into the port with
+``--device cpu``, the same argv and seeds, in a pool of spawned worker
+processes (``job_pool_size``: one CPU left to this process, one torch
+thread a worker, niced), started as (r3) begins and so beside the card
+work of (r3), (s2) and (t3), and settled before (t1). (s) collects its
+own jobs; the phases ``b/cpu``, ``g/cpu``, ``n/cpu``, ``o/cpu`` and
+``p/cpu`` after (t) collect the others and hold each to its card side,
+as those phases did in line. A job that raises or exits fails its collecting phase; one that has not
+returned JOB_TIMEOUT s after the first job started fails it too; the
+pool's workers are stopped when the phases end, whatever they hold.
 
 (a) the Theorem-3 kernel against its plain PyTorch version on the
     card, at a sweep of shapes plus tie and isolated-row cases, rows
@@ -83,13 +95,14 @@ source, all started together), then runs twenty-three phases and fails
     Cold and warm prefill time, prefill tokens/s and peak memory; then
     ``serve.greedy_generate`` at the reference CLI's defaults (batch 4,
     prompt 16, 32 generated) and its decode tokens/s;
-(k) full-width, full-depth correctness through the path with no
-    kernel, on (j)'s parameters and on the same parameters in float64,
-    for B=2 x S=256 prompts (two SSD chunks): in float64 (the kernels'
-    plain versions standing in for them) the prefill logits and
-    teacher-forced ``decode_step`` logits at every position agree within
-    2e-3 of the largest |logit| (the reference's 2e-3, scaled), which
-    drives every one of the nine shared-block cache slots; in float32
+(k) full-width correctness through the path with no kernel, on the
+    first 18 of (j)'s 81 blocks (two hybrid groups, so the shared
+    block twice) and on a float64 copy of them, for B=2 x S=256 prompts
+    (two SSD chunks): in float64 (the kernels' plain versions standing
+    in for them) the prefill logits and teacher-forced ``decode_step``
+    logits at every position agree within 2e-3 of the largest |logit|
+    (the reference's 2e-3, scaled), which drives both shared-block cache
+    slots; in float32
     the kernels' prefill lies no further from the float64 prefill than
     twice the larger distance of the two kernel-free float32 paths
     (prefill through the plain versions, teacher-forced decode), nor
@@ -252,7 +265,9 @@ source, all started together), then runs twenty-three phases and fails
     SGD (see ``phase_s_cli`` for what each holds), exact launch counts;
 (t) the model zoo's last families at full width, float32, drawn on the
     card from the seed, every launch counter set to 0 just before each
-    prefill or step and read just after: (t1) olmoe-1b-7b, full depth
+    prefill or step and read just after, (t3) first (its card work
+    runs beside the last jobs, which settle after it), then (t1), (t2),
+    (t4)-(t6): (t1) olmoe-1b-7b, full depth
     (6.92 B parameters), prefill B=2 x S=4096 (exactly 16 attention
     launches), cold and warm time, tokens/s, peak memory and the
     profiled device-time shares of the expert GEMMs, the dispatch and
@@ -297,8 +312,9 @@ source, all started together), then runs twenty-three phases and fails
     and mfu = compute_useful_s / the warm time; (u4) the dry runs of
     qwen3-14b ``train_4k`` and of olmoe-1b-7b ``train_4k`` with
     ``--moe-groups 16`` on the fake (16, 16) mesh, each in a subprocess
-    (``python -m repro_torch.launch.dryrun``) started with phase (t), whose
-    work is on the card while they trace on the host: PASS rows, residual
+    (``python -m repro_torch.launch.dryrun``) started in phase (t) after
+    (t3), whose work is on the card while they trace on the host: PASS
+    rows, residual
     placements pinned to (batch shards, Shard(1)), peaks below one H100
     (qwen3-14b's below one data shard's full-vocab float32 logits too,
     16 x 4096 x 152064 x 4 B), the dominant term, trace time and memory
@@ -382,6 +398,121 @@ TIERED_SHORT_ARGV = SHORT_ARGV + ["--tiers", "5@10,1@20"]
 
 def log(*a):
     print(*a, flush=True)
+
+
+class Clock:
+    """Host-clock seconds of the phases and of their parts, in the order
+    they end: each logged on a line of its own as it ends, all of them
+    in one JSON line after the phases."""
+
+    def __init__(self, card):
+        self.card = card
+        self.seconds: dict[str, float] = {}
+
+    def add(self, name, s):
+        self.seconds[name] = round(self.seconds.get(name, 0.0) + s, 3)
+        log(f"clock ({name}) {s:.3f} s [{self.card}]")
+
+    @contextlib.contextmanager
+    def span(self, name):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.add(name, time.perf_counter() - t0)
+
+    def run(self, fn, *args):
+        """``fn(*args)`` timed under its name without ``phase_``."""
+        return self.call(fn.__name__.removeprefix("phase_"), fn, *args)
+
+    def call(self, name, fn, *args, **kw):
+        """``fn(*args, **kw)`` timed under ``name``."""
+        with self.span(name):
+            return fn(*args, **kw)
+
+
+JOB_TIMEOUT = 600        # s from the first job's start to the last's end
+
+
+def _job_init(threads):
+    """A job worker's start: no card (its jobs are CPU sides), its own
+    intra-op thread count, and a lower priority than the process that
+    feeds the card and the dry runs, whose host time is measured."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    os.nice(10)
+    import torch
+    torch.set_num_threads(threads)
+
+
+def _job(fn, args, kwargs):
+    """``fn(*args, **kwargs)`` in a job worker, its printout dropped:
+    (its result, its seconds on the worker's host clock). An exit (as
+    argparse's) comes back as an error: it would end the worker and
+    leave the job to time out."""
+    import io
+
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = fn(*args, **kwargs)
+    except SystemExit as e:
+        raise RuntimeError(f"the job exited with {e.code!r}") from None
+    return out, time.perf_counter() - t0
+
+
+class Jobs:
+    """The CPU sides of card-vs-CPU checks, run as jobs in a pool of
+    spawned worker processes beside phases whose work is on the card, and
+    each collected by the phase that compares it with the card's side.
+    A job that raises raises in its collecting phase; one that has not
+    returned JOB_TIMEOUT s after the first job started fails it too. The
+    pool starts with the first job; :meth:`close` stops its workers,
+    whatever they hold."""
+
+    def __init__(self, workers, threads, clock):
+        self.workers, self.threads, self.clock = workers, threads, clock
+        self.pool = None
+        self.pending = {}
+        self.deadline = None
+
+    def start(self, key, fn, *args, **kwargs):
+        if self.pool is None:
+            import multiprocessing
+
+            self.pool = multiprocessing.get_context("spawn").Pool(
+                self.workers, initializer=_job_init,
+                initargs=(self.threads,))
+            self.deadline = time.perf_counter() + JOB_TIMEOUT
+        self.pending[key] = self.pool.apply_async(_job, (fn, args, kwargs))
+
+    def _left(self):
+        return max(0.0, self.deadline - time.perf_counter())
+
+    def settle(self):
+        """Wait until every job started has returned or raised (or the
+        deadline has passed), so that the host work measured next runs
+        without them; the wait goes to the clock."""
+        t0 = time.perf_counter()
+        for res in self.pending.values():
+            res.wait(self._left())
+        self.clock.add("jobs settled", time.perf_counter() - t0)
+
+    def collect(self, key, timeout=None):
+        """The job's result, once it has returned (waiting ``timeout`` s,
+        or until the deadline); its seconds in the worker and the wait
+        here go to the clock."""
+        t0 = time.perf_counter()
+        out, s = self.pending.pop(key).get(
+            self._left() if timeout is None else timeout)
+        self.clock.add(f"{key} (job)", s)
+        self.clock.add(f"{key} (wait)", time.perf_counter() - t0)
+        return out
+
+    def close(self):
+        if self.pool is not None:
+            self.pool.terminate()
+            self.pool.join()
+            self.pool = None
 
 
 def _smi(query: str) -> str:
@@ -498,7 +629,7 @@ def _compare_histories(np, got, want):
         np.subtract(h["test_acc"], w["test_acc"]))))
 
 
-def phase_b_defaults(torch, np, card, counters, cuda):
+def phase_b_defaults(torch, np, card, counters, cuda, clock):
     from repro_torch.core import movement as mv
     from repro_torch.launch import train
 
@@ -507,6 +638,7 @@ def phase_b_defaults(torch, np, card, counters, cuda):
     t0 = time.perf_counter()
     out = train.main(DEFAULT_ARGV)
     wall = time.perf_counter() - t0
+    clock.add("b defaults card", wall)
     log(f"(b) defaults (cnn n=10 T=100 tau=10) on the card: wall {wall:.3f} s, "
         f"plan {out['timing']['plan_s']:.6f} s, train "
         f"{out['timing']['train_s']:.3f} s, final_acc {out['final_acc']}, "
@@ -528,12 +660,25 @@ def phase_b_defaults(torch, np, card, counters, cuda):
         f"in {diff} of {p_np.r.size} decisions (float32 vs float64 adds; "
         f"expected 0, reported only); auto-backend plan equals numpy: "
         f"{mv.plans_equal(out['plan'], p_np)}")
-    on_card = train.main(SHORT_ARGV)
-    on_cpu = train.main(SHORT_ARGV + ["--device", "cpu"])
+    return clock.call("b T=20 card", train.main, SHORT_ARGV)
+
+
+def start_b(jobs):
+    """(b)'s CPU side: the defaults at T=20 with --device cpu."""
+    from repro_torch.launch import train
+
+    jobs.start("b T=20 CPU", train.main, SHORT_ARGV + ["--device", "cpu"])
+
+
+def collect_b(np, card, jobs, on_card):
+    """(b)'s T=20 card run against its CPU side."""
+    on_cpu = jobs.collect("b T=20 CPU")
     dmax, amax = _compare_histories(np, on_card, on_cpu)
     log(f"(b) defaults at T=20 card vs CPU: cost, agg_round, H_agg, active, "
         f"processed_counts equal; max |device_loss diff| {dmax}, "
-        f"max |test_acc diff| {amax} [{card}]")
+        f"max |test_acc diff| {amax}; train_s card "
+        f"{on_card['timing']['train_s']} CPU {on_cpu['timing']['train_s']} "
+        f"[{card}]")
 
 
 def phase_c_fog(torch, np, card, counters, cuda):
@@ -986,11 +1131,24 @@ def phase_f_tiered_fog(torch, np, card, counters, ops):
     return launches, biggest
 
 
-def phase_g_tiered_defaults(np, card):
+def phase_g_tiered_defaults(clock):
+    """(g)'s card side (held to the CPU by :func:`collect_g`)."""
     from repro_torch.launch import train
 
-    on_card = train.main(TIERED_SHORT_ARGV)
-    on_cpu = train.main(TIERED_SHORT_ARGV + ["--device", "cpu"])
+    return clock.call("g card", train.main, TIERED_SHORT_ARGV)
+
+
+def start_g(jobs):
+    """(g)'s CPU side: the tiered defaults with --device cpu."""
+    from repro_torch.launch import train
+
+    jobs.start("g CPU", train.main, TIERED_SHORT_ARGV + ["--device", "cpu"])
+
+
+def collect_g(np, card, jobs, on_card):
+    """(g)'s card run against its CPU side, as in (b), plus the tier
+    fields."""
+    on_cpu = jobs.collect("g CPU")
     dmax, amax = _compare_histories(np, on_card, on_cpu)
     h, w = on_card["history"], on_cpu["history"]
     for k in ("tier_agg_round", "tier_agg_level"):
@@ -1095,6 +1253,7 @@ def kernels_line_entry(k):
 SERVE_ARCH = "zamba2-7b"
 PREFILL_B, PREFILL_S = 2, 4096
 CHECK_B, CHECK_S = 2, 256
+DECODE_LAYERS = 18       # (k): two hybrid groups of 9, as (s2) trains
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 16, 32
 SEED = 0
 ATTN_TOL = 2e-5          # the reference's float32 tolerances
@@ -1390,14 +1549,25 @@ def _teacher_forced(torch, T, steps, init_params, cfg, params, toks, dtype,
     return torch.stack(out, dim=1)
 
 
-def phase_k_decode_check(torch, np, card, served, ops, fa, sd):
-    """Prefill against teacher-forced decode (no kernel) at full width
-    and depth: in float64, to the reference's tolerance; in float32, the
-    kernels' prefill against the float64 prefill, held to the float32
-    rounding the kernel-free paths show. Leaves (j)'s parameters in
-    float64."""
+def _first_blocks(tree, n):
+    """A new nested dict of ``tree``'s leaves, its stacked ``blocks``
+    cut to their first n layers (views)."""
+    def cut(d, blocks):
+        return {k: cut(v, blocks or k == "blocks") if isinstance(v, dict)
+                else v[:n] if blocks else v for k, v in d.items()}
+    return cut(tree, False)
+
+
+def phase_k_decode_check(torch, np, card, served, ops, fa, sd, clock):
+    """Prefill against teacher-forced decode (no kernel) at full width on
+    (j)'s first DECODE_LAYERS blocks (the shared block after each group
+    of 9: two of its cache slots): in float64, to the reference's
+    tolerance; in float32, the kernels' prefill against the float64
+    prefill, held to the float32 rounding the kernel-free paths show.
+    (j)'s parameters stay as they are: the float64 copy is (k)'s own."""
     _, serve, steps, T, init_params, _ = _serve_modules()
-    cfg, params = served["cfg"], served["params"]
+    cfg = served["cfg"].with_overrides(num_layers=DECODE_LAYERS)
+    params = _first_blocks(served["params"], DECODE_LAYERS)
     V = cfg.vocab_size
     rng = np.random.default_rng(SEED + 1)
     prompts = rng.integers(0, V, (CHECK_B, CHECK_S)).astype(np.int32)
@@ -1422,6 +1592,8 @@ def phase_k_decode_check(torch, np, card, served, ops, fa, sd):
                                 toks, torch.float64)
     torch.cuda.synchronize()
     s64 = time.perf_counter() - t0
+    clock.add("k float32 paths", s32)
+    clock.add("k float64 paths", s64)
     top = float(ref64.abs().max())
     tol = DECODE_TOL * top
     d64 = float((dec64 - ref64).abs().max())
@@ -1431,10 +1603,11 @@ def phase_k_decode_check(torch, np, card, served, ops, fa, sd):
                            ("decode", dec32))}
     tol32 = max(tol, 2 * max(err["plain prefill"], err["decode"]))
     d32 = float((kern32 - dec32).abs().max())
-    log(f"(k) {SERVE_ARCH} full width and depth ({cfg.num_layers} Mamba2 "
-        f"blocks + the shared block {cfg.num_layers // cfg.attn_every} "
-        f"times), B={CHECK_B} S={CHECK_S} ({CHECK_S // cfg.ssm_chunk} SSD "
-        f"chunks): float64 prefill vs teacher-forced decode max abs diff "
+    log(f"(k) {SERVE_ARCH} full width, the first {cfg.num_layers} of "
+        f"{served['cfg'].num_layers} Mamba2 blocks + the shared block "
+        f"{cfg.num_layers // cfg.attn_every} times, B={CHECK_B} "
+        f"S={CHECK_S} ({CHECK_S // cfg.ssm_chunk} SSD chunks): float64 "
+        f"prefill vs teacher-forced decode max abs diff "
         f"{d64} (tolerance {tol} = {DECODE_TOL} x max|logit| {top}); "
         f"float32 max abs diff from the float64 prefill: {err} (kernel "
         f"prefill tolerance {tol32}); float32 prefill vs teacher-forced "
@@ -1675,10 +1848,13 @@ def _card_spread(mv, tr, adj, D, em, z0, base, cuda):
                 for p in runs), max(objs) - min(objs))
 
 
-def phase_n_convex_card_vs_cpu(torch, np, card, cuda):
-    """The convex solve at n=200, T=20, rho=0.1, sqrt and neg_G, on
-    setting-B and setting-E inputs: the card against the port on the CPU
-    from the same z0; batched B=3 against sequential on the card."""
+CONVEX_RUNS = [(setting, em) for setting in ("B", "E")
+               for em in ("sqrt", "neg_G")]
+
+
+def _convex_problems():
+    """(n)'s convex inputs from CONVEX_ARGV: {setting: (traces, schedule,
+    D)} for settings B and E (estimated traces and counts), and z0."""
     from repro_torch.core import estimator as est
     from repro_torch.core import movement as mv
     from repro_torch.core.costs import with_capacity
@@ -1690,42 +1866,34 @@ def phase_n_convex_card_vs_cpu(torch, np, card, cuda):
     probs = {"B": (tr, sched, D),
              "E": (est.estimate_traces(with_capacity(tr, float(D.mean()))),
                    sched, est.estimate_counts(D))}
-    z0 = mv.convex_z0(T, n, [0])[0]
-    for setting, (tr_, adj, D_) in probs.items():
-        for em in ("sqrt", "neg_G"):
-            t0 = time.perf_counter()
-            got = mv.solve_convex(tr_, adj, D_, error_model=em, z0=z0,
-                                  device=cuda)
-            t1 = time.perf_counter()
-            want = mv.solve_convex(tr_, adj, D_, error_model=em, z0=z0,
-                                   device="cpu")
-            t2 = time.perf_counter()
-            d_plan = max(abs(got.s - want.s).max(),
-                         abs(got.r - want.r).max())
-            o_got, o_want = (_objective(mv, p, tr_, D_, em)
-                             for p in (got, want))
-            d_obj = abs(o_got - o_want)
-            strict = d_plan <= PLAN_ATOL and d_obj <= OBJ_RTOL * abs(o_want)
-            note = "within 1e-3 / rtol 1e-4"
-            if not strict:
-                # capacity-bound inputs: the descent is chaotic in the
-                # reference too (tests/test_torch_convex.py); hold the
-                # card to twice its own spread under 1e-7 moves of z0
-                s_spread, o_spread = _card_spread(mv, tr_, adj, D_, em, z0,
-                                                  got, cuda)
-                note = (f"card's own spread from z0·(1 ± 1e-7, 2e-7): "
-                        f"plan {s_spread}, objective {o_spread}")
-                if setting == "B" or not (
-                        s_spread > PLAN_ATOL and d_plan <= 2 * s_spread
-                        and d_obj <= max(2 * o_spread,
-                                         OBJ_RTOL * abs(o_want))):
-                    raise AssertionError(
-                        f"convex {setting}/{em}: card vs CPU plan "
-                        f"{d_plan}, objective {o_got} vs {o_want}; {note}")
-            log(f"(n) convex n={n} T={T} rho=0.1 setting-{setting} inputs "
-                f"{em}: card vs CPU max |ds|,|dr| {d_plan}, objective "
-                f"{o_got} vs {o_want} (rel {d_obj / abs(o_want)}), {note}; "
-                f"card {t1 - t0:.3f} s, CPU {t2 - t1:.3f} s [{card}]")
+    return probs, mv.convex_z0(T, n, [0])[0]
+
+
+def _convex_cpu(setting, em):
+    """One of (n)'s convex solves on the CPU, its inputs built here from
+    CONVEX_ARGV as the card's are."""
+    from repro_torch.core import movement as mv
+
+    probs, z0 = _convex_problems()
+    tr_, adj, D_ = probs[setting]
+    return mv.solve_convex(tr_, adj, D_, error_model=em, z0=z0,
+                           device="cpu")
+
+
+def phase_n_convex_card_vs_cpu(card, cuda, clock):
+    """The convex solve at n=200, T=20, rho=0.1, sqrt and neg_G, on
+    setting-B and setting-E inputs on the card (held to the CPU's by
+    :func:`collect_n`); batched B=3 against sequential on the card."""
+    from repro_torch.core import movement as mv
+
+    probs, z0 = _convex_problems()
+    got = {}
+    for setting, em in CONVEX_RUNS:
+        tr_, adj, D_ = probs[setting]
+        t0 = time.perf_counter()
+        got[setting, em] = mv.solve_convex(tr_, adj, D_, error_model=em,
+                                           z0=z0, device=cuda)
+        clock.add(f"n convex {setting}/{em} card", time.perf_counter() - t0)
     tr_, adj, D_ = probs["B"]
     seeds = [0, 1, 2]
     batched = mv.solve_convex_batched([tr_] * 3, [adj] * 3, [D_] * 3,
@@ -1738,6 +1906,53 @@ def phase_n_convex_card_vs_cpu(torch, np, card, cuda):
         f"inputs, sqrt, seeds {seeds}): max |ds|,|dr| {gap} [{card}]")
     if gap > 1e-5:
         raise AssertionError(f"batched vs sequential gap {gap}")
+    return probs, z0, got
+
+
+def start_n(jobs):
+    """(n)'s CPU sides: each convex solve of CONVEX_RUNS."""
+    for setting, em in CONVEX_RUNS:
+        jobs.start(f"n convex {setting}/{em} CPU", _convex_cpu, setting, em)
+
+
+def collect_n(card, cuda, jobs, card_side):
+    """Each of (n)'s convex solves on the card against the port on the
+    CPU from the same z0: plans within PLAN_ATOL and objectives within
+    OBJ_RTOL, or, on setting-E inputs, within twice the card's own
+    spread."""
+    from repro_torch.core import movement as mv
+
+    probs, z0, plans = card_side
+    for setting, em in CONVEX_RUNS:
+        tr_, adj, D_ = probs[setting]
+        got = plans[setting, em]
+        want = jobs.collect(f"n convex {setting}/{em} CPU")
+        T, n = D_.shape
+        d_plan = max(abs(got.s - want.s).max(), abs(got.r - want.r).max())
+        o_got, o_want = (_objective(mv, p, tr_, D_, em)
+                         for p in (got, want))
+        d_obj = abs(o_got - o_want)
+        strict = d_plan <= PLAN_ATOL and d_obj <= OBJ_RTOL * abs(o_want)
+        note = "within 1e-3 / rtol 1e-4"
+        if not strict:
+            # capacity-bound inputs: the descent is chaotic in the
+            # reference too (tests/test_torch_convex.py); hold the
+            # card to twice its own spread under 1e-7 moves of z0
+            s_spread, o_spread = _card_spread(mv, tr_, adj, D_, em, z0,
+                                              got, cuda)
+            note = (f"card's own spread from z0·(1 ± 1e-7, 2e-7): "
+                    f"plan {s_spread}, objective {o_spread}")
+            if setting == "B" or not (
+                    s_spread > PLAN_ATOL and d_plan <= 2 * s_spread
+                    and d_obj <= max(2 * o_spread,
+                                     OBJ_RTOL * abs(o_want))):
+                raise AssertionError(
+                    f"convex {setting}/{em}: card vs CPU plan "
+                    f"{d_plan}, objective {o_got} vs {o_want}; {note}")
+        log(f"(n) convex n={n} T={T} rho=0.1 setting-{setting} inputs "
+            f"{em}: card vs CPU max |ds|,|dr| {d_plan}, objective "
+            f"{o_got} vs {o_want} (rel {d_obj / abs(o_want)}), {note} "
+            f"[{card}]")
 
 
 def _kernel_stats(torch, fn):
@@ -1924,7 +2139,7 @@ def phase_n_discard_fog(torch, np, card, counters, cuda, og):
             raise AssertionError(f"setting {setting} history not finite")
 
 
-def phase_n_defaults_e_sqrt(np, card, cuda):
+def phase_n_defaults_e_sqrt(np, card, cuda, clock):
     """The CLI defaults (cnn, n=10, T=20) with --setting E --error-model
     sqrt on the card and on the CPU, both trained from the CPU's plan and
     held to each other as in (b); the card's own plan beside it."""
@@ -1932,7 +2147,8 @@ def phase_n_defaults_e_sqrt(np, card, cuda):
     from repro_torch.launch import train
 
     argv = SHORT_ARGV + E_SQRT
-    on_cpu = train.main(argv + ["--device", "cpu"])
+    on_cpu = clock.call("n defaults E/sqrt CPU", train.main,
+                        argv + ["--device", "cpu"])
     pb = train.build_problem(train.parse_args(argv))
     own = train.solve_setting("E", pb["traces"], pb["schedule"], pb["D"],
                               error_model="sqrt", device=cuda)
@@ -1942,7 +2158,7 @@ def phase_n_defaults_e_sqrt(np, card, cuda):
     solve = train.solve_setting
     train.solve_setting = lambda *a, **k: want
     try:
-        on_card = train.main(argv)
+        on_card = clock.call("n defaults E/sqrt card", train.main, argv)
     finally:
         train.solve_setting = solve
     dmax, amax = _compare_histories(np, on_card, on_cpu)
@@ -2180,19 +2396,52 @@ def _rerun_with_memory_held(torch, np, train, argv, first):
             raise AssertionError(f"{k} changed with the card's memory held")
 
 
-def phase_o_small(torch, np, card):
+def phase_o_small(torch, np, clock):
     """cnn n=10 T=20 under churn (oracle, predict, once), flap, and
-    tiers with churn, on the card and on the CPU, held to each other as
-    in (b), plus n_events, schedule, replan and the tier fields. The
-    flap run, the most sensitive to its arithmetic, runs once more on the
-    card with its memory held and must repeat its history bit for bit."""
+    tiers with churn, on the card (held to the CPU by
+    :func:`collect_o`). The flap run, the most sensitive to its
+    arithmetic, runs once more on the card with its memory held and must
+    repeat its history bit for bit."""
     from repro_torch.launch import train
 
+    runs = []
     for argv in DYN_SHORT:
-        on_card = train.main(argv)
+        tag = " ".join(argv[len(DYN_SHORT_ARGV):])
+        on_card = clock.call(f"o {tag} card", train.main, argv)
         if "flap" in argv:
-            _rerun_with_memory_held(torch, np, train, argv, on_card)
-        on_cpu = train.main(argv + ["--device", "cpu"])
+            clock.call(f"o {tag} card, memory held",
+                       _rerun_with_memory_held, torch, np, train, argv,
+                       on_card)
+        runs.append(on_card)
+    return runs
+
+
+def phase_o_table5(cuda, clock):
+    """Table V at --quick on the card (held to the CPU by
+    :func:`collect_o`)."""
+    from repro_torch.launch import tables
+
+    return clock.call("o Table V card", tables.table5_dynamics, tables.QUICK,
+                      cuda)
+
+
+def start_o(jobs):
+    """(o)'s CPU sides: the DYN_SHORT runs and Table V at --quick."""
+    from repro_torch.launch import tables, train
+
+    for argv in DYN_SHORT:
+        tag = " ".join(argv[len(DYN_SHORT_ARGV):])
+        jobs.start(f"o {tag} CPU", train.main, argv + ["--device", "cpu"])
+    jobs.start("o Table V CPU", tables.table5_dynamics, tables.QUICK, "cpu")
+
+
+def collect_o(np, card, jobs, runs, table5):
+    """(o)'s card runs against their CPU sides: the DYN_SHORT runs as in
+    (b), plus n_events, schedule, replan and the tier fields; Table V's
+    cost rows and avg_active exactly, accuracies within 1e-2."""
+    for argv, on_card in zip(DYN_SHORT, runs):
+        tag = " ".join(argv[len(DYN_SHORT_ARGV):])
+        on_cpu = jobs.collect(f"o {tag} CPU")
         dmax, amax = _compare_histories(np, on_card, on_cpu)
         for k in ("n_events", "schedule", "replan"):
             if on_card[k] != on_cpu[k]:
@@ -2202,8 +2451,7 @@ def phase_o_small(torch, np, card):
         for k in ("tier_agg_round", "tier_agg_level"):
             if h.get(k) != w.get(k):
                 raise AssertionError(f"{k} differs")
-        log(f"(o) {' '.join(argv[len(DYN_SHORT_ARGV):])} (cnn n=10 T=20, "
-            f"2000 samples) card "
+        log(f"(o) {tag} (cnn n=10 T=20, 2000 samples) card "
             f"vs CPU: cost, agg_round, H_agg, active, processed_counts, "
             f"n_events {on_card['n_events']}, replan {on_card['replan']} "
             f"equal; max |device_loss diff| {dmax}, max |test_acc diff| "
@@ -2211,15 +2459,7 @@ def phase_o_small(torch, np, card):
             f"{on_cpu['timing']['train_s']}"
             f"{'; repeated bitwise with memory held' if 'flap' in argv else ''}"
             f" [{card}]")
-
-
-def phase_o_table5(np, cuda, card):
-    """Table V at --quick on the card against the port on the CPU: cost
-    rows and avg_active exactly, accuracies within 1e-2."""
-    from repro_torch.launch import tables
-
-    got = tables.table5_dynamics(tables.QUICK, cuda)
-    want = tables.table5_dynamics(tables.QUICK, "cpu")
+    got, want = table5, jobs.collect("o Table V CPU")
     for row in ("static", "dynamic"):
         if got[row]["cost"] != want[row]["cost"]:
             raise AssertionError(f"Table V {row} cost differs")
@@ -2476,15 +2716,33 @@ def phase_p_noop_resume(torch, np, card, cuda):
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
 
-def phase_p_small(np, card):
+def phase_p_small(clock):
     """(p5) cnn n=10 T=20 under mixed faults with a quorum, unguarded
-    corruption, and tiers with mixed faults, card against CPU as in
-    (b) and (g), the fault fields exactly and NaN in the same places."""
+    corruption, and tiers with mixed faults, on the card (held to the
+    CPU by :func:`collect_p`)."""
     from repro_torch.launch import train
 
+    return [clock.call(f"p5 {' '.join(argv[len(SHORT_ARGV):])} card",
+                       train.main, argv) for argv in FAULT_SHORT]
+
+
+def start_p(jobs):
+    """(p)'s CPU sides: the FAULT_SHORT runs and the fault study."""
+    from repro_torch.launch import tables, train
+
     for argv in FAULT_SHORT:
-        on_card = train.main(argv)
-        on_cpu = train.main(argv + ["--device", "cpu"])
+        jobs.start(f"p5 {' '.join(argv[len(SHORT_ARGV):])} CPU", train.main,
+                   argv + ["--device", "cpu"])
+    jobs.start("p6 CPU", tables.fault_tolerance, tables.QUICK, "cpu")
+
+
+def collect_p(np, card, jobs, runs, study):
+    """(p5)'s card runs against their CPU sides, as in (b) and (g), the
+    fault fields exactly and NaN in the same places; then (p6)'s study
+    against its CPU side."""
+    for argv, on_card in zip(FAULT_SHORT, runs):
+        tag = " ".join(argv[len(SHORT_ARGV):])
+        on_cpu = jobs.collect(f"p5 {tag} CPU")
         dmax, amax = _compare_histories(np, on_card, on_cpu)
         h, w = on_card["history"], on_cpu["history"]
         for k in ("fault_summary", "quorum_skips"):
@@ -2498,7 +2756,6 @@ def phase_p_small(np, card):
             if not np.array_equal(np.isnan(np.asarray(h[k], float)),
                                   np.isnan(np.asarray(w[k], float))):
                 raise AssertionError(f"NaN positions of {k} differ")
-        tag = ' '.join(argv[len(SHORT_ARGV):])
         nan = int(np.isnan(np.asarray(h["test_loss"], float)).sum())
         log(f"(p5) {tag} (cnn n=10 T=20) card vs CPU: cost, agg_round, "
             f"H_agg, active, processed_counts, fault_summary "
@@ -2507,24 +2764,31 @@ def phase_p_small(np, card):
             f", NaN in the same places ({nan} NaN test losses); max "
             f"|device_loss diff| {dmax}, max |test_acc diff| {amax} "
             f"[{card}]")
+    _check_p_study(card, *study, jobs.collect("p6 CPU"))
 
 
-def phase_p_study(np, cuda, card):
-    """(p6) the fault-tolerance study at --quick on the card against the
-    port on the CPU."""
+def phase_p_study(cuda, clock):
+    """(p6) the fault-tolerance study at --quick on the card, its exact
+    claims (held to the CPU by :func:`collect_p`): (result, seconds)."""
     from repro_torch.launch import tables
 
     t0 = time.perf_counter()
     got = tables.fault_tolerance(tables.QUICK, cuda)
     card_s = time.perf_counter() - t0
-    want = tables.fault_tolerance(tables.QUICK, "cpu")
-    h, w = got["headline"], want["headline"]
+    clock.add("p6 card", card_s)
+    h = got["headline"]
     if not (h["clean_noop_bitwise"] and h["resume_bitwise"]):
         raise AssertionError(f"exact claims fail on the card: {h}")
     if h["quorum_skips_q0"] != 0:
         raise AssertionError("quorum 0 skipped an aggregation")
     if not h["unguarded_near_random"]:
         raise AssertionError("the unguarded arm did not collapse")
+    return got, card_s
+
+
+def _check_p_study(card, got, card_s, want):
+    """(p6)'s study on the card against the port on the CPU."""
+    h, w = got["headline"], want["headline"]
     for k in ("quorum_skips_q60", "guard_within_2pp"):
         if h[k] != w[k]:
             raise AssertionError(f"{k} differs from the CPU's: {h[k]} vs "
@@ -2819,7 +3083,7 @@ def phase_q_hier(torch, np, card, counters, ops, sr, cuda):
     return [rows, one_d]
 
 
-def phase_q_small(np, card, cuda):
+def phase_q_small(np, card, cuda, clock):
     """(q4) the flat-stream scan and tiered engines at n=2048, T=20, on
     the card against the CPU."""
     from repro_torch.core import federated as F
@@ -2843,10 +3107,10 @@ def phase_q_small(np, card, cuda):
     cfg = F.FedConfig(n=n, T=T, tau=5, eta=0.1, model="linear", seed=0)
     tree = hr.TierTree.balanced(n, (20, 2, 1), (5, 10, 20))
     for label, hierarchy in (("flat scan", None), ("tiered", tree)):
-        runs = [F.run_network_aware(cfg, data, etr, None, plan,
-                                    streams=flat, schedule=sched,
-                                    hierarchy=hierarchy, device=dev)
-                for dev in (cuda, "cpu")]
+        runs = [clock.call(f"q4 {label} {name}", F.run_network_aware, cfg,
+                           data, etr, None, plan, streams=flat,
+                           schedule=sched, hierarchy=hierarchy, device=dev)
+                for name, dev in (("card", cuda), ("CPU", "cpu"))]
         # flat streams give processed_counts as (n,) count arrays
         dmax, amax = _compare_histories(np, *(
             {"history": {**h, "processed_counts": np.stack(
@@ -2900,7 +3164,7 @@ def _finite(np, h):
                 and np.isfinite(np.stack(h["H_agg"])).all())
 
 
-def phase_r_tables(np, card, cuda):
+def phase_r_tables(np, card, cuda, clock):
     """(r1) launch.tables' scenario_batched at --quick on the card; then
     its fig5 grid bucket by bucket through the card's dispatch, once on
     the card and once on the CPU, held to each other."""
@@ -2937,19 +3201,20 @@ def phase_r_tables(np, card, cuda):
     for idxs in tb._buckets(scenarios):
         d = rows[idxs[0]]["dispatch"]
         runs = []
-        for dev in (cuda, "cpu"):
-            if d["path"] == "batched":
-                runs.append(F.run_network_aware_batched(
-                    [scenarios[b].cfg for b in idxs], data,
-                    [plans[b] for b in idxs],
-                    streams=[copy.deepcopy(scenarios[b].streams)
-                             for b in idxs], staging=d["staging"],
-                    device=dev))
-            else:
-                runs.append([F.run_network_aware(
-                    scenarios[b].cfg, data, None, None, plans[b],
-                    streams=copy.deepcopy(scenarios[b].streams),
-                    engine="scan", device=dev) for b in idxs])
+        for name, dev in (("card", cuda), ("CPU", "cpu")):
+            with clock.span(f"r1 fig5 {name}"):
+                if d["path"] == "batched":
+                    runs.append(F.run_network_aware_batched(
+                        [scenarios[b].cfg for b in idxs], data,
+                        [plans[b] for b in idxs],
+                        streams=[copy.deepcopy(scenarios[b].streams)
+                                 for b in idxs], staging=d["staging"],
+                        device=dev))
+                else:
+                    runs.append([F.run_network_aware(
+                        scenarios[b].cfg, data, None, None, plans[b],
+                        streams=copy.deepcopy(scenarios[b].streams),
+                        engine="scan", device=dev) for b in idxs])
         for got, want in zip(*runs):
             worst = [max(a, b) for a, b in zip(worst,
                                                _hist_diff(np, got, want))]
@@ -3385,7 +3650,7 @@ def _profile_step(torch, step, params, state, batch, top=10):
                            "backward_nodes_ms": nodes}
 
 
-def phase_s_train(torch, np, card, counters, ops, fa, sd, cuda):
+def phase_s_train(torch, np, card, counters, ops, fa, sd, cuda, clock):
     """(s2) zamba2-7b training at full width, cut to 18 layers: AdamW at
     the CLI's lr, make_train_step on B x S token batches with the plan's
     weights and route; launch counts a step, finite metrics, the time
@@ -3397,7 +3662,7 @@ def phase_s_train(torch, np, card, counters, ops, fa, sd, cuda):
     for B in (TRAIN_B, TRAIN_B // 2):
         try:
             return _train_full_width(torch, np, card, counters, ops, fa, sd,
-                                     cuda, B)
+                                     cuda, B, clock)
         except torch.cuda.OutOfMemoryError as e:
             if B == 1:
                 raise
@@ -3407,7 +3672,8 @@ def phase_s_train(torch, np, card, counters, ops, fa, sd, cuda):
         torch.cuda.empty_cache()
 
 
-def _train_full_width(torch, np, card, counters, ops, fa, sd, cuda, B):
+def _train_full_width(torch, np, card, counters, ops, fa, sd, cuda, B,
+                      clock):
     (get_config, make_token_dataset, St, train, T, init_params,
      param_count, topt) = _lm_modules()
     torch.cuda.empty_cache()
@@ -3427,7 +3693,7 @@ def _train_full_width(torch, np, card, counters, ops, fa, sd, cuda, B):
                               cfg)
 
     _kernels_against_plain(torch, St, topt, ops, fa, sd, cfg, params,
-                           St.route_batch(batch(0)), card)
+                           St.route_batch(batch(0)), card, clock)
     opt = topt.adamw(TRAIN_LR)
     state = opt.init(params)
     step = St.make_train_step(cfg, opt)
@@ -3502,40 +3768,47 @@ def _train_full_width(torch, np, card, counters, ops, fa, sd, cuda, B):
             "B": B, "step_s": warm}
 
 
-def _grads_on_host(torch, St, topt, ops, plain_fns, cfg, params, b):
+def _grads(torch, St, topt, ops, plain_fns, cfg, params, b, host=False):
     """``steps.grads_of`` (through ``plain_fns`` in place of the kernels
-    when given), its leaves moved to the host so that three trees of
-    7.4 GB need no room on the card; and the loss."""
+    when given): its leaves, moved to the host with ``host`` (so that the
+    float64 tree needs no room on the card), and the loss."""
     ctx = _ops_as(ops, plain_fns) if plain_fns else contextlib.nullcontext()
     with ctx:
         g, m, _ = St.grads_of(params, b, cfg)
-    leaves = [x.cpu() for x in topt.tree_leaves(g)]
-    del g
-    torch.cuda.empty_cache()
+    leaves = topt.tree_leaves(g)
+    if host:
+        leaves = [x.cpu() for x in leaves]
+        del g
+        torch.cuda.empty_cache()
     return leaves, float(m["ce"])
 
 
-def _grad_stats(torch, ga, gb, device):
-    """Global norms of two leaf lists, and per leaf the cosine and the
-    relative distance ||a - b|| / ||b||, in float64."""
-    def norm(g):
-        return sum(float(x.double().square().sum()) for x in g) ** 0.5
-
-    cos, rel = [], []
-    for x, y in zip(ga, gb):
-        x = x.to(device).double().reshape(-1)
-        y = y.to(device).double().reshape(-1)
-        nx, ny = float(x.norm()), float(y.norm())
+def _grad_stats(torch, g_k, g_p, g_64):
+    """In float64 on the card, leaf by leaf (``g_64``'s leaves copied
+    there one at a time): the three global norms, each leaf's cosine of
+    ``g_k`` and ``g_p``, and the relative distance ||a - c|| / ||c|| of
+    each leaf of ``g_k`` and of ``g_p`` from ``g_64``'s."""
+    sums = [0.0, 0.0, 0.0]         # the squares' sums, leaf by leaf
+    cos, rel_k, rel_p = [], [], []
+    for x, y, z in zip(g_k, g_p, g_64):
+        x = x.double().reshape(-1)
+        y = y.double().reshape(-1)
+        z = z.to(x.device).double().reshape(-1)
+        for i, t in enumerate((x, y, z)):
+            sums[i] += float(t.square().sum())
+        nx, ny, nz = float(x.norm()), float(y.norm()), float(z.norm())
         cos.append(1.0 if nx == ny == 0 else
                    float(x @ y) / max(nx * ny, 1e-300))
-        rel.append(float((x - y).norm()) / max(ny, 1e-300))
-    return norm(ga), norm(gb), cos, rel
+        rel_k.append(float((x - z).norm()) / max(nz, 1e-300))
+        rel_p.append(float((y - z).norm()) / max(nz, 1e-300))
+    return *(t ** 0.5 for t in sums), cos, rel_k, rel_p
 
 
 def _kernels_against_plain(torch, St, topt, ops, fa, sd, cfg, params, b,
-                           card, tag="s2"):
-    """The first step's gradients through the kernels, through their
-    plain versions, and through the plain versions in float64. Held:
+                           card, clock, tag="s2"):
+    """The first step's gradients through the plain versions in float64
+    (kept on the host), through the kernels and through their plain
+    versions. Held:
     the kernels against the plain versions, loss within TRAIN_LOSS_RTOL
     and every leaf's cosine at least TRAIN_MIN_COS; against float64,
     every leaf of the kernels' gradient no further than twice the plain
@@ -3548,19 +3821,21 @@ def _kernels_against_plain(torch, St, topt, ops, fa, sd, cfg, params, b,
     # matrices for their backward: recompute each block (remat "full",
     # the same arithmetic, bit for bit on the card)
     remat = cfg.with_overrides(remat="full")
-    g_k, loss_k = _grads_on_host(torch, St, topt, ops, None, cfg, params, b)
-    g_p, loss_p = _grads_on_host(torch, St, topt, ops, plain, remat, params,
-                                 b)
-    p64 = topt.tree_map(lambda t: t.double(), params)
-    g_64, loss_64 = _grads_on_host(torch, St, topt, ops, plain, remat, p64,
-                                   b)
-    del p64
-    torch.cuda.empty_cache()
-    dev = params["ln_f"].device
-    gn_k, gn_p, cos, _ = _grad_stats(torch, g_k, g_p, dev)
-    _, gn_64, _, rel_k = _grad_stats(torch, g_k, g_64, dev)
-    _, _, _, rel_p = _grad_stats(torch, g_p, g_64, dev)
+    with clock.span(f"{tag} gradients in float64"):
+        p64 = topt.tree_map(lambda t: t.double(), params)
+        g_64, loss_64 = _grads(torch, St, topt, ops, plain, remat, p64, b,
+                               host=True)
+        del p64
+        torch.cuda.empty_cache()
+    with clock.span(f"{tag} gradients through the kernels"):
+        g_k, loss_k = _grads(torch, St, topt, ops, None, cfg, params, b)
+    with clock.span(f"{tag} gradients through the plain versions"):
+        g_p, loss_p = _grads(torch, St, topt, ops, plain, remat, params, b)
+    with clock.span(f"{tag} gradient stats"):
+        gn_k, gn_p, gn_64, cos, rel_k, rel_p = _grad_stats(torch, g_k, g_p,
+                                                           g_64)
     del g_k, g_p, g_64
+    torch.cuda.empty_cache()
     norm_tol = max(TRAIN_NORM_RTOL, 2 * max(rel_p))
     log(f"({tag}) the first step's gradients, kernels / plain / plain in "
         f"float64: loss {loss_k} / {loss_p} / {loss_64}, global norm "
@@ -3576,13 +3851,27 @@ def _kernels_against_plain(torch, St, topt, ops, fa, sd, cfg, params, b,
                              "the step through the plain versions disagree")
 
 
-def _lm_run(train, argv, init):
-    """``train.main(argv)`` with ``init_params`` replaced by ``init``, its
-    output kept off stdout."""
+def _drawn_on_cpu(specs, seed, _dtype, device):
+    """(s3)'s ``init_params``: float32 parameters drawn on the CPU, then
+    moved to ``device``, so the card and the CPU start from the same."""
+    import torch
+
+    from repro_torch.models.module import init_params
+    from repro_torch.optim.optimizers import tree_map
+
+    p = init_params(specs, seed, torch.float32, "cpu")
+    return tree_map(lambda t: t.to(device), p)
+
+
+def _lm_main(argv):
+    """``train.main(argv)`` with its parameters from :func:`_drawn_on_cpu`,
+    its output kept off stdout."""
     import io
 
+    from repro_torch.launch import train
+
     real = train.init_params
-    train.init_params = init
+    train.init_params = _drawn_on_cpu
     try:
         with contextlib.redirect_stdout(io.StringIO()):
             return train.main(argv)
@@ -3590,9 +3879,21 @@ def _lm_run(train, argv, init):
         train.init_params = real
 
 
-def phase_s_cli(torch, np, card, counters, ops):
+LM_RUNS = [(a, x) for a in LM_ARCHS for x in ([], LM_SGD)] + \
+    [("zamba2-7b", ["--lm-tau", "2"] + x) for x in ([], LM_SGD)]
+
+
+def start_s(jobs):
+    """(s3)'s CPU sides: each --mode lm run of LM_RUNS."""
+    for arch, extra in LM_RUNS:
+        jobs.start(f"s3 {' '.join([arch] + extra)} CPU", _lm_main,
+                   LM_ARGV + ["--arch", arch] + extra + ["--device", "cpu"])
+
+
+def phase_s_cli(np, card, counters, jobs, clock):
     """(s3) --mode lm for the smoke configs of LM_ARCHS and --lm-tau 2, on
-    the card and on the CPU from the same parameters (drawn on the CPU).
+    the card, each against its CPU side (:func:`start_s`) from the same
+    parameters (drawn on the CPU).
     With LM_SGD every step's loss within LM_RTOL; at
     the CLI's defaults (AdamW) the first step's loss within LM_RTOL and
     every loss finite. The hybrid smoke config's trajectory is chaotic
@@ -3602,21 +3903,16 @@ def phase_s_cli(torch, np, card, counters, ops):
     every weight whatever its gradient's size, so a rounding difference
     that flips a near-zero gradient's sign is a whole step). SGD at lr
     0.01 moves them by < 5e-7. Launch counts exact, moved_frac equal."""
-    (_, _, _, train, T, init_params, _, topt) = _lm_modules()
+    from repro_torch.launch import train
 
-    def drawn(specs, seed, _dtype, device):
-        p = init_params(specs, seed, torch.float32, "cpu")
-        return topt.tree_map(lambda t: t.to(device), p)
-
-    runs = [(a, x) for a in LM_ARCHS for x in ([], LM_SGD)] + \
-        [("zamba2-7b", ["--lm-tau", "2"] + x) for x in ([], LM_SGD)]
-    for arch, extra in runs:
+    for arch, extra in LM_RUNS:
         argv = LM_ARGV + ["--arch", arch] + extra
         for c in counters.values():
             c.reset_launches()
-        on_card = _lm_run(train, argv, drawn)
+        tag = " ".join([arch] + extra)
+        on_card = clock.call(f"s3 {tag} card", _lm_main, argv)
         launches = {n: c.launches for n, c in counters.items()}
-        on_cpu = _lm_run(train, argv + ["--device", "cpu"], drawn)
+        on_cpu = jobs.collect(f"s3 {tag} CPU")
         a, b = np.array(on_card["losses"]), np.array(on_cpu["losses"])
         rel = np.abs(a - b) / np.abs(b)
         held = rel if "sgd" in extra else rel[:1]
@@ -3858,7 +4154,7 @@ def attention_site(torch, np, fa, name, entry, launches, flush):
 
 
 def _train_cell(torch, np, card, counters, ops, fa, sd, cuda, tag, cfg, B, S,
-                check_grads):
+                check_grads, clock):
     """AdamW at the CLI's lr on B x S token batches routed and weighted by
     lm_movement_inputs (an enc-dec arch's frames seeded): (with
     ``check_grads``) the first step's gradients
@@ -3891,7 +4187,7 @@ def _train_cell(torch, np, card, counters, ops, fa, sd, cuda, tag, cfg, B, S,
 
     if check_grads:
         _kernels_against_plain(torch, St, topt, ops, fa, sd, cfg, params,
-                               St.route_batch(batch(0)), card, tag)
+                               St.route_batch(batch(0)), card, clock, tag)
         g, m, _ = St.grads_of(params, St.route_batch(batch(0)), cfg)
         router = g["blocks"]["moe"]["router"]
         rnorm, aux = float(router.norm()), float(m["aux"])
@@ -4101,13 +4397,25 @@ def _check_cell(torch, np, card, ops, fa, sd, cuda, arch):
                              "explains")
 
 
-def phase_t_zoo(torch, np, card, counters, ops, fa, sd, cuda):
-    """(t1)-(t6), then kernel 3 at the new shapes. Returns the sites."""
+def phase_t_train(torch, np, card, counters, ops, fa, sd, cuda, clock):
+    """(t3), olmoe's training cell; run before the rest of (t), so that
+    the CPU sides' last jobs run beside its card work, not beside the
+    host-bound decodes of (t1), (t2) and (t4)."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(OLMOE).with_overrides(num_layers=MOE_TRAIN_LAYERS)
+    return _train_cell(torch, np, card, counters, ops, fa, sd, cuda, "t3",
+                       cfg, _moe_train_batch(torch, card, cfg), MOE_TRAIN_S,
+                       check_grads=True, clock=clock)
+
+
+def phase_t_zoo(torch, np, card, counters, ops, fa, sd, cuda, clock, cells):
+    """(t1), (t2), (t4)-(t6) into ``cells``, which holds (t3)'s, then
+    kernel 3 at the new shapes. Returns the sites and the cells."""
     from repro_torch.configs.registry import get_config
 
     flush = flush_buffer(torch, "cuda")
     sites = []
-    cells = {}
 
     def time_sites(first, names, launches):
         for key, name in names.items():
@@ -4116,37 +4424,40 @@ def phase_t_zoo(torch, np, card, counters, ops, fa, sd, cuda):
         first.clear()
         torch.cuda.empty_cache()
 
-    cells["t1"], first = _prefill_cell(torch, np, card, counters, ops, cuda,
-                                       "t1", get_config(OLMOE), OLMOE_B,
-                                       OLMOE_S)
-    time_sites(first, {(OLMOE_S, OLMOE_S, True): "olmoe-1b-7b prefill"},
-               cells["t1"]["launches"]["flash_attention"])
-    cfg = get_config(MIXTRAL).with_overrides(num_layers=MIXTRAL_LAYERS)
-    cells["t2"], first = _prefill_cell(torch, np, card, counters, ops, cuda,
-                                       "t2", cfg, MIXTRAL_B, MIXTRAL_S)
-    time_sites(first, {(MIXTRAL_S, MIXTRAL_S, True): "mixtral-8x7b prefill"},
-               cells["t2"]["launches"]["flash_attention"])
-    cfg = get_config(OLMOE).with_overrides(num_layers=MOE_TRAIN_LAYERS)
-    cells["t3"] = _train_cell(torch, np, card, counters, ops, fa, sd, cuda,
-                              "t3", cfg, _moe_train_batch(torch, card, cfg),
-                              MOE_TRAIN_S, check_grads=True)
-    cfg = get_config(WHISPER)
-    S_w = cfg.max_positions
-    cells["t4"], first = _prefill_cell(torch, np, card, counters, ops, cuda,
-                                       "t4", cfg, WHISPER_B, S_w)
-    time_sites(first, {(cfg.encoder_seq, cfg.encoder_seq, False):
-                       "whisper-large-v3 encoder",
-                       (S_w, cfg.encoder_seq, False):
-                       "whisper-large-v3 cross"},
-               cells["t4"]["launches"]["flash_attention"])
-    cells["t4_train"] = _train_cell(torch, np, card, counters, ops, fa, sd,
-                                    cuda, "t4", cfg, WHISPER_B, S_w,
-                                    check_grads=False)
-    cells["t5"], _ = _prefill_cell(torch, np, card, counters, ops, cuda, "t5",
-                                   get_config(PHI3V), PHI3V_B, PHI3V_S,
-                                   serve_too=False)
-    for arch in (OLMOE, WHISPER):
-        _check_cell(torch, np, card, ops, fa, sd, cuda, arch)
+    with clock.span("t1"):
+        cells["t1"], first = _prefill_cell(
+            torch, np, card, counters, ops, cuda, "t1", get_config(OLMOE),
+            OLMOE_B, OLMOE_S)
+        time_sites(first, {(OLMOE_S, OLMOE_S, True): "olmoe-1b-7b prefill"},
+                   cells["t1"]["launches"]["flash_attention"])
+    with clock.span("t2"):
+        cfg = get_config(MIXTRAL).with_overrides(num_layers=MIXTRAL_LAYERS)
+        cells["t2"], first = _prefill_cell(
+            torch, np, card, counters, ops, cuda, "t2", cfg, MIXTRAL_B,
+            MIXTRAL_S)
+        time_sites(first, {(MIXTRAL_S, MIXTRAL_S, True):
+                           "mixtral-8x7b prefill"},
+                   cells["t2"]["launches"]["flash_attention"])
+    with clock.span("t4"):
+        cfg = get_config(WHISPER)
+        S_w = cfg.max_positions
+        cells["t4"], first = _prefill_cell(
+            torch, np, card, counters, ops, cuda, "t4", cfg, WHISPER_B, S_w)
+        time_sites(first, {(cfg.encoder_seq, cfg.encoder_seq, False):
+                           "whisper-large-v3 encoder",
+                           (S_w, cfg.encoder_seq, False):
+                           "whisper-large-v3 cross"},
+                   cells["t4"]["launches"]["flash_attention"])
+        cells["t4_train"] = _train_cell(
+            torch, np, card, counters, ops, fa, sd, cuda, "t4", cfg,
+            WHISPER_B, S_w, check_grads=False, clock=clock)
+    with clock.span("t5"):
+        cells["t5"], _ = _prefill_cell(
+            torch, np, card, counters, ops, cuda, "t5", get_config(PHI3V),
+            PHI3V_B, PHI3V_S, serve_too=False)
+    with clock.span("t6"):
+        for arch in (OLMOE, WHISPER):
+            _check_cell(torch, np, card, ops, fa, sd, cuda, arch)
     log(f"(t) cells {json.dumps(cells, default=float)} [{card}]")
     return sites, cells
 
@@ -4857,6 +5168,44 @@ def phase_w_examples(card):
         raise AssertionError(f"(w3) kernel launches: {planning} {launches}")
 
 
+# The phases in run order. "X/cpu" collects (X)'s CPU sides, which run
+# as jobs (JOB_PLAN), and holds (X)'s card side to them.
+PHASES = ("a", "b", "c", "d", "e", "f", "g", "h", "i", "j", "v3", "k", "l",
+          "m", "n", "o", "p", "q", "r", "s", "t", "b/cpu", "g/cpu", "n/cpu",
+          "o/cpu", "p/cpu", "u", "v", "w")
+# (starter, the phase that collects its jobs). Every job starts as (r3)
+# begins, in this order, beside the card work of (r3), (s) and (t3):
+# (s3)'s first, since (s) collects them itself, right after (s2). They
+# have settled before (t1).
+JOB_PLAN = ((start_s, "s"), (start_b, "b/cpu"), (start_g, "g/cpu"),
+            (start_n, "n/cpu"), (start_o, "o/cpu"), (start_p, "p/cpu"))
+
+
+def job_pool_size(cpus):
+    """(workers, torch threads each) for a host of ``cpus`` CPUs: one CPU
+    left to the process that feeds the card (the jobs run while its work
+    is on the card), one thread a worker (the jobs are many and small:
+    one thread each keeps them busy), at most 8 workers."""
+    return min(8, max(1, cpus - 1)), 1
+
+
+def run_phases(phases, clock):
+    """Each (name, fn) of ``phases`` in turn, timed and reported, a
+    failure with its traceback; the names of those that failed."""
+    failed = []
+    for name, fn in phases:
+        t0 = time.perf_counter()
+        try:
+            fn()
+        except Exception:              # report every phase, then fail
+            traceback.print_exc()
+            failed.append(name)
+        clock.seconds[f"({name})"] = round(time.perf_counter() - t0, 3)
+        log(f"phase ({name}) {'FAILED' if name in failed else 'ok'} "
+            f"in {time.perf_counter() - t0:.1f} s [{clock.card}]")
+    return failed
+
+
 def main() -> int:
     import torch
 
@@ -4885,11 +5234,20 @@ def main() -> int:
                 "flash_attention": fa, "ssd_scan": sd}
     card = card_line()
     cuda = resolve_device("cuda")
+    clock = Clock(card)
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
         f"{torch.version.cuda} device {torch.cuda.get_device_name(0)} "
         f"[{card}]")
+    log(f"host: os.cpu_count() {os.cpu_count()}, usable CPUs "
+        f"{len(os.sched_getaffinity(0))}, torch intra-op threads "
+        f"{torch.get_num_threads()}, inter-op threads "
+        f"{torch.get_num_interop_threads()} [{card}]")
+    jobs = Jobs(*job_pool_size(os.cpu_count() or 1), clock)
+    log(f"CPU sides as jobs: {jobs.workers} spawned workers of "
+        f"{jobs.threads} torch threads each [{card}]")
     t0 = time.perf_counter()
     libs = _build.build(list(counters))
+    clock.add("build", time.perf_counter() - t0)
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s [{card}]")
     for name, path in libs.items():
         log(path.with_suffix(".log").read_text().strip())
@@ -4930,8 +5288,11 @@ def main() -> int:
         state["j"] = phase_j_serve(torch, np, card, counters, ops, cuda)
         state["warm"] = {"j": state["j"]["warm_s"]}
 
+    def b():
+        state["b"] = phase_b_defaults(torch, np, card, counters, cuda, clock)
+
     def k_():
-        phase_k_decode_check(torch, np, card, state["j"], ops, fa, sd)
+        phase_k_decode_check(torch, np, card, state["j"], ops, fa, sd, clock)
 
     def l_():
         served = state.pop("j")
@@ -4956,103 +5317,110 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     def n_():
-        phase_n_convex_card_vs_cpu(torch, np, card, cuda)
-        phase_n_fog_e_sqrt(torch, np, card, counters, cuda)
-        phase_n_discard_fog(torch, np, card, counters, cuda, og)
-        phase_n_defaults_e_sqrt(np, card, cuda)
+        state["n"] = clock.run(phase_n_convex_card_vs_cpu, card, cuda, clock)
+        clock.run(phase_n_fog_e_sqrt, torch, np, card, counters, cuda)
+        clock.run(phase_n_discard_fog, torch, np, card, counters, cuda, og)
+        clock.run(phase_n_defaults_e_sqrt, np, card, cuda, clock)
 
     def o():
-        problems = phase_o_kernel(torch, np, og, cuda, card)
-        phase_o_fog(torch, np, og, ops, counters, cuda, card, problems)
-        phase_o_small(torch, np, card)
-        phase_o_table5(np, cuda, card)
+        problems = clock.run(phase_o_kernel, torch, np, og, cuda, card)
+        clock.run(phase_o_fog, torch, np, og, ops, counters, cuda, card,
+                  problems)
+        state["o"] = (clock.run(phase_o_small, torch, np, clock),
+                      clock.run(phase_o_table5, cuda, clock))
 
     def e():
         state["e_sites"] = phase_e_segment(torch, np, sr, eng, card, cuda)
 
     def q():
-        keep = phase_q_sparse(torch, np, card, counters, cuda)
-        sites = [phase_q_counts(torch, np, card, sr, keep, cuda)]
+        keep = clock.run(phase_q_sparse, torch, np, card, counters, cuda)
+        sites = [clock.run(phase_q_counts, torch, np, card, sr, keep, cuda)]
         del keep
-        sites += phase_q_hier(torch, np, card, counters, ops, sr, cuda)
+        sites += clock.run(phase_q_hier, torch, np, card, counters, ops, sr,
+                           cuda)
         kernels["segment_reduce"]["sites"] = state.pop("e_sites") + sites
-        phase_q_small(np, card, cuda)
+        clock.run(phase_q_small, np, card, cuda, clock)
 
     def r():
-        phase_r_tables(np, card, cuda)
-        sites = phase_r_full_width(torch, np, card, counters, ops, sr, cuda)
+        clock.run(phase_r_tables, np, card, cuda, clock)
+        sites = clock.run(phase_r_full_width, torch, np, card, counters, ops,
+                          sr, cuda)
+        for starter, _ in JOB_PLAN:
+            starter(jobs)
         kernels["segment_reduce"].setdefault("sites", []).extend(
-            phase_r_kernel(torch, np, card, sr, cuda, sites))
+            clock.run(phase_r_kernel, torch, np, card, sr, cuda, sites))
         del sites
         torch.cuda.empty_cache()
 
     def s_():
-        phase_s_grads(torch, fa, sd, cuda, card)
-        train = phase_s_train(torch, np, card, counters, ops, fa, sd, cuda)
+        clock.run(phase_s_grads, torch, fa, sd, cuda, card)
+        train = clock.run(phase_s_train, torch, np, card, counters, ops, fa,
+                          sd, cuda, clock)
         state["s2"] = train
         kernels.setdefault("flash_attention", {})["train_step_launches"] = \
             train["attention"]
         kernels.setdefault("ssd_scan", {})["train_step_launches"] = \
             train["ssd"]
-        phase_s_cli(torch, np, card, counters, ops)
+        clock.run(phase_s_cli, np, card, counters, jobs, clock)
 
     def t():
-        # (u4)'s dry runs trace on the host beside (t)'s card work
+        cells = {"t3": clock.call("t3", phase_t_train, torch, np, card,
+                                  counters, ops, fa, sd, cuda, clock)}
+        jobs.settle()
+        # (u4)'s dry runs trace on the host beside the rest of (t)
         state["dry"] = _dryrun_start(_dryrun_runs())
         kernels["flash_attention"]["sites"], state["t"] = phase_t_zoo(
-            torch, np, card, counters, ops, fa, sd, cuda)
+            torch, np, card, counters, ops, fa, sd, cuda, clock, cells)
 
     def u():
         kernels["segment_reduce"].setdefault("sites", []).append(
-            phase_u_sharded(torch, np, card, counters, ops, sr, cuda))
-        phase_u_roofline(np, card, state)
-        phase_u_dryrun(card, state.pop("dry", None))
+            clock.run(phase_u_sharded, torch, np, card, counters, ops, sr,
+                      cuda))
+        clock.run(phase_u_roofline, np, card, state)
+        clock.run(phase_u_dryrun, card, state.pop("dry", None))
 
     def v3():
         phase_v_streaming(torch, np, card, counters, state["j"], cuda)
 
     def v():
-        phase_v_sanitize(torch, np, card, counters)
-        phase_v_raises(torch, np, card, cuda)
+        clock.run(phase_v_sanitize, torch, np, card, counters)
+        clock.run(phase_v_raises, torch, np, card, cuda)
 
     def w():
-        phase_w_rows(card)
-        phase_w_examples(card)
+        clock.run(phase_w_rows, card)
+        clock.run(phase_w_examples, card)
 
     def p():
-        phase_p_fog(torch, np, card, counters, state["c_train_s"])
-        phase_p_tiered(torch, np, card, counters, ops, sr)
-        phase_p_noop_resume(torch, np, card, cuda)
-        phase_p_small(np, card)
-        phase_p_study(np, cuda, card)
-        phase_p_serve(card)
+        clock.run(phase_p_fog, torch, np, card, counters, state["c_train_s"])
+        clock.run(phase_p_tiered, torch, np, card, counters, ops, sr)
+        clock.run(phase_p_noop_resume, torch, np, card, cuda)
+        state["p"] = (clock.run(phase_p_small, clock),
+                      clock.run(phase_p_study, cuda, clock))
+        clock.run(phase_p_serve, card)
 
-    phases = [("a", lambda: phase_a_kernels(torch, og, cuda)),
-              ("b", lambda: phase_b_defaults(torch, np, card, counters, cuda)),
-              ("c", c), ("d", d),
-              ("e", e),
-              ("f", f), ("g", lambda: phase_g_tiered_defaults(np, card)),
-              ("h", h),
-              ("i", lambda: phase_i_new_kernels(torch, fa, sd, cuda)),
-              ("j", j), ("v3", v3), ("k", k_), ("l", l_),
-              ("m", lambda: phase_m_smoke_configs(torch, np, card, counters,
-                                                  cuda)),
-              ("n", n_), ("o", o), ("p", p), ("q", q), ("r", r),
-              ("s", s_), ("t", t), ("u", u), ("v", v), ("w", w)]
-    failed = []
+    def g():
+        state["g"] = phase_g_tiered_defaults(clock)
+
+    fns = {"a": lambda: phase_a_kernels(torch, og, cuda), "b": b, "c": c,
+           "d": d, "e": e, "f": f, "g": g, "h": h,
+           "i": lambda: phase_i_new_kernels(torch, fa, sd, cuda),
+           "j": j, "v3": v3, "k": k_, "l": l_,
+           "m": lambda: phase_m_smoke_configs(torch, np, card, counters,
+                                              cuda),
+           "n": n_, "o": o, "p": p, "q": q, "r": r, "s": s_,
+           "b/cpu": lambda: collect_b(np, card, jobs, state.pop("b")),
+           "g/cpu": lambda: collect_g(np, card, jobs, state.pop("g")),
+           "n/cpu": lambda: collect_n(card, cuda, jobs, state.pop("n")),
+           "o/cpu": lambda: collect_o(np, card, jobs, *state.pop("o")),
+           "p/cpu": lambda: collect_p(np, card, jobs, *state.pop("p")),
+           "t": t, "u": u, "v": v, "w": w}
     try:
-        for name, fn in phases:
-            t0 = time.perf_counter()
-            try:
-                fn()
-            except Exception:              # report every phase, then fail
-                traceback.print_exc()
-                failed.append(name)
-            log(f"phase ({name}) {'FAILED' if name in failed else 'ok'} "
-                f"in {time.perf_counter() - t0:.1f} s [{card}]")
-    finally:                               # dry runs (u) did not collect
+        failed = run_phases([(name, fns[name]) for name in PHASES], clock)
+    finally:            # dry runs (u) and jobs no phase collected
         for proc, *_ in state.pop("dry", []):
             proc.kill()
+        jobs.close()
+    log(json.dumps({"seconds": clock.seconds}))
     if failed:
         print(f"chip_smoke: phases failed: {failed}", file=sys.stderr)
         return 1
