@@ -14,12 +14,20 @@ The CPU sides of the card-vs-CPU checks of (b), (g), (n), (o), (p) and
 ``--device cpu``, the same argv and seeds, in a pool of spawned worker
 processes (``job_pool_size``: one CPU left to this process, one torch
 thread a worker, niced), started as (r3) begins and so beside the card
-work of (r3), (s2) and (t3), and settled before (t1). (s) collects its
+work of (r3), (s2) and (t3), (s)'s first and then longest first
+(``start_jobs``), and settled before (t1). (s) collects its
 own jobs; the phases ``b/cpu``, ``g/cpu``, ``n/cpu``, ``o/cpu`` and
 ``p/cpu`` after (t) collect the others and hold each to its card side,
 as those phases did in line. A job that raises or exits fails its collecting phase; one that has not
 returned JOB_TIMEOUT s after the first job started fails it too; the
 pool's workers are stopped when the phases end, whatever they hold.
+
+The phases build each fog problem of ``launch/train.py`` once for each
+value of the flags ``build_problem`` reads (``ProblemMemo``): a run,
+or a phase that rebuilds a run's problem to check its plan, gets a deep
+copy of that build, bit for bit the build and sharing no array with it.
+The job pool's workers start with (n) and import the jobs' modules
+beside (n) and (o); (w3)'s examples start with (v) and run beside it.
 
 (a) the Theorem-3 kernel against its plain PyTorch version on the
     card, at a sweep of shapes plus tie and isolated-row cases, rows
@@ -130,8 +138,9 @@ pool's workers are stopped when the phases end, whatever they hold.
     setting-E inputs, on the card against the port on the CPU from the
     same z0: plans within 1e-3 and objectives within rtol 1e-4, or, on
     setting-E inputs, where a 1e-7 move of z0 moves the card's own plan
-    by more than 1e-3, within twice that spread; batched B=3 within
-    1e-5 of sequential on the card. Then ``--setting E --error-model
+    by more than 1e-3, within twice that spread (the five points
+    z0·(1 + k·1e-7), k = -2..2, in one batched descent); batched B=3
+    within 1e-5 of sequential on the card. Then ``--setting E --error-model
     sqrt`` at fog scale: the plan feasible, within the capacities to
     1e-6, its objective no more than 1.02x the no-movement and the
     all-discard plans', the history complete and finite; the plan's
@@ -436,12 +445,15 @@ JOB_TIMEOUT = 600        # s from the first job's start to the last's end
 
 def _job_init(threads):
     """A job worker's start: no card (its jobs are CPU sides), its own
-    intra-op thread count, and a lower priority than the process that
-    feeds the card and the dry runs, whose host time is measured."""
+    intra-op thread count, a lower priority than the process that feeds
+    the card and the dry runs, whose host time is measured, and the
+    modules its jobs call, imported before the first job comes."""
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
     os.nice(10)
     import torch
     torch.set_num_threads(threads)
+    import repro_torch.launch.tables  # noqa: F401
+    import repro_torch.launch.train  # noqa: F401
 
 
 def _job(fn, args, kwargs):
@@ -466,8 +478,8 @@ class Jobs:
     each collected by the phase that compares it with the card's side.
     A job that raises raises in its collecting phase; one that has not
     returned JOB_TIMEOUT s after the first job started fails it too. The
-    pool starts with the first job; :meth:`close` stops its workers,
-    whatever they hold."""
+    pool starts with :meth:`open` or the first job, whichever comes
+    first; :meth:`close` stops its workers, whatever they hold."""
 
     def __init__(self, workers, threads, clock):
         self.workers, self.threads, self.clock = workers, threads, clock
@@ -475,13 +487,19 @@ class Jobs:
         self.pending = {}
         self.deadline = None
 
-    def start(self, key, fn, *args, **kwargs):
+    def open(self):
+        """Start the workers, which import the jobs' modules while this
+        process goes on."""
         if self.pool is None:
             import multiprocessing
 
             self.pool = multiprocessing.get_context("spawn").Pool(
                 self.workers, initializer=_job_init,
                 initargs=(self.threads,))
+
+    def start(self, key, fn, *args, **kwargs):
+        self.open()
+        if self.deadline is None:
             self.deadline = time.perf_counter() + JOB_TIMEOUT
         self.pending[key] = self.pool.apply_async(_job, (fn, args, kwargs))
 
@@ -513,6 +531,95 @@ class Jobs:
             self.pool.terminate()
             self.pool.join()
             self.pool = None
+
+
+# build_problem's reads of ``args`` are direct, or through the one helper
+# it hands ``args`` to
+PROBLEM_READERS = ("build_problem", "schedule_kind")
+
+
+def problem_flags(train) -> tuple[str, ...]:
+    """The ``args`` attributes that ``train.build_problem`` reads, itself
+    or through ``train.schedule_kind``, from their source. Refuses a
+    source that hands ``args`` to any other call, whose reads it cannot
+    see."""
+    import ast
+    import inspect
+    import textwrap
+
+    flags = set()
+    for name in PROBLEM_READERS:
+        for node in ast.walk(ast.parse(textwrap.dedent(inspect.getsource(
+                getattr(train, name))))):
+            if isinstance(node, ast.Attribute) and \
+                    isinstance(node.value, ast.Name) and \
+                    node.value.id == "args":
+                flags.add(node.attr)
+            elif isinstance(node, ast.Call) and any(
+                    isinstance(a, ast.Name) and a.id == "args"
+                    for a in node.args + [k.value for k in node.keywords]) \
+                    and not (isinstance(node.func, ast.Name)
+                             and node.func.id in PROBLEM_READERS):
+                raise RuntimeError(f"train.{name} hands args to "
+                                   f"{ast.unparse(node.func)}")
+    return tuple(sorted(flags))
+
+
+class ProblemMemo:
+    """``train.build_problem`` built once for each value of the flags it
+    reads (:func:`problem_flags`): every call returns a deep copy of
+    that first build, new arrays and stream and schedule objects bit for
+    bit the build's. A copy, not the build: the engine's device cache is
+    keyed on an array's ``id`` (so a run finds nothing of an earlier
+    run's on the card, as with a build of its own), and a run that
+    changes its problem in place (``run_network_aware`` empties the
+    streams of crashed devices) leaves the next run's untouched.
+
+    As a context manager it stands in for ``train.build_problem`` for the
+    span of the block and restores it however the block ends; its
+    builds, hits and the seconds the hits saved then go to the clock's
+    seconds."""
+
+    def __init__(self, train, clock):
+        self.train, self.clock = train, clock
+        self.build = train.build_problem
+        self.flags = problem_flags(train)
+        self.defaults = train.parse_args([])
+        self.cache: dict = {}            # key -> (bundle, build seconds)
+        self.builds = self.hits = 0
+        self.saved_s = 0.0
+
+    def key(self, args) -> tuple:
+        return tuple(getattr(args, f) for f in self.flags)
+
+    def __call__(self, args) -> dict:
+        import copy
+
+        key = self.key(args)
+        if key not in self.cache:
+            t0 = time.perf_counter()
+            self.cache[key] = (self.build(args), time.perf_counter() - t0)
+            self.builds += 1
+            tag = ", ".join(f"{f} {v}" for f, v in zip(self.flags, key)
+                            if v != getattr(self.defaults, f))
+            self.clock.add(f"problem build {self.builds} ({tag})",
+                           self.cache[key][1])
+            return copy.deepcopy(self.cache[key][0])
+        t0 = time.perf_counter()
+        out = copy.deepcopy(self.cache[key][0])
+        self.hits += 1
+        self.saved_s += self.cache[key][1] - (time.perf_counter() - t0)
+        return out
+
+    def __enter__(self):
+        self.train.build_problem = self
+        return self
+
+    def __exit__(self, *exc):
+        self.train.build_problem = self.build
+        self.clock.seconds["problem builds"] = self.builds
+        self.clock.seconds["problem copies (hits)"] = self.hits
+        self.clock.add("problem hits saved", self.saved_s)
 
 
 def _smi(query: str) -> str:
@@ -1837,15 +1944,24 @@ def _objective(mv, plan, tr, D, em):
     return mv.plan_cost(plan, tr, D, error_model=em)["total"]
 
 
-def _card_spread(mv, tr, adj, D, em, z0, base, cuda):
-    """The card's own plans from z0·(1 + k·1e-7), k = ±1, ±2: the
-    largest |Δs|, |Δr| from ``base`` and the objectives' range."""
-    runs = [mv.solve_convex(tr, adj, D, error_model=em,
-                            z0=z0 * (1 + k * 1e-7), device=cuda)
-            for k in (-2, -1, 1, 2)]
-    objs = [_objective(mv, p, tr, D, em) for p in runs + [base]]
+SPREAD_KS = (-2, -1, 0, 1, 2)
+
+
+def _card_spread(mv, tr, adj, D, em, z0, cuda):
+    """The card's own plans from z0·(1 + k·1e-7), k in SPREAD_KS, in one
+    batched descent: the largest |Δs|, |Δr| of the moved plans from the
+    batch's own k = 0 plan and the five objectives' range."""
+    import torch
+
+    runs = mv.solve_convex_batched(
+        [tr] * len(SPREAD_KS), [adj] * len(SPREAD_KS),
+        [D] * len(SPREAD_KS), error_model=em,
+        z0=torch.stack([z0 * (1 + k * 1e-7) for k in SPREAD_KS]),
+        device=cuda)
+    base = runs[SPREAD_KS.index(0)]
+    objs = [_objective(mv, p, tr, D, em) for p in runs]
     return (max(max(abs(p.s - base.s).max(), abs(p.r - base.r).max())
-                for p in runs), max(objs) - min(objs))
+                for p in runs if p is not base), max(objs) - min(objs))
 
 
 CONVEX_RUNS = [(setting, em) for setting in ("B", "E")
@@ -1869,13 +1985,10 @@ def _convex_problems():
     return probs, mv.convex_z0(T, n, [0])[0]
 
 
-def _convex_cpu(setting, em):
-    """One of (n)'s convex solves on the CPU, its inputs built here from
-    CONVEX_ARGV as the card's are."""
+def _convex_cpu(tr_, adj, D_, em, z0):
+    """One of (n)'s convex solves on the CPU, from the card's inputs."""
     from repro_torch.core import movement as mv
 
-    probs, z0 = _convex_problems()
-    tr_, adj, D_ = probs[setting]
     return mv.solve_convex(tr_, adj, D_, error_model=em, z0=z0,
                            device="cpu")
 
@@ -1898,10 +2011,13 @@ def phase_n_convex_card_vs_cpu(card, cuda, clock):
     seeds = [0, 1, 2]
     batched = mv.solve_convex_batched([tr_] * 3, [adj] * 3, [D_] * 3,
                                       seeds=seeds, device=cuda)
+    # z0 is seed 0's point: got["B", "sqrt"] is the seed-0 solve (bit for
+    # bit solve_convex(seed=0) on an H100)
+    sequential = [got["B", "sqrt"]] + [
+        mv.solve_convex(tr_, adj, D_, seed=sd, device=cuda)
+        for sd in seeds[1:]]
     gap = max(max(abs(b.s - q.s).max(), abs(b.r - q.r).max())
-              for b, q in zip(batched, (
-                  mv.solve_convex(tr_, adj, D_, seed=sd, device=cuda)
-                  for sd in seeds)))
+              for b, q in zip(batched, sequential))
     log(f"(n) convex batched B=3 vs sequential on the card (setting-B "
         f"inputs, sqrt, seeds {seeds}): max |ds|,|dr| {gap} [{card}]")
     if gap > 1e-5:
@@ -1910,9 +2026,12 @@ def phase_n_convex_card_vs_cpu(card, cuda, clock):
 
 
 def start_n(jobs):
-    """(n)'s CPU sides: each convex solve of CONVEX_RUNS."""
+    """(n)'s CPU sides: each convex solve of CONVEX_RUNS, its inputs built
+    here from CONVEX_ARGV as the card's are."""
+    probs, z0 = _convex_problems()
     for setting, em in CONVEX_RUNS:
-        jobs.start(f"n convex {setting}/{em} CPU", _convex_cpu, setting, em)
+        jobs.start(f"n convex {setting}/{em} CPU", _convex_cpu,
+                   *probs[setting], em, z0)
 
 
 def collect_n(card, cuda, jobs, card_side):
@@ -1939,8 +2058,9 @@ def collect_n(card, cuda, jobs, card_side):
             # reference too (tests/test_torch_convex.py); hold the
             # card to twice its own spread under 1e-7 moves of z0
             s_spread, o_spread = _card_spread(mv, tr_, adj, D_, em, z0,
-                                              got, cuda)
-            note = (f"card's own spread from z0·(1 ± 1e-7, 2e-7): "
+                                              cuda)
+            note = (f"card's own spread from z0·(1 + k·1e-7), k = -2..2, "
+                    f"in one batched descent: "
                     f"plan {s_spread}, objective {o_spread}")
             if setting == "B" or not (
                     s_spread > PLAN_ATOL and d_plan <= 2 * s_spread
@@ -5127,17 +5247,24 @@ def phase_w_rows(card):
     return rows
 
 
-def phase_w_examples(card):
-    """(w3) the four examples on the card, side by side in subprocesses
-    with a timeout: each exits 0; the planning example launches kernel 1
-    once, and the serving example the attention kernel for qwen3-14b
-    and mixtral-8x7b and the scan kernel for mamba2-1.3b."""
+def _examples_start():
+    """The four examples started side by side in subprocesses, for
+    :func:`phase_w_examples`: ({script: process}, start). They start
+    with phase (v), whose timings none of the quoted numbers read."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    t0 = time.perf_counter()
-    procs = {name: subprocess.Popen(
+    return {name: subprocess.Popen(
         [sys.executable, str(ROOT / "examples" / name), *args],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
-        cwd=ROOT) for name, args in W_EXAMPLES}
+        cwd=ROOT) for name, args in W_EXAMPLES}, time.perf_counter()
+
+
+def phase_w_examples(card, started=None):
+    """(w3) the four examples on the card, side by side in subprocesses
+    (``started`` by :func:`_examples_start`, or started here) with a
+    timeout: each exits 0; the planning example launches kernel 1
+    once, and the serving example the attention kernel for qwen3-14b
+    and mixtral-8x7b and the scan kernel for mamba2-1.3b."""
+    procs, t0 = started or _examples_start()
     outs, failed = {}, []
     for name, p in procs.items():
         try:
@@ -5174,11 +5301,51 @@ PHASES = ("a", "b", "c", "d", "e", "f", "g", "h", "i", "j", "v3", "k", "l",
           "m", "n", "o", "p", "q", "r", "s", "t", "b/cpu", "g/cpu", "n/cpu",
           "o/cpu", "p/cpu", "u", "v", "w")
 # (starter, the phase that collects its jobs). Every job starts as (r3)
-# begins, in this order, beside the card work of (r3), (s) and (t3):
-# (s3)'s first, since (s) collects them itself, right after (s2). They
-# have settled before (t1).
+# begins (:func:`start_jobs`), beside the card work of (r3), (s) and
+# (t3); they have settled before (t1).
 JOB_PLAN = ((start_s, "s"), (start_b, "b/cpu"), (start_g, "g/cpu"),
             (start_n, "n/cpu"), (start_o, "o/cpu"), (start_p, "p/cpu"))
+# The seconds of each job that (t) settles, in a one-thread worker of
+# the pool of 7 on an H100 machine's 8-CPU host: only their order is
+# used.
+JOB_SECONDS = {
+    "b T=20 CPU": 49.347,
+    "g CPU": 49.423,
+    "n convex B/sqrt CPU": 31.35,
+    "n convex B/neg_G CPU": 40.003,
+    "n convex E/sqrt CPU": 31.529,
+    "n convex E/neg_G CPU": 40.571,
+    "o --churn 0.1 --replan oracle CPU": 11.503,
+    "o --churn 0.1 --replan predict CPU": 11.872,
+    "o --churn 0.1 --replan once CPU": 12.853,
+    "o --schedule flap CPU": 15.792,
+    "o --tiers 5@10,1@20 --churn 0.1 CPU": 12.081,
+    "o Table V CPU": 2.659,
+    "p5 --faults mixed --fault-rate 0.2 --quorum 0.4 CPU": 49.7,
+    "p5 --faults corrupt --fault-rate 0.3 --unguarded CPU": 48.152,
+    "p5 --tiers 5@10,1@20 --faults mixed --fault-rate 0.2 CPU": 49.206,
+    "p6 CPU": 17.758}
+
+
+class _Queued(list):
+    """A stand-in for :class:`Jobs` that keeps the jobs started on it."""
+
+    def start(self, key, fn, *args, **kwargs):
+        self.append((key, fn, args, kwargs))
+
+
+def start_jobs(jobs):
+    """Every job of JOB_PLAN: first those that a phase before (t)
+    collects, in the order it collects them (it waits for them), then
+    those that (t) settles, longest first by JOB_SECONDS, so that the
+    pool's last jobs are short ones and its workers finish together."""
+    early, late = _Queued(), _Queued()
+    for starter, collected_in in JOB_PLAN:
+        starter(early if PHASES.index(collected_in) < PHASES.index("t")
+                else late)
+    for key, fn, args, kwargs in early + sorted(
+            late, key=lambda job: -JOB_SECONDS[job[0]]):
+        jobs.start(key, fn, *args, **kwargs)
 
 
 def job_pool_size(cpus):
@@ -5226,6 +5393,7 @@ def main() -> int:
         from repro_torch.kernels import ops
         from repro_torch.kernels import segment_reduce as sr
         from repro_torch.kernels import ssd_scan as sd
+        from repro_torch.launch import train
     except ImportError as e:
         print(f"chip_smoke: cannot import the port from {ROOT / 'src'}: "
               f"{e}", file=sys.stderr)
@@ -5317,6 +5485,10 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     def n_():
+        # the jobs' workers start here and import the jobs' modules beside
+        # (n) and (o), whose times no quoted number reads, so that they are
+        # ready when the jobs start at (r3)
+        jobs.open()
         state["n"] = clock.run(phase_n_convex_card_vs_cpu, card, cuda, clock)
         clock.run(phase_n_fog_e_sqrt, torch, np, card, counters, cuda)
         clock.run(phase_n_discard_fog, torch, np, card, counters, cuda, og)
@@ -5345,8 +5517,7 @@ def main() -> int:
         clock.run(phase_r_tables, np, card, cuda, clock)
         sites = clock.run(phase_r_full_width, torch, np, card, counters, ops,
                           sr, cuda)
-        for starter, _ in JOB_PLAN:
-            starter(jobs)
+        start_jobs(jobs)
         kernels["segment_reduce"].setdefault("sites", []).extend(
             clock.run(phase_r_kernel, torch, np, card, sr, cuda, sites))
         del sites
@@ -5354,13 +5525,12 @@ def main() -> int:
 
     def s_():
         clock.run(phase_s_grads, torch, fa, sd, cuda, card)
-        train = clock.run(phase_s_train, torch, np, card, counters, ops, fa,
-                          sd, cuda, clock)
-        state["s2"] = train
+        s2 = state["s2"] = clock.run(phase_s_train, torch, np, card,
+                                     counters, ops, fa, sd, cuda, clock)
         kernels.setdefault("flash_attention", {})["train_step_launches"] = \
-            train["attention"]
+            s2["attention"]
         kernels.setdefault("ssd_scan", {})["train_step_launches"] = \
-            train["ssd"]
+            s2["ssd"]
         clock.run(phase_s_cli, np, card, counters, jobs, clock)
 
     def t():
@@ -5383,12 +5553,14 @@ def main() -> int:
         phase_v_streaming(torch, np, card, counters, state["j"], cuda)
 
     def v():
+        # (w3)'s examples run on the host beside (v)
+        state["examples"] = _examples_start()
         clock.run(phase_v_sanitize, torch, np, card, counters)
         clock.run(phase_v_raises, torch, np, card, cuda)
 
     def w():
         clock.run(phase_w_rows, card)
-        clock.run(phase_w_examples, card)
+        clock.run(phase_w_examples, card, state.pop("examples", None))
 
     def p():
         clock.run(phase_p_fog, torch, np, card, counters, state["c_train_s"])
@@ -5415,9 +5587,13 @@ def main() -> int:
            "p/cpu": lambda: collect_p(np, card, jobs, *state.pop("p")),
            "t": t, "u": u, "v": v, "w": w}
     try:
-        failed = run_phases([(name, fns[name]) for name in PHASES], clock)
-    finally:            # dry runs (u) and jobs no phase collected
+        with ProblemMemo(train, clock):
+            failed = run_phases([(name, fns[name]) for name in PHASES],
+                                clock)
+    finally:    # dry runs (u), examples (w) and jobs no phase collected
         for proc, *_ in state.pop("dry", []):
+            proc.kill()
+        for proc in state.pop("examples", ({},))[0].values():
             proc.kill()
         jobs.close()
     log(json.dumps({"seconds": clock.seconds}))

@@ -133,6 +133,31 @@ def test_every_job_is_picklable_and_collected_after_it_starts(cs):
     assert origins == {"b", "g", "n", "o", "p", "s"}
     assert len([k for k in all_keys if k.startswith("s3 ")]) == \
         len(cs.LM_RUNS) == 16
+    # start_jobs starts each once: (s)'s first, in the order (s) collects
+    # them, then the rest, which (t) settles, longest first
+    late = [k for k in all_keys if not k.startswith("s3 ")]
+    assert sorted(cs.JOB_SECONDS) == sorted(late)
+    rec = Recorder()
+    cs.start_jobs(rec)
+    n_s = len(cs.LM_RUNS)
+    assert rec.keys[:n_s] == all_keys[:n_s]
+    assert sorted(rec.keys[n_s:]) == sorted(late)
+    secs = [cs.JOB_SECONDS[k] for k in rec.keys[n_s:]]
+    assert secs == sorted(secs, reverse=True)
+
+
+def test_the_pool_takes_jobs_in_the_order_they_start(cs):
+    """start_jobs' order holds in the pool: a worker takes the jobs in
+    the order they were started (here one worker, so one after the
+    other)."""
+    jobs = _jobs(cs)
+    try:
+        for k in range(4):
+            jobs.start(k, time.time)
+        started = [jobs.collect(k, timeout=TIMEOUT) for k in range(4)]
+    finally:
+        jobs.close()
+    assert started == sorted(started)
 
 
 @pytest.mark.parametrize("cpus, want", [(1, (1, 1)), (2, (1, 1)),
